@@ -1,0 +1,50 @@
+"""dspmap_tpu_torch: the DSP map on PyTorch, with hand-written CUDA kernels
+for NVIDIA Hopper (sm_90a).
+
+A port of ``dspmap_tpu`` (which stays the reference): the same
+``MapConfig`` presets, the same per-frame step on the pool layout, the same
+readouts.  Tensors on the CPU run every stage in plain PyTorch; tensors on
+a CUDA card run the occupancy pool pass, the fused sweep and the
+measurement-update pair passes as CUDA kernels (``csrc/``, built by
+``nvcc`` at first use).  This package never imports jax.
+
+Quick start::
+
+    import dspmap_tpu_torch as dm
+    from dspmap_tpu_torch.utils import sim
+
+    cfg = dm.example_node_settings(dm.dsp_dynamic())
+    state = dm.init_state(cfg, seed=0, device="cuda")
+    step = dm.make_step(cfg)
+    for pts, n, pos, quat, t in sim.generate_sequence(10, cfg, seed=0):
+        state, out = step(state, dm.Frame(pts, n, pos, quat, t))
+    occ, centers, future, state = dm.get_occupancy_map(state, cfg, 0.2)
+"""
+
+from .config import (  # noqa: F401
+    MapConfig,
+    dsp_dynamic,
+    dsp_dynamic_multi_neighbors,
+    dsp_static,
+    large_urban,
+    example_node_settings,
+    performance_level_parameters,
+)
+from .state import (  # noqa: F401
+    MapState,
+    Particles,
+    EstimatorState,
+    RuntimeParams,
+    init_state,
+    state_from_numpy,
+    state_to_numpy,
+)
+from .models.pipeline import (  # noqa: F401
+    Frame,
+    StepOutput,
+    make_step,
+    make_draws,
+    get_occupancy_map,
+    read_occupancy,
+    clear_future_prediction,
+)

@@ -1,0 +1,108 @@
+"""Particle birth around observed points with Dempster-Shafer static/dynamic
+arbitration (mirrors ``dspmap_tpu/ops/birth.py``; see its docstring for the
+reference semantics).  The random draws are arguments: ``noise_p`` and
+``noise_v`` standard normal and ``noise_u`` uniform on [-1, 1), each
+``[P, n_b, 3]``."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import MapConfig
+from .. import geometry
+from ..state import FLAG_NEWBORN
+from .common import to_device
+from .insert import insert_particles
+
+
+def birth_table(cfg: MapConfig, est_points, est_vel, est_dynamic, w_static,
+                w_mid, w_dyn, rt, noise_p, noise_v, noise_u):
+    """DS arbitration + the newborn candidate table (``dsp_dynamic.h:850-907``).
+    Returns ``(pos [P, n_b, 3], vel [P, n_b, 3])``."""
+    n_b = cfg.newborn_particles_per_point
+    dev = est_points.device
+    total = w_static + w_mid + w_dyn
+    p_static = (2.0 * w_static + w_mid) * 0.5
+    p_dynamic = (2.0 * w_dyn + w_mid) * 0.5
+    p_static_norm = torch.where(total > 0.0, p_static / (p_static + p_dynamic),
+                                0.0)
+    n_model = cfg.model_newborns
+    n_static = torch.clamp(torch.floor(n_model * p_static_norm).to(torch.int32),
+                           min=cfg.min_static_newborns)
+
+    b = torch.arange(n_b, dtype=torch.int32, device=dev)[None, :]
+    pos = est_points[:, None, :] + noise_p * rt.position_noise_std
+    if cfg.motion_model == "static":
+        return pos, torch.zeros_like(pos)
+    vel_known = est_vel[:, 0] > -100.0
+    gain = float(np.float32(cfg.estimator_newborn_noise_gain)
+                 * np.float32(rt.velocity_noise_std))
+    dyn = est_dynamic[:, None, None]
+    v_model = torch.where(dyn, est_vel[:, None, :] + gain * noise_v, 0.0)
+    span = to_device([cfg.random_newborn_vxy, cfg.random_newborn_vxy,
+                      cfg.random_newborn_vz], torch.float32, dev)
+    v_random = torch.where(dyn, noise_u * span, 0.0)
+    is_static_b = b < n_static[:, None]
+    is_model_b = (~is_static_b) & vel_known[:, None] & (b < n_model)
+    vel = torch.where(is_static_b[:, :, None], 0.0,
+                      torch.where(is_model_b[:, :, None], v_model, v_random))
+    if cfg.limit_motion_to_xy_plane:
+        vel = torch.cat([vel[:, :, :2], torch.zeros_like(vel[:, :, 2:])], -1)
+    return pos, vel
+
+
+def particle_birth(particles, cfg: MapConfig, draws, *, est_points, est_vel,
+                   est_dynamic, est_valid, norm_coeff, origin, update_time, rt):
+    """Returns ``(new_particles, stats)``; ``draws = (noise_p, noise_v,
+    noise_u)``."""
+    P = est_points.shape[0]
+    n_b = cfg.newborn_particles_per_point
+    w_new = rt.newborn_particle_weight * norm_coeff
+
+    wv = geometry.world_voxel(est_points, cfg)
+    point_valid = est_valid & geometry.in_window(wv, origin, cfg)
+    cell = torch.where(point_valid, geometry.storage_index(wv, cfg), 0)
+
+    # per-voxel class-weight tables, summed over slots in slot order
+    if cfg.motion_model == "static":
+        v_planes = ()
+    elif cfg.limit_motion_to_xy_plane:
+        v_planes = (particles.vx, particles.vy)
+    else:
+        v_planes = (particles.vx, particles.vy, particles.vz)
+    S, V = particles.flags.shape
+    zero = torch.zeros((), dtype=torch.float32, device=est_points.device)
+    w_static_v = w_mid_v = w_dyn_v = torch.zeros(V, dtype=torch.float32,
+                                                 device=est_points.device)
+    for s in range(S):
+        fl = particles.flags[s]
+        l1 = torch.zeros(V, dtype=torch.float32, device=fl.device)
+        for v in v_planes:
+            l1 = l1 + v[s].abs()
+        w_c = torch.where((fl != 0) & (fl != FLAG_NEWBORN),
+                          particles.weight[s], zero)
+        w_static_v = w_static_v + torch.where(l1 < 0.1, w_c, zero)
+        w_mid_v = w_mid_v + torch.where((l1 >= 0.1) & (l1 < 0.5), w_c, zero)
+        w_dyn_v = w_dyn_v + torch.where(l1 >= 0.5, w_c, zero)
+    c64 = cell.to(torch.int64)
+    w_static = torch.where(point_valid, w_static_v[c64], zero)
+    w_mid = torch.where(point_valid, w_mid_v[c64], zero)
+    w_dyn = torch.where(point_valid, w_dyn_v[c64], zero)
+
+    pos, vel = birth_table(cfg, est_points, est_vel, est_dynamic, w_static,
+                           w_mid, w_dyn, rt, *draws)
+    births = P * n_b
+    valid = point_valid[:, None].expand(P, n_b).reshape(-1)
+    new_particles = insert_particles(
+        particles, cfg, pos=pos.reshape(births, 3), vel=vel.reshape(births, 3),
+        weight=w_new.expand(births), valid=valid, origin=origin,
+        flag=FLAG_NEWBORN,
+        t=update_time if cfg.record_particle_time else None,
+    )
+    stats = {
+        "birth_candidates": valid.sum(),
+        "born": new_particles.newborn.sum(),
+        "newborn_weight": w_new,
+    }
+    return new_particles, stats

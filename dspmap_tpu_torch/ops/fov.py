@@ -1,0 +1,193 @@
+"""Mover relocation + FOV registration for the fused-sweep path (mirrors
+``dspmap_tpu/ops/fov.py::rebin_and_register`` with ``_rebin_chain_body``
+and ``_bin_candidates``).
+
+One compaction over ``mover | fov | moving`` feeds three consumers: the
+movers are re-inserted at their new cells with drop-on-full arrival ranks;
+FOV candidates are ranked per pyramid cell, with ranks beyond the
+reference's per-cell capacity killed (``dsp_dynamic.h:1256-1259``) and the
+rest binned into the dense tier ``[n_pyr, S_t]`` and a compacted spill
+tier; nonzero-velocity candidates form the ``future_movers`` set that the
+occupancy stage scatters.
+
+Only the full-width, single-device, immediate-payload path is ported (the
+JAX package's prefix-bucket ladder over candidate counts and its deferred
+payload for pools of 64 MB or more give the same result).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import MapConfig
+from .common import (compact_mask, group_ranks, inverse_ranks, pool_take,
+                     scatter_set, sort_by_destination)
+from .insert import allocate_slots, scatter_candidates
+
+
+class FovBinning(NamedTuple):
+    pos: torch.Tensor  # f32 [n_pyr, S_t, 3] world positions (dense tier)
+    weight: torch.Tensor  # f32 [n_pyr, S_t]
+    rng: torch.Tensor  # f32 [n_pyr, S_t] ego range
+    mask: torch.Tensor  # bool [n_pyr, S_t]
+    slot: torch.Tensor  # i32 [n_pyr, S_t] flat pool index
+    sp_pos: torch.Tensor  # f32 [Psp, 3] spill tier
+    sp_weight: torch.Tensor  # f32 [Psp]
+    sp_rng: torch.Tensor  # f32 [Psp]
+    sp_pyr: torch.Tensor  # i32 [Psp] (n_pyr sentinel)
+    sp_mask: torch.Tensor  # bool [Psp]
+    sp_slot: torch.Tensor  # i32 [Psp]
+    sp_overflow: torch.Tensor  # i32 scalar
+
+
+def _bin_candidates(cfg: MapConfig, total: int, sensor_pos, idx, cand_pyr,
+                    ranks, sel_valid, n_fov, cols):
+    """Two-tier binning of the pyramid-ranked FOV candidates.  ``idx`` are
+    flat pool positions (``total`` = drop sentinel), ``cols`` the gathered
+    ``(px, py, pz, weight)`` columns.  Returns ``(fovbin, kill, stats)``."""
+    dev = idx.device
+    n_pyr, s_pyr, S_t = cfg.n_pyramids, cfg.pyramid_slots, cfg.dense_slots
+    f_cap, p_cap = cfg.fov_buffer_capacity, cfg.particle_spill_capacity
+    grid_cap = n_pyr * S_t
+
+    keep = sel_valid & (ranks < S_t)
+    spill_sel = sel_valid & (ranks >= S_t) & (ranks < s_pyr)
+    kill = sel_valid & (ranks >= s_pyr)
+
+    px, py, pz, w = cols
+    s = [float(x) for x in np.asarray(sensor_pos, np.float32)]
+    rng_c = torch.sqrt((px - s[0]) ** 2 + (py - s[1]) ** 2 + (pz - s[2]) ** 2)
+
+    cell = torch.where(keep, cand_pyr * S_t + ranks, grid_cap)
+    f32 = dict(dtype=torch.float32, device=dev)
+    bpos = scatter_set(torch.zeros((grid_cap, 3), **f32), cell,
+                       torch.stack([px, py, pz], dim=-1))
+    bw = scatter_set(torch.zeros(grid_cap, **f32), cell, w)
+    brng = scatter_set(torch.zeros(grid_cap, **f32), cell, rng_c)
+    bmask = scatter_set(torch.zeros(grid_cap, dtype=torch.bool, device=dev),
+                        cell, True)
+    bslot = scatter_set(torch.full((grid_cap,), total, dtype=torch.int32,
+                                   device=dev), cell, idx.to(torch.int32))
+
+    if S_t < s_pyr:
+        sp_i, sp_valid, _, sp_over = compact_mask(spill_sel, p_cap)
+        sp_i = sp_i.to(torch.int64)
+        sp_pos = torch.where(sp_valid[:, None],
+                             torch.stack([px[sp_i], py[sp_i], pz[sp_i]], -1),
+                             0.0)
+        sp_w = torch.where(sp_valid, w[sp_i], 0.0)
+        sp_rng = torch.where(sp_valid, rng_c[sp_i], 0.0)
+        sp_pyr = torch.where(sp_valid, cand_pyr[sp_i], n_pyr).to(torch.int32)
+        sp_slot = torch.where(sp_valid, idx[sp_i], total).to(torch.int32)
+    else:
+        sp_pos = torch.zeros((p_cap, 3), **f32)
+        sp_w = torch.zeros(p_cap, **f32)
+        sp_rng = torch.zeros(p_cap, **f32)
+        sp_pyr = torch.full((p_cap,), n_pyr, dtype=torch.int32, device=dev)
+        sp_valid = torch.zeros(p_cap, dtype=torch.bool, device=dev)
+        sp_slot = torch.full((p_cap,), total, dtype=torch.int32, device=dev)
+        sp_over = torch.zeros((), dtype=torch.int32, device=dev)
+
+    fovbin = FovBinning(
+        pos=bpos.view(n_pyr, S_t, 3), weight=bw.view(n_pyr, S_t),
+        rng=brng.view(n_pyr, S_t), mask=bmask.view(n_pyr, S_t),
+        slot=bslot.view(n_pyr, S_t), sp_pos=sp_pos, sp_weight=sp_w,
+        sp_rng=sp_rng, sp_pyr=sp_pyr, sp_mask=sp_valid, sp_slot=sp_slot,
+        sp_overflow=sp_over,
+    )
+    stats = {
+        "in_fov": n_fov.clamp(max=f_cap),
+        "pyramid_full_killed": kill.sum(),
+        "fov_global_overflow": (n_fov - f_cap).clamp(min=0),
+        "update_spill_overflow": sp_over,
+    }
+    return fovbin, kill, stats
+
+
+def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,
+                       update_time):
+    """Returns ``(new_particles, FovBinning, future_movers, stats)`` with
+    ``future_movers = (flat[m_cap], valid[m_cap], n_dropped)``.
+
+    ``particles`` are the post-sweep planes ``[S, V]``; ``sw`` the sweep's
+    tags and new cells."""
+    S, V = particles.flags.shape
+    SV = S * V
+    n_pyr = cfg.n_pyramids
+    cap, m_cap = cfg.fov_buffer_capacity, cfg.mover_capacity
+    dev = particles.flags.device
+
+    idx, c_valid, _, _ = compact_mask(sw.candidate, cap)
+    total_movers = sw.mover.sum()
+    total_fov = sw.fov.sum()
+    vacated = dataclasses.replace(
+        particles, flags=torch.where(sw.mover, 0, particles.flags))
+
+    tags = pool_take(sw.tags, idx)
+    px = pool_take(particles.px, idx)
+    py = pool_take(particles.py, idx)
+    pz = pool_take(particles.pz, idx)
+    w = pool_take(particles.weight, idx)
+    is_mover = ((tags & 1) != 0) & c_valid
+    is_fov = ((tags & 2) != 0) & c_valid
+    is_moving = ((tags & 4) != 0) & c_valid
+    pyr = tags >> 4
+    flat0 = torch.where(c_valid, idx, SV)
+
+    # ---- movers: compact to the mover buffer and re-insert -------------
+    mov_i, mov_ok, n_mov, mov_buf_over = compact_mask(is_mover, m_cap)
+    mov_i = mov_i.to(torch.int64)
+    mov_src = flat0[mov_i].clamp(max=SV - 1)
+    mov_cell = torch.where(mov_ok, pool_take(sw.new_cell, mov_src), V)
+    order, _, ranks_sorted = sort_by_destination(mov_cell, mov_ok)
+    mov_ranks = inverse_ranks(order, ranks_sorted)
+    safe_src = torch.where(mov_ok, flat0[mov_i], SV).clamp(max=SV - 1)
+    new_flat, keep_ins = allocate_slots(vacated, mov_cell, mov_ranks, mov_ok)
+    cols_m = (px[mov_i], py[mov_i], pz[mov_i],
+              pool_take(particles.vx, safe_src),
+              pool_take(particles.vy, safe_src),
+              pool_take(particles.vz, safe_src), w[mov_i])
+
+    # ---- FOV ranks from the combined buffer (movers remapped) ----------
+    flat = scatter_set(flat0, torch.where(mov_ok, mov_i, cap),
+                       torch.where(keep_ins, new_flat, SV))
+    fov_sel = is_fov & (flat < SV)
+    mv_sel = is_moving & (flat < SV)
+    keys = torch.where(fov_sel, pyr, n_pyr).to(torch.int32)
+    sorted_keys, f_order = torch.sort(keys, stable=True)
+    f_ranks = inverse_ranks(f_order, group_ranks(sorted_keys))
+    kill = fov_sel & (f_ranks >= cfg.pyramid_slots)
+    # killed movers write flag 0 through their own row; non-mover kill rows
+    # join the same flags scatter (disjoint by construction)
+    killed_m = kill[mov_i.clamp(max=cap - 1)] & mov_ok
+    mov_flag = torch.where(killed_m, 0, 1).to(torch.int32)
+    kill_nm = torch.where(kill & ~is_mover, flat, SV)
+    new_particles = scatter_candidates(
+        vacated, new_flat, cols_m, mov_flag,
+        update_time if cfg.record_particle_time else None,
+        flag_extra=(kill_nm, torch.zeros(cap, dtype=torch.int32, device=dev)),
+    )
+    n_inserted = keep_ins.sum()
+
+    fovbin, _, stats = _bin_candidates(
+        cfg, SV, sensor_pos, flat, keys, f_ranks, fov_sel, total_fov,
+        cols=(px, py, pz, w))
+
+    fm_i, fm_ok, _, fm_over = compact_mask(mv_sel, m_cap)
+    future_movers = (
+        torch.where(fm_ok, flat[fm_i.to(torch.int64)], SV),
+        fm_ok,
+        (sw.moving.sum() - is_moving.sum()) + fm_over,
+    )
+    stats.update(
+        moved_out=sw.moved_out.sum(),
+        movers=n_mov.clamp(max=m_cap),
+        mover_overflow_killed=(total_movers - is_mover.sum()) + mov_buf_over,
+        voxel_full_killed=n_mov - n_inserted,
+        fov_global_overflow=total_fov - is_fov.sum(),
+    )
+    return new_particles, fovbin, future_movers, stats

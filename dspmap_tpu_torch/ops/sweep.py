@@ -1,0 +1,141 @@
+"""The fused per-slot sweep: prediction advance + window/rebin masks + FOV
+pyramid geometry in one pass over the pool (mirrors
+``dspmap_tpu/ops/sweep.py``).
+
+:func:`sweep_reference` is the spec and the plain PyTorch version;
+:func:`sweep` runs it for CPU tensors and the CUDA kernel
+(``csrc/sweep.cu``) for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import MapConfig
+from .. import geometry, kernels
+
+
+class SweepOut(NamedTuple):
+    px: torch.Tensor  # advanced positions [S, V]
+    py: torch.Tensor
+    pz: torch.Tensor
+    flags: torch.Tensor  # i32: 0 where the particle left the window
+    new_cell: torch.Tensor  # i32 storage cell of the advanced position
+    #: ``mover | fov<<1 | moving<<2 | moved_out<<3 | pyramid_cell<<4``,
+    #: zero when no outcome bit is set
+    tags: torch.Tensor
+
+    @property
+    def mover(self):
+        return (self.tags & 1) != 0
+
+    @property
+    def fov(self):
+        return (self.tags & 2) != 0
+
+    @property
+    def moving(self):
+        return (self.tags & 4) != 0
+
+    @property
+    def moved_out(self):
+        return (self.tags & 8) != 0
+
+    @property
+    def pyr(self):
+        return self.tags >> 4
+
+    @property
+    def candidate(self):
+        return (self.tags & 7) != 0
+
+
+def _frame_rotation(quat) -> np.ndarray:
+    return geometry.rotation_matrix_np(geometry.quaternion_conjugate_np(quat))
+
+
+def sweep_reference(particles, cfg: MapConfig, dt, origin, sensor_pos,
+                    quat) -> SweepOut:
+    """Plain PyTorch sweep.  ``dt`` is a float, ``origin`` / ``sensor_pos``
+    / ``quat`` host arrays."""
+    S, V = particles.flags.shape
+    dev = particles.flags.device
+    valid = particles.valid
+    dt = float(np.float32(dt))
+
+    if cfg.motion_model == "static":
+        px, py, pz = particles.px, particles.py, particles.pz
+    else:
+        px = torch.where(valid, particles.px + particles.vx * dt, particles.px)
+        py = torch.where(valid, particles.py + particles.vy * dt, particles.py)
+        pz = torch.where(valid, particles.pz + particles.vz * dt, particles.pz)
+
+    wx, wy, wz = geometry.world_voxel_planar(px, py, pz, cfg)
+    o = [int(x) for x in np.asarray(origin)]
+    rx, ry, rz = wx - o[0], wy - o[1], wz - o[2]
+    inside = ((rx >= 0) & (rx < cfg.nx) & (ry >= 0) & (ry < cfg.ny)
+              & (rz >= 0) & (rz < cfg.nz))
+    moved_out = valid & ~inside
+    flags = torch.where(moved_out, 0, particles.flags)
+
+    new_cell = geometry.storage_index_from_rel(rx, ry, rz, origin, cfg)
+    current = torch.arange(V, dtype=torch.int32, device=dev)[None, :]
+    mover = valid & inside & (new_cell != current)
+
+    s = [float(x) for x in np.asarray(sensor_pos, np.float32)]
+    sx, sy, sz = geometry.rotate_planar(_frame_rotation(quat),
+                                        px - s[0], py - s[1], pz - s[2])
+    pyr, in_fov = geometry.pyramid_index_planar(sx, sy, sz, cfg)
+    fov = valid & inside & in_fov
+    moving = valid & inside & ((particles.vx != 0.0) | (particles.vy != 0.0)
+                               | (particles.vz != 0.0))
+    packed = (mover.to(torch.int32) | (fov.to(torch.int32) << 1)
+              | (moving.to(torch.int32) << 2) | (moved_out.to(torch.int32) << 3)
+              | (pyr << 4))
+    tags = torch.where(mover | fov | moving | moved_out, packed, 0)
+    return SweepOut(px, py, pz, flags, new_cell.to(torch.int32),
+                    tags.to(torch.int32))
+
+
+def sweep_cuda(particles, cfg: MapConfig, dt, origin, sensor_pos,
+               quat) -> SweepOut:
+    """The sweep kernel (``csrc/sweep.cu``) on CUDA tensors.  Requires the
+    limit-xy or static configurations (vz is never read)."""
+    if not (cfg.limit_motion_to_xy_plane or cfg.motion_model == "static"):
+        raise ValueError("the fused sweep covers limit-xy / static configs")
+    p = particles
+    S, V = p.flags.shape
+    planes = (p.px, p.py, p.pz, p.vx, p.vy)
+    kernels.check_cuda(p.flags, *planes, shape=(S, V))
+    if p.flags.dtype != torch.int32 or any(
+            x.dtype != torch.float32 for x in planes):
+        raise TypeError("sweep kernel takes int32 flags and float32 planes")
+    dev = p.flags.device
+    opx = torch.empty((S, V), dtype=torch.float32, device=dev)
+    opy = torch.empty_like(opx)
+    oflags = torch.empty((S, V), dtype=torch.int32, device=dev)
+    ocell = torch.empty_like(oflags)
+    otags = torch.empty_like(oflags)
+    o = [int(x) for x in np.asarray(origin)]
+    R = _frame_rotation(quat).ravel()
+    s = np.asarray(sensor_pos, np.float32)
+    f = [np.float32(dt), s[0], s[1], s[2],
+         np.float32(1.0 / cfg.voxel_resolution),
+         np.float32(cfg.half_fov_h_rad), np.float32(cfg.half_fov_v_rad),
+         np.float32(cfg.angle_resolution_rad), *R]
+    i = [S, V, o[0], o[1], o[2], o[0] % cfg.nx, o[1] % cfg.ny, o[2] % cfg.nz,
+         cfg.nx, cfg.ny, cfg.nz, cfg.n_pyramids_h, cfg.n_pyramids_v,
+         int(cfg.motion_model != "static")]
+    kernels.launch("sweep", [p.flags, p.px, p.py, p.pz, p.vx, p.vy,
+                             opx, opy, oflags, ocell, otags], f, i)
+    return SweepOut(opx, opy, p.pz, oflags, ocell, otags)
+
+
+def sweep(particles, cfg: MapConfig, dt, origin, sensor_pos, quat) -> SweepOut:
+    """Plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if particles.flags.is_cuda:
+        return sweep_cuda(particles, cfg, dt, origin, sensor_pos, quat)
+    return sweep_reference(particles, cfg, dt, origin, sensor_pos, quat)

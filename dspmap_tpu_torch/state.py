@@ -1,0 +1,279 @@
+"""Map state as plain dataclasses of tensors (mirrors ``dspmap_tpu/state.py``).
+
+Layout is the JAX package's at every public function: slot planes
+``[S, V]`` (S = slots per voxel, V = storage voxels), flags int32 with
+0 dead / 1 valid / 3 newborn, f32 values, and a horizon-major future grid
+``[T, V]``.  A flat plane is ``.view(-1)`` of a contiguous ``[S, V]``
+tensor, so the JAX package's tiled/flat relayout helpers have no
+counterpart here.
+
+The JAX ``rng`` key has no counterpart: the step draws its noise from a
+``torch.Generator`` held in :attr:`MapState.gen` (seeded in
+:func:`init_state`), or takes injected draws (see
+``models.pipeline.make_step``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config import MapConfig
+
+FLAG_DEAD = 0
+FLAG_VALID = 1
+FLAG_NEWBORN = 3
+
+_PLANES = ("flags", "px", "py", "pz", "vx", "vy", "vz", "weight", "t")
+
+
+def _to(obj, device):
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)
+    })
+
+
+@dataclasses.dataclass
+class Particles:
+    """SoA particle pool, every field ``[S, V]`` (flags int32, rest f32)."""
+
+    flags: torch.Tensor
+    px: torch.Tensor
+    py: torch.Tensor
+    pz: torch.Tensor
+    vx: torch.Tensor
+    vy: torch.Tensor
+    vz: torch.Tensor
+    weight: torch.Tensor
+    t: torch.Tensor
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return self.flags != FLAG_DEAD
+
+    @property
+    def newborn(self) -> torch.Tensor:
+        return self.flags == FLAG_NEWBORN
+
+    def to(self, device) -> "Particles":
+        return _to(self, device)
+
+    def clone(self) -> "Particles":
+        return dataclasses.replace(
+            self, **{n: getattr(self, n).clone() for n in _PLANES})
+
+
+@dataclasses.dataclass
+class RuntimeParams:
+    """The live-settable filter scalars (``dsp_dynamic.h:355-382``) as host
+    floats: they scale math and never sizes."""
+
+    sigma_ob: float
+    position_noise_std: float
+    velocity_noise_std: float
+    p_detection: float
+    kappa: float
+    newborn_particle_weight: float
+
+    @staticmethod
+    def from_config(cfg: MapConfig) -> "RuntimeParams":
+        return RuntimeParams(
+            sigma_ob=float(np.float32(cfg.sigma_ob)),
+            position_noise_std=float(np.float32(cfg.position_noise_std)),
+            velocity_noise_std=float(np.float32(cfg.velocity_noise_std)),
+            p_detection=float(np.float32(cfg.p_detection)),
+            kappa=float(np.float32(cfg.kappa)),
+            newborn_particle_weight=float(
+                np.float32(cfg.newborn_particle_weight)),
+        )
+
+
+@dataclasses.dataclass
+class EstimatorState:
+    """Previous-frame dynamic-cluster features (``dsp_dynamic.h:1401,1542``)."""
+
+    prev_centers: torch.Tensor  # f32 [C, 3]
+    prev_point_num: torch.Tensor  # i32 [C]
+    prev_intensity: torch.Tensor  # f32 [C]
+    prev_valid: torch.Tensor  # bool [C]
+
+    def to(self, device) -> "EstimatorState":
+        return _to(self, device)
+
+
+@dataclasses.dataclass
+class MapState:
+    """Complete filter state threaded through ``make_step``'s step.
+
+    ``sensor_pos``/``last_sensor_pos``/``origin``/``update_time``/
+    ``last_timestamp``/``update_counter``/``initialized`` are host values
+    (numpy or Python scalars): admission control and the window origin are
+    decided on the host from frame inputs, so the step needs no device
+    sync for them.
+    """
+
+    particles: Particles
+    weight_sum: torch.Tensor  # f32 [V]
+    vel_avg: torch.Tensor  # f32 [V, 3]
+    future: torch.Tensor  # f32 [T, V]
+    gen: torch.Generator
+    sensor_pos: np.ndarray  # f32 [3]
+    last_sensor_pos: np.ndarray  # f32 [3]
+    origin: np.ndarray  # i32 [3]
+    update_time: np.float32
+    last_timestamp: np.float32
+    update_counter: int
+    initialized: bool
+    estimator: EstimatorState
+    params: RuntimeParams
+
+    @property
+    def device(self) -> torch.device:
+        return self.weight_sum.device
+
+    def to(self, device) -> "MapState":
+        """Copy to ``device``; the generator is re-seeded there from a draw
+        of the current one (a generator cannot move between devices)."""
+        device = torch.device(device)
+        seed = int(torch.randint(0, 2**62, (1,), generator=self.gen,
+                                 device=self.gen.device).item())
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return dataclasses.replace(
+            self,
+            particles=self.particles.to(device),
+            weight_sum=self.weight_sum.to(device),
+            vel_avg=self.vel_avg.to(device),
+            future=self.future.to(device),
+            gen=gen,
+            estimator=self.estimator.to(device),
+        )
+
+
+def init_estimator_state(cfg: MapConfig, device="cpu") -> EstimatorState:
+    c = cfg.max_clusters
+    return EstimatorState(
+        prev_centers=torch.zeros((c, 3), dtype=torch.float32, device=device),
+        prev_point_num=torch.zeros((c,), dtype=torch.int32, device=device),
+        prev_intensity=torch.zeros((c,), dtype=torch.float32, device=device),
+        prev_valid=torch.zeros((c,), dtype=torch.bool, device=device),
+    )
+
+
+def init_state(cfg: MapConfig, seed: int = 0, sensor_pos=(0.0, 0.0, 0.0),
+               device="cpu") -> MapState:
+    """Fresh, empty pool-layout map centered at ``sensor_pos`` on ``device``.
+
+    ``seed`` seeds the step's ``torch.Generator``."""
+    if cfg.layout != "pool":
+        raise NotImplementedError("the port runs the pool layout only")
+    device = torch.device(device)
+    s, v = cfg.slots_per_voxel, cfg.storage_voxels
+    sensor_np = np.asarray(sensor_pos, np.float32)
+    half = np.asarray(cfg.half_extent, np.float32)
+    origin_np = np.floor(
+        (sensor_np - half) / np.float32(cfg.voxel_resolution) + np.float32(0.5)
+    ).astype(np.int32)
+
+    def zeros(dtype=torch.float32):
+        return torch.zeros((s, v), dtype=dtype, device=device)
+
+    particles = Particles(
+        flags=zeros(torch.int32), px=zeros(), py=zeros(), pz=zeros(),
+        vx=zeros(), vy=zeros(), vz=zeros(), weight=zeros(), t=zeros(),
+    )
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return MapState(
+        particles=particles,
+        weight_sum=torch.zeros((v,), dtype=torch.float32, device=device),
+        vel_avg=torch.zeros((v, 3), dtype=torch.float32, device=device),
+        future=torch.zeros((cfg.n_horizons, v), dtype=torch.float32,
+                           device=device),
+        gen=gen,
+        sensor_pos=sensor_np,
+        last_sensor_pos=sensor_np.copy(),
+        origin=origin_np,
+        update_time=np.float32(0.0),
+        last_timestamp=np.float32(0.0),
+        update_counter=0,
+        initialized=False,
+        estimator=init_estimator_state(cfg, device),
+        params=RuntimeParams.from_config(cfg),
+    )
+
+
+# -------------------------------------------------- cross-framework carriers
+
+def state_from_numpy(tree, cfg: MapConfig, device="cpu", seed: int = 0):
+    """Build the port's :class:`MapState` from the JAX package's ``MapState``
+    after ``jax.device_get`` (any object with the same attribute names whose
+    leaves are numpy arrays).  The JAX ``rng`` key has no counterpart; the
+    port's generator is seeded from ``seed``."""
+    device = torch.device(device)
+
+    def t(x, dtype=None):
+        a = np.asarray(x)
+        out = torch.from_numpy(np.array(a, copy=True)).to(device)
+        return out if dtype is None else out.to(dtype)
+
+    p = tree.particles
+    particles = Particles(**{n: t(getattr(p, n)) for n in _PLANES})
+    e = tree.estimator
+    est = EstimatorState(
+        prev_centers=t(e.prev_centers, torch.float32),
+        prev_point_num=t(e.prev_point_num, torch.int32),
+        prev_intensity=t(e.prev_intensity, torch.float32),
+        prev_valid=t(e.prev_valid, torch.bool),
+    )
+    prm = tree.params
+    params = RuntimeParams(**{
+        f.name: float(np.asarray(getattr(prm, f.name)))
+        for f in dataclasses.fields(RuntimeParams)
+    })
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return MapState(
+        particles=particles,
+        weight_sum=t(tree.weight_sum, torch.float32),
+        vel_avg=t(tree.vel_avg, torch.float32),
+        future=t(tree.future, torch.float32),
+        gen=gen,
+        sensor_pos=np.asarray(tree.sensor_pos, np.float32).copy(),
+        last_sensor_pos=np.asarray(tree.last_sensor_pos, np.float32).copy(),
+        origin=np.asarray(tree.origin, np.int32).copy(),
+        update_time=np.float32(np.asarray(tree.update_time)),
+        last_timestamp=np.float32(np.asarray(tree.last_timestamp)),
+        update_counter=int(np.asarray(tree.update_counter)),
+        initialized=bool(np.asarray(tree.initialized)),
+        estimator=est,
+        params=params,
+    )
+
+
+def state_to_numpy(state: MapState) -> dict:
+    """Every array of ``state`` as numpy, in the JAX ``MapState``'s field
+    names (nested dicts for ``particles``, ``estimator`` and ``params``)."""
+    def n(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    return {
+        "particles": {k: n(getattr(state.particles, k)) for k in _PLANES},
+        "weight_sum": n(state.weight_sum),
+        "vel_avg": n(state.vel_avg),
+        "future": n(state.future),
+        "sensor_pos": np.asarray(state.sensor_pos),
+        "last_sensor_pos": np.asarray(state.last_sensor_pos),
+        "origin": np.asarray(state.origin),
+        "update_time": np.float32(state.update_time),
+        "last_timestamp": np.float32(state.last_timestamp),
+        "update_counter": np.int32(state.update_counter),
+        "initialized": np.bool_(state.initialized),
+        "estimator": {f.name: n(getattr(state.estimator, f.name))
+                      for f in dataclasses.fields(EstimatorState)},
+        "params": dataclasses.asdict(state.params),
+    }

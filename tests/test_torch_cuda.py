@@ -1,0 +1,163 @@
+"""The port's CUDA kernels against their plain versions on a card.
+
+Marked ``cuda``: each test skips unless a compute-capability-9.x card is
+present.  On a machine with an H100 (and without jax, which
+``tests/conftest.py`` imports) run
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``;
+``chip_smoke.py`` runs the same checks at the flagship shapes."""
+
+import numpy as np
+import pytest
+import torch
+
+import dspmap_tpu_torch as T
+from dspmap_tpu_torch import kernels
+from dspmap_tpu_torch.ops import occupancy, sweep, update
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if torch.cuda.get_device_capability(0)[0] != 9:
+        pytest.skip("the kernels are built for sm_90a")
+    return torch.device("cuda", 0)
+
+
+#: the configurations' arms the kernels take: limit-xy (two velocity
+#: planes; the flagship), full 3-D velocity, the static motion model (no
+#: velocity planes, no advance) and the recorded particle time plane
+ARMS = {
+    "limit_xy": {},
+    "velocity_3d": dict(limit_motion_to_xy_plane=False),
+    "static_motion": dict(motion_model="static"),
+    "particle_time": dict(record_particle_time=True),
+}
+
+
+def _cfg(**kw):
+    return T.example_node_settings(T.dsp_dynamic(
+        nx=24, ny=24, nz=12, voxel_resolution=0.25, max_input_points=1024,
+        pyramid_slot_capacity=96, **kw))
+
+
+def _pool(cfg, device, seed=0):
+    """Random pool whose velocities obey the configuration's clamp."""
+    rng = np.random.default_rng(seed)
+    S, V = cfg.slots_per_voxel, cfg.storage_voxels
+    flags = np.where(rng.random((S, V)) < 0.5,
+                     rng.choice([1, 1, 3], size=(S, V)), 0).astype(np.int32)
+    half = np.asarray(cfg.half_extent, np.float32)
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)  # noqa: E731
+    mv = rng.random((S, V)) < 0.3
+    vel = [np.where(mv, rng.normal(0, 1, (S, V)), 0) for _ in range(3)]
+    if cfg.motion_model == "static":
+        vel = [np.zeros((S, V))] * 3
+    elif cfg.limit_motion_to_xy_plane:
+        vel[2] = np.zeros((S, V))
+    return T.Particles(
+        flags=torch.from_numpy(flags).to(device),
+        px=f(rng.uniform(-half[0], half[0], (S, V))),
+        py=f(rng.uniform(-half[1], half[1], (S, V))),
+        pz=f(rng.uniform(0, 2 * half[2], (S, V))),
+        vx=f(vel[0]), vy=f(vel[1]), vz=f(vel[2]),
+        weight=f(np.where(flags != 0, rng.uniform(0.0005, 1, (S, V)), 0)),
+        t=f(rng.uniform(0, 5, (S, V))))
+
+
+@pytest.mark.parametrize("with_moving", [True, False])
+@pytest.mark.parametrize("arm", sorted(ARMS))
+def test_occupancy_kernel_matches_plain(device, arm, with_moving):
+    """Flags, the moving mask and every payload plane equal, weights and
+    weight_sum to rtol 1e-6, counter sums exact."""
+    cfg = _cfg(**ARMS[arm])
+    p = _pool(cfg, device)
+    n0 = kernels.LAUNCHES["occupancy_pool_pass"]
+    got = occupancy.occupancy_pool_pass(p, cfg, with_moving=with_moving)
+    want = occupancy.pool_pass_plain(p, cfg, with_moving=with_moving)
+    assert kernels.LAUNCHES["occupancy_pool_pass"] == n0 + 1
+    assert torch.equal(got[0]["flags"], want[0]["flags"])
+    if with_moving:
+        assert torch.equal(got[5], want[5])
+    else:
+        assert got[5] is None and want[5] is None
+    for name in ("px", "py", "pz", "vx", "vy", "vz", "t"):
+        assert torch.equal(got[0][name], want[0][name]), name
+    torch.testing.assert_close(got[0]["weight"], want[0]["weight"], rtol=1e-6,
+                               atol=1e-9)
+    for a, b in zip((got[1], got[2], got[4]) + got[3],
+                    (want[1], want[2], want[4]) + want[3]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    for a, b in zip(got[6], want[6]):
+        assert float(a.sum()) == float(b.sum())
+    assert float(want[6][4].sum()) > 0  # the resample filled slots
+
+
+@pytest.mark.parametrize("arm", ["limit_xy", "static_motion"])
+def test_sweep_kernel_matches_plain(device, arm):
+    cfg = _cfg(**ARMS[arm])
+    p = _pool(cfg, device, seed=1)
+    sensor = np.asarray([-2.3, 0.4, 1.0], np.float32)
+    quat = np.asarray([np.cos(0.4), 0, 0, np.sin(0.4)], np.float32)
+    origin = T.geometry.window_origin_np(sensor, cfg)
+    got = sweep.sweep(p, cfg, np.float32(0.1), origin, sensor, quat)
+    want = sweep.sweep_reference(p, cfg, np.float32(0.1), origin, sensor, quat)
+    torch.testing.assert_close(got.px, want.px, atol=1e-5, rtol=0)
+    for name in ("flags", "new_cell", "tags"):
+        assert (getattr(got, name) != getattr(want, name)).float().mean() < 1e-3
+    assert bool(got.fov.any()) and bool(got.moved_out.any())
+
+
+def test_wrappers_refuse_operands_the_kernels_do_not_take(device):
+    """A slot depth without an instantiation, a plane of another dtype, a
+    non-contiguous or misshapen plane, or a CPU tensor raises; nothing
+    falls back to the plain version."""
+    cfg = _cfg()
+    p = _pool(cfg, device)
+    S, V = p.flags.shape
+    n0 = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError):
+        occupancy.pool_pass_cuda(T.Particles(**{
+            k: getattr(p, k)[:10].contiguous() for k in ("flags", "px", "py",
+                                                        "pz", "vx", "vy", "vz",
+                                                        "weight", "t")}), cfg)
+    with pytest.raises(TypeError):
+        occupancy.pool_pass_cuda(T.Particles(**{
+            **{k: getattr(p, k) for k in ("flags", "px", "py", "pz", "vx",
+                                          "vy", "vz", "t")},
+            "weight": p.weight.double()}), cfg)
+    with pytest.raises(ValueError):
+        sweep.sweep_cuda(T.Particles(**{
+            **{k: getattr(p, k) for k in ("flags", "px", "pz", "vx", "vy",
+                                          "vz", "weight", "t")},
+            "py": p.py.t().contiguous().t()}), cfg, 0.1, np.zeros(3, np.int32),
+            np.zeros(3, np.float32), np.asarray([1, 0, 0, 0], np.float32))
+    with pytest.raises(ValueError):
+        sweep.sweep_cuda(T.Particles(**{
+            **{k: getattr(p, k) for k in ("flags", "px", "py", "pz", "vy",
+                                          "vz", "weight", "t")},
+            "vx": p.vx[:, : V // 2].contiguous()}), cfg, 0.1,
+            np.zeros(3, np.int32), np.zeros(3, np.float32),
+            np.asarray([1, 0, 0, 0], np.float32))
+    pos = torch.zeros((4, 8, 3), device=device)
+    with pytest.raises(ValueError):
+        update.update_pass1(pos, torch.zeros((4, 8), device=device),
+                            torch.zeros((4, 16, 3)), 0.1)
+    assert kernels.LAUNCHES == n0
+
+
+def test_pair_kernels_match_float64(device):
+    rng = np.random.default_rng(2)
+    pos = rng.normal(3, 1, (448, 64, 3))
+    pts = rng.normal(3, 1, (448, 288, 3))
+    pts[:, :64] = pos + rng.normal(0, 0.1, pos.shape)
+    pos, pts, w, cinv = (
+        torch.from_numpy(x.astype(np.float32)).to(device)
+        for x in (pos, pts, rng.random((448, 64)), rng.random((448, 288))))
+    for kern, plain, vec in ((update.update_pass1, update.update_pass1_plain, w),
+                             (update.update_pass2, update.update_pass2_plain, cinv)):
+        got = kern(pos, vec, pts, 0.1).double()
+        ref = plain(pos.double(), vec.double(), pts.double(), 0.1)
+        torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-6)
