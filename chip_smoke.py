@@ -10,16 +10,20 @@ Phases (each prints one line; any failure raises and exits nonzero):
 1. the card: CUDA present, compute capability 9.x, name and power limit;
 2. build the port's CUDA kernels from ``dspmap_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes of the flagship step (``example_node_settings(dsp_dynamic())``),
-   with inputs made from a numpy seed, plus the median time of each over
-   20 runs (CUDA events);
-4. the main path: 5 warm-up and 30 timed frames of the synthetic street
-   sequence through ``make_step`` at the flagship size, with the kernels'
+   shapes its path gives it -- K1-K3 at the flagship step's
+   (``example_node_settings(dsp_dynamic())``), K4 at ``large_urban()``'s
+   -- with inputs made from a numpy seed, plus the median time of each
+   over 20 runs (CUDA events);
+4. the flagship path: 5 warm-up and 30 timed frames of the synthetic
+   street sequence through ``make_step`` (pool layout), with the kernels'
    launch counts; one warm frame runs under PyTorch's sync debug mode and
    must not synchronize the host with the card;
 5. card against CPU: the state after frame 10 is copied to the CPU and the
    next frame is stepped on both with the same random draws (see
-   :func:`card_vs_cpu` for the bars).
+   :func:`card_vs_cpu` for the bars);
+6. the large_urban path (compact layout, ``make_step(large_urban())``):
+   3 warm-up and 10 timed frames, launch counts, the sync watch, and one
+   frame on the card against the CPU as in phase 5.
 
 The second-to-last line is a JSON object with every kernel's measurements,
 the last ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -214,6 +218,57 @@ def check_kernels(cfg, device):
     return rows
 
 
+#: (columns, n_tot, max_run) of the compact step's seg_scans calls at
+#: large_urban (S = 10): occupancy_compact's two calls (reach 32) and
+#: segment_table's in birth and rebin (reach 16)
+SEGSCAN_CASES = ((7, 2, 20), (2, 2, 20), (4, 0, 10), (1, 0, 10))
+
+
+def check_segscan(cfg, device):
+    """Phase 3, K4: the segmented-scan kernel against its plain version at
+    ``cfg.compact_capacity`` rows: sorted runs of 1..max_run rows, six
+    rows of one run repeated further on, a dead tail and some -0.0
+    values.  ``hi`` must be bit-equal on every row, ``tot`` on every live
+    row.  Returns the JSON row (times of the 7-column call)."""
+    import torch
+    from dspmap_tpu_torch import kernels
+    from dspmap_tpu_torch.ops import compact
+
+    P = cfg.compact_capacity
+    times = {}
+    for C, n_tot, max_run in SEGSCAN_CASES:
+        rng = np.random.default_rng(C * 100 + max_run)
+        key = np.repeat(np.arange(P), rng.integers(1, max_run + 1, P))[:P]
+        key[5000:5006] = key[11]
+        key[-P // 5:] = 1 << 30
+        live = torch.from_numpy(key < 1 << 30).to(device)
+        st = torch.from_numpy(
+            np.concatenate([[True], key[1:] != key[:-1]])).to(device)
+        en = torch.from_numpy(np.concatenate([key[1:] != key[:-1], [True]])
+                              & (key < 1 << 30)).to(device)
+        x = rng.uniform(0, 1, (C, P)).astype(np.float32)
+        x[:, ::101] = -0.0
+        cols = [torch.from_numpy(c).to(device) for c in x]
+        got = compact.seg_scans_cuda(cols, st, en, max_run, n_tot)
+        ref = compact.seg_scans_plain(cols, st, en, max_run, n_tot)
+        torch.cuda.synchronize()
+        bits = lambda t: t.view(torch.int32)  # noqa: E731
+        _require(all(torch.equal(bits(g), bits(r))
+                     for g, r in zip(got[0], ref[0])), f"K4 hi {C} cols")
+        _require(all(torch.equal(bits(g[live]), bits(r[live]))
+                     for g, r in zip(got[1], ref[1])), f"K4 tot {C} cols")
+        ms = _median_ms(lambda: compact.seg_scans_cuda(cols, st, en, max_run,
+                                                       n_tot))
+        pms = _median_ms(lambda: compact.seg_scans_plain(cols, st, en,
+                                                         max_run, n_tot))
+        times[C] = (ms, pms)
+        _say("K4", columns=C, n_tot=n_tot, reach=compact._reach(max_run),
+             rows=P, bit_equal=True, ms=ms, plain_ms=pms)
+    kernels.reset_launch_counts()
+    return ("seg_scans", "dspmap_tpu_torch/csrc/segscan.cu",
+            "dspmap_tpu/ops/pallas/segscan.py:121", 0.0, *times[7])
+
+
 def _agreement(card, cpu) -> dict:
     """Phase 5's measures of one step's result on the card against the
     CPU's: ``(state, StepOutput)`` pairs."""
@@ -231,7 +286,7 @@ def _agreement(card, cpu) -> dict:
         future_close=close(g_state.future, c_state.future, 1e-6))
 
 
-def card_vs_cpu(cfg, step, state, frame, device) -> None:
+def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu") -> None:
     """Phase 5: one frame from the same state with the same draws on the
     card and through the CPU's plain path.
 
@@ -243,7 +298,12 @@ def card_vs_cpu(cfg, step, state, frame, device) -> None:
     The bars (flags >= 99.9%, alive within 0.5%, weight_sum and future
     within rtol 1e-4 on >= 99.9%) therefore hold the card against a CPU
     step given the card's ``norm_coeff``; the free CPU step holds the same
-    bars except alive, held within 2%."""
+    bars except alive, held within 2%, and, in the compact layout, flags:
+    there the flags are compared over the P = 131072 rows of the live
+    array rather than over 3.2M mostly empty pool slots, so the same flips
+    weigh 24 times more (176 rows differed, 99.87% equal, with alive
+    equal), and the free case is held to the free-newborn-weight flag bar
+    of tests/test_torch_step.py, 99.5%."""
     import torch
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch.models import pipeline
@@ -251,7 +311,9 @@ def card_vs_cpu(cfg, step, state, frame, device) -> None:
     draws = dm.make_draws(cfg, state.gen, device)
     cpu_draws = tuple(d.cpu() for d in draws)
     cpu_state = state.to("cpu")
-    birth = pipeline.particle_birth
+    name = ("particle_birth_compact" if cfg.layout == "compact"
+            else "particle_birth")
+    birth = getattr(pipeline, name)
     seen = {}
 
     def card_birth(*a, **kw):
@@ -263,67 +325,88 @@ def card_vs_cpu(cfg, step, state, frame, device) -> None:
         return birth(*a, **kw)
 
     try:
-        pipeline.particle_birth = card_birth
+        setattr(pipeline, name, card_birth)
         card = step(state, frame, draws)
-        pipeline.particle_birth = pinned_birth
+        setattr(pipeline, name, pinned_birth)
         pinned = _agreement(card, step(cpu_state, frame, cpu_draws))
     finally:
-        pipeline.particle_birth = birth
+        setattr(pipeline, name, birth)
     free = _agreement(card, step(cpu_state, frame, cpu_draws))
     torch.cuda.synchronize()
-    for name, m in (("card_vs_cpu", pinned), ("card_vs_cpu_free", free)):
-        _say(name, **m)
-        _require(m["flags_equal"] >= 0.999, f"{name} flags")
-        _require(m["weight_sum_close"] >= 0.999, f"{name} weight_sum")
-        _require(m["future_close"] >= 0.999, f"{name} future grid")
-    _require(pinned["alive_rel"] <= 0.005, "card vs CPU alive")
-    _require(free["alive_rel"] <= 0.02, "card vs free CPU alive")
+    free_flags = 0.995 if cfg.layout == "compact" else 0.999
+    for tag, m, flag_bar in ((label, pinned, 0.999),
+                             (label + "_free", free, free_flags)):
+        _say(tag, **m)
+        _require(m["flags_equal"] >= flag_bar, f"{tag} flags")
+        _require(m["weight_sum_close"] >= 0.999, f"{tag} weight_sum")
+        _require(m["future_close"] >= 0.999, f"{tag} future grid")
+    _require(pinned["alive_rel"] <= 0.005, f"{label} alive")
+    _require(free["alive_rel"] <= 0.02, f"{label} free alive")
 
 
-def run_main_path(cfg, device):
-    """Phase 4 + 5: the flagship step on the card, then one frame on both
-    the card and the CPU from the same state and draws."""
+#: per path: (warm-up frames, timed frames, the watched warm frame, the
+#: kernels' launches per frame)
+PATHS = {
+    "flagship": (5, 30, 4, {"occupancy_pool_pass": 1, "sweep": 1,
+                            "update_pass1": 1, "update_pass2": 1,
+                            "seg_scans": 0}),
+    "large_urban": (3, 10, 2, {"occupancy_pool_pass": 0, "sweep": 0,
+                               "update_pass1": 1, "update_pass2": 1,
+                               "seg_scans": 4}),
+}
+
+
+def run_path(name, cfg, device):
+    """Phases 4-6 for one path: its frames on the card with the launch
+    counts set to 0 just before and read just after, then one frame on
+    both the card and the CPU from the same state and draws.  Returns
+    ``(launches, median frame ms, alive after the last frame)``."""
     import torch
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch import kernels
     from dspmap_tpu_torch.utils import sim
 
+    warm, timed, watched, per_frame = PATHS[name]
+    n = warm + timed
+    kept_at = min(10, n - 2)  # the frame whose state phase 5 starts from
     step = dm.make_step(cfg)
     state = dm.init_state(cfg, seed=0, device=device)
-    frames = list(sim.generate_sequence(36, cfg, seed=0))
+    frames = list(sim.generate_sequence(n, cfg, seed=0))
     alive, ms = [], []
     kept = None
     kernels.reset_launch_counts()
-    for i, (pts, n, pos, quat, t) in enumerate(frames[:35]):
+    for i, (pts, n_pts, pos, quat, t) in enumerate(frames):
         t0 = time.perf_counter()
-        if i == 4:  # a warm frame, watched for host syncs
+        if i == watched:  # a warm frame, watched for host syncs
             (state, out), syncs = _watch_syncs(
-                lambda: step(state, dm.Frame(pts, n, pos, quat, t)))
+                lambda: step(state, dm.Frame(pts, n_pts, pos, quat, t)))
         else:
-            state, out = step(state, dm.Frame(pts, n, pos, quat, t))
+            state, out = step(state, dm.Frame(pts, n_pts, pos, quat, t))
         torch.cuda.synchronize()
         dt_ms = (time.perf_counter() - t0) * 1e3
-        _require(out.accepted, f"frame {i} rejected")
+        _require(out.accepted, f"{name} frame {i} rejected")
         alive.append(int(out.metrics["alive"]))
-        if i >= 5:
+        if i >= warm:
             ms.append(dt_ms)
-        if i == 10:
+        if i == kept_at:
             kept = state
     launches = dict(kernels.LAUNCHES)
-    _require(all(v == 35 for v in launches.values()),
-             f"launch counts {launches} != 35 each")
-    _require(not syncs, f"host syncs in the step: {syncs}")
-    _require(alive[0] > 0 and alive[4] > alive[0], f"alive {alive[:5]}")
+    want = {k: v * n for k, v in per_frame.items()}
+    _require(launches == want, f"{name} launch counts {launches} != {want}")
+    _require(not syncs, f"{name}: host syncs in the step: {syncs}")
+    _require(alive[0] > 0 and alive[-1] > alive[0], f"{name} alive {alive}")
     _require(bool(torch.isfinite(state.weight_sum).all()), "weight_sum")
+    _require(bool(torch.isfinite(state.vel_avg).all()), "vel_avg")
     _require(bool(torch.isfinite(state.future).all()), "future")
     occ, centers, future, _ = dm.get_occupancy_map(state, cfg, 0.2)
     n_occ = int(occ.sum())
-    _require(n_occ > 0, "no occupied voxels")
-    _say("main_path", frames=35, median_frame_ms=statistics.median(ms),
+    _require(n_occ > 0, f"{name}: no occupied voxels")
+    _say(name, frames=n, median_frame_ms=statistics.median(ms),
          alive_last=alive[-1], occupied=n_occ, launches=json.dumps(launches),
-         host_syncs_in_frame_4=len(syncs))
+         host_syncs_in_watched_frame=len(syncs))
 
-    card_vs_cpu(cfg, step, kept, dm.Frame(*frames[11]), device)
+    card_vs_cpu(cfg, step, kept, dm.Frame(*frames[kept_at + 1]), device,
+                label=f"{name}_card_vs_cpu")
     return launches, statistics.median(ms), alive[-1]
 
 
@@ -352,15 +435,21 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     cfg = dm.example_node_settings(dm.dsp_dynamic())
-    rows = check_kernels(cfg, device)
-    launches, frame_ms, alive = run_main_path(cfg, device)
-    _say("flagship", median_frame_ms=frame_ms, alive=alive, card=smi)
+    urban = dm.large_urban()
+    rows = check_kernels(cfg, device) + [check_segscan(urban, device)]
+    by_path = {}
+    for name, c in (("flagship", cfg), ("large_urban", urban)):
+        launches, frame_ms, alive = run_path(name, c, device)
+        by_path[name] = launches
+        _say(f"{name}_summary", median_frame_ms=frame_ms, alive=alive,
+             card=smi)
 
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": err, "ms": k_ms,
-         "plain_ms": p_ms}
+         "launches": sum(p[name] for p in by_path.values()),
+         "launches_by_path": {k: p[name] for k, p in by_path.items()},
+         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
         for name, src, rep, err, k_ms, p_ms in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

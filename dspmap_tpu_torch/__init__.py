@@ -2,11 +2,12 @@
 for NVIDIA Hopper (sm_90a).
 
 A port of ``dspmap_tpu`` (which stays the reference): the same
-``MapConfig`` presets, the same per-frame step on the pool layout, the same
-readouts.  Tensors on the CPU run every stage in plain PyTorch; tensors on
-a CUDA card run the occupancy pool pass, the fused sweep and the
-measurement-update pair passes as CUDA kernels (``csrc/``, built by
-``nvcc`` at first use).  This package never imports jax.
+``MapConfig`` presets, the same per-frame step on the pool and the compact
+layout, the same readouts and live setters.  Tensors on the CPU run every
+stage in plain PyTorch; tensors on a CUDA card run the occupancy pool
+pass, the fused sweep, the measurement-update pair passes and the compact
+layout's segmented scans as CUDA kernels (``csrc/``, built by ``nvcc`` at
+first use).  This package never imports jax.
 
 Quick start::
 
@@ -47,4 +48,9 @@ from .models.pipeline import (  # noqa: F401
     get_occupancy_map,
     read_occupancy,
     clear_future_prediction,
+    set_prediction_variance,
+    set_observation_stddev,
+    set_newborn_particle_weight,
+    set_detection_probability,
+    set_clutter_intensity,
 )

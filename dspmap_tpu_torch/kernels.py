@@ -1,8 +1,9 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` are compiled at first use by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, which is
-loaded with ``ctypes``.  The library lands in ``dspmap_tpu_torch/build/``
+``sm_90a`` -- one ``nvcc`` per source, all started together -- and linked
+into one shared library with a plain C interface, which is loaded with
+``ctypes``.  The library lands in ``dspmap_tpu_torch/build/``
 (git-ignored) under a name that carries a hash of the sources, so an edited
 source is rebuilt and an unchanged one is reused within a checkout.
 
@@ -35,14 +36,15 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("occupancy.cu", "sweep.cu", "update.cu")
+SOURCES = ("occupancy.cu", "sweep.cu", "update.cu", "segscan.cu")
 ENTRY_POINTS = ("dspmap_occupancy_pool_pass", "dspmap_sweep",
-                "dspmap_update_pass1", "dspmap_update_pass2")
+                "dspmap_update_pass1", "dspmap_update_pass2",
+                "dspmap_seg_scans")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"occupancy_pool_pass": 0, "sweep": 0,
-            "update_pass1": 0, "update_pass2": 0}
+            "update_pass1": 0, "update_pass2": 0, "seg_scans": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -79,16 +81,30 @@ def build(verbose: bool = False) -> pathlib.Path:
     out = BUILD_DIR / f"libdspmap_kernels_{_source_hash()}.so"
     if out.exists():
         return out
+    nvcc = _nvcc()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr)
+    objs = [tmp.with_suffix(f".{pathlib.Path(s).stem}.o") for s in SOURCES]
+    extra = ["-Xptxas=-v"] if verbose else []
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(o),
+                               str(CSRC / s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for s, o in zip(SOURCES, objs)]
+    logs = [(s, p.communicate(), p.returncode) for s, p in zip(SOURCES, procs)]
+    try:
+        for s, (_, err), rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({rc}):\n{err}")
+            if verbose and err:
+                print(err)
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
 

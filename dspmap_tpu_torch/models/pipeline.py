@@ -1,8 +1,13 @@
-"""The per-frame signal chain (mirrors the pool branch of
-``dspmap_tpu/models/pipeline.py::make_step``, fused-sweep arm):
+"""The per-frame signal chain (mirrors ``dspmap_tpu/models/pipeline.py``:
+the pool branch of ``make_step`` on its fused-sweep arm, and
+``_make_step_compact`` for ``cfg.layout == "compact"``):
 
 ingest -> velocity estimation -> fused sweep -> rebin + FOV registration
 -> measurement update -> particle birth -> occupancy/future/resample
+
+The compact layout runs the same chain over the ``[P]`` particle array
+(``ops/compact.py``); ingest, the estimator and the measurement update are
+shared verbatim.
 
 Admission control (``dsp_dynamic.h:193-208``) is decided on the host from
 the frame's numpy inputs and the state's host copy of the last pose and
@@ -26,8 +31,10 @@ from ..ops.project import project_points
 from ..ops.sweep import sweep
 from ..ops.fov import rebin_and_register
 from ..ops.update import measurement_update
-from ..ops.birth import particle_birth
+from ..ops.birth import particle_birth, particle_birth_compact
 from ..ops.common import to_device
+from ..ops.compact import (occupancy_compact, rebin_compact,
+                           register_fov_compact, sweep_compact)
 from ..ops.occupancy import occupancy_and_resample
 
 
@@ -57,6 +64,9 @@ METRIC_NAMES = (
     "resampled_voxels", "resample_dropped", "resample_copies",
     "future_moving", "future_overflow",
 )
+#: the compact layout's metrics: birth and occupancy also count the rows
+#: dropped for want of free rows in the ``[P]`` array
+COMPACT_METRIC_NAMES = METRIC_NAMES + ("pool_overflow",)
 
 
 def make_draws(cfg: MapConfig, gen: torch.Generator, device):
@@ -82,8 +92,7 @@ def make_step(cfg: MapConfig):
     new ones.
     """
     cfg.validate()
-    if cfg.layout != "pool":
-        raise NotImplementedError("the port runs the pool layout only")
+    compact = cfg.layout == "compact"
     if not (cfg.limit_motion_to_xy_plane or cfg.motion_model == "static"):
         raise NotImplementedError(
             "the port runs the fused-sweep (deterministic prediction) path only")
@@ -134,17 +143,26 @@ def make_step(cfg: MapConfig):
             p = dataclasses.replace(p, vx=z, vy=z, vz=z)
         else:
             p = dataclasses.replace(p, vz=torch.zeros_like(p.vz))
-        sw = sweep(p, cfg, dt, origin, sensor_pos, quat)
-        p = dataclasses.replace(p, px=sw.px, py=sw.py, pz=sw.pz, flags=sw.flags)
-        p, fovbin, future_movers, fov_stats = rebin_and_register(
-            p, cfg, sw, sensor_pos, update_time)
+        if compact:
+            p, sw = sweep_compact(p, cfg, dt, origin, sensor_pos, quat)
+            p, _, rebin_stats = rebin_compact(p, sw, cfg)
+            p, fovbin, fov_stats = register_fov_compact(p, cfg, sw.pyr, sw.fov,
+                                                        sensor_pos)
+            fov_stats.update(rebin_stats)
+        else:
+            sw = sweep(p, cfg, dt, origin, sensor_pos, quat)
+            p = dataclasses.replace(p, px=sw.px, py=sw.py, pz=sw.pz,
+                                    flags=sw.flags)
+            p, fovbin, future_movers, fov_stats = rebin_and_register(
+                p, cfg, sw, sensor_pos, update_time)
 
         # -- measurement update (dsp_dynamic.h:304,704-793) -------------
         p, norm_coeff, upd_stats = measurement_update(
             p, fovbin, obs, cfg, expected_newborn, update_time, rt)
 
         # -- particle birth (dsp_dynamic.h:315,796-921) -----------------
-        p, birth_stats = particle_birth(
+        birth = particle_birth_compact if compact else particle_birth
+        p, birth_stats = birth(
             p, cfg, (noise_p, noise_v, noise_u),
             est_points=est_out.points, est_vel=est_out.vel,
             est_dynamic=est_out.dynamic, est_valid=est_out.valid,
@@ -152,8 +170,12 @@ def make_step(cfg: MapConfig):
             rt=rt)
 
         # -- occupancy + future + resample (dsp_dynamic.h:322,924) ------
-        p, weight_sum, vel_avg, future, occ_stats = occupancy_and_resample(
-            p, cfg, origin, state.future, future_movers)
+        if compact:
+            p, weight_sum, vel_avg, future, occ_stats = occupancy_compact(
+                p, cfg, origin, state.future)
+        else:
+            p, weight_sum, vel_avg, future, occ_stats = occupancy_and_resample(
+                p, cfg, origin, state.future, future_movers)
 
         new_state = dataclasses.replace(
             state, particles=p, weight_sum=weight_sum, vel_avg=vel_avg,
@@ -164,6 +186,9 @@ def make_step(cfg: MapConfig):
             estimator=est_state)
         metrics = {"valid_points": obs.n_valid_points, **fov_stats,
                    **upd_stats, **birth_stats, **occ_stats}
+        if compact:
+            metrics["pool_overflow"] = (birth_stats["pool_overflow"]
+                                        + occ_stats["pool_overflow"])
         cloud = (est_out.points, est_out.vel, est_out.dynamic, est_out.valid)
         return new_state, StepOutput(True, weight_sum, metrics, cloud)
 
@@ -173,10 +198,11 @@ def make_step(cfg: MapConfig):
 def _rejected(state: MapState, cfg: MapConfig) -> StepOutput:
     dev = state.device
     P = cfg.max_input_points
+    names = COMPACT_METRIC_NAMES if cfg.layout == "compact" else METRIC_NAMES
     metrics = {k: torch.zeros((), device=dev,
                               dtype=torch.float32 if k == "newborn_weight"
                               else torch.int64)
-               for k in METRIC_NAMES}
+               for k in names}
     cloud = (torch.zeros((P, 3), device=dev), torch.zeros((P, 3), device=dev),
              torch.zeros(P, dtype=torch.bool, device=dev),
              torch.zeros(P, dtype=torch.bool, device=dev))
@@ -209,3 +235,44 @@ def get_occupancy_map(state: MapState, cfg: MapConfig, threshold: float = 0.7):
 def clear_future_prediction(state: MapState) -> MapState:
     """``clearOccupancyMapPrediction`` (dsp_dynamic.h:429-438)."""
     return dataclasses.replace(state, future=torch.zeros_like(state.future))
+
+
+# --- live runtime setters (dsp_dynamic.h:355-382) --------------------------
+#
+# The knobs ride ``state.params`` (:class:`~dspmap_tpu_torch.state.
+# RuntimeParams`) as host floats rounded to float32, as the JAX package's
+# traced f32 scalars: a setter returns a new state and the next step reads
+# the new values.
+
+
+def _set_params(state: MapState, **kw) -> MapState:
+    params = dataclasses.replace(
+        state.params, **{k: float(np.float32(v)) for k, v in kw.items()})
+    return dataclasses.replace(state, params=params)
+
+
+def set_prediction_variance(state: MapState, position_std,
+                            velocity_std) -> MapState:
+    """``setPredictionVariance`` (dsp_dynamic.h:355-360)."""
+    return _set_params(state, position_noise_std=position_std,
+                       velocity_noise_std=velocity_std)
+
+
+def set_observation_stddev(state: MapState, sigma_ob) -> MapState:
+    """``setObservationStdDev`` (dsp_dynamic.h:362-365)."""
+    return _set_params(state, sigma_ob=sigma_ob)
+
+
+def set_newborn_particle_weight(state: MapState, weight) -> MapState:
+    """``setNewBornParticleWeight`` (dsp_dynamic.h:367-370)."""
+    return _set_params(state, newborn_particle_weight=weight)
+
+
+def set_detection_probability(state: MapState, p_detection) -> MapState:
+    """The constructor's P_d knob (dsp_dynamic.h:157) as a live setter."""
+    return _set_params(state, p_detection=p_detection)
+
+
+def set_clutter_intensity(state: MapState, kappa) -> MapState:
+    """The constructor's kappa knob (dsp_dynamic.h:158) as a live setter."""
+    return _set_params(state, kappa=kappa)

@@ -106,3 +106,67 @@ def particle_birth(particles, cfg: MapConfig, draws, *, est_points, est_vel,
         "newborn_weight": w_new,
     }
     return new_particles, stats
+
+
+def particle_birth_compact(particles, cfg: MapConfig, draws, *, est_points,
+                           est_vel, est_dynamic, est_valid, norm_coeff, origin,
+                           update_time, rt):
+    """:func:`particle_birth` over the compact layout: the per-voxel class
+    tables come from one O(alive) segment table and the newborns land in
+    free rows (per-voxel capacity exact, the global row budget counted in
+    ``pool_overflow``)."""
+    from .compact import insert_compact, segment_table
+
+    P = est_points.shape[0]
+    n_b = cfg.newborn_particles_per_point
+    w_new = rt.newborn_particle_weight * norm_coeff
+    zero = torch.zeros((), dtype=torch.float32, device=est_points.device)
+
+    considered = (particles.flags != 0) & (particles.flags != FLAG_NEWBORN)
+    if cfg.motion_model == "static":
+        v_planes = ()
+    elif cfg.limit_motion_to_xy_plane:
+        v_planes = (particles.vx, particles.vy)
+    else:
+        v_planes = (particles.vx, particles.vy, particles.vz)
+    l1 = torch.zeros_like(particles.weight)
+    for v in v_planes:
+        l1 = l1 + v.abs()
+    w_c = torch.where(considered, particles.weight, zero)
+    wx, wy, wz = geometry.world_voxel_planar(particles.px, particles.py,
+                                             particles.pz, cfg)
+    cell_p = geometry.storage_index_planar(wx, wy, wz, cfg)
+    alive = particles.flags != 0
+    w_static_v, w_mid_v, w_dyn_v, count_v = segment_table(
+        cell_p, alive,
+        (torch.where(considered & (l1 < 0.1), w_c, zero),
+         torch.where(considered & (l1 >= 0.1) & (l1 < 0.5), w_c, zero),
+         torch.where(considered & (l1 >= 0.5), w_c, zero),
+         alive),  # current occupancy: the capacity baseline
+        cfg.storage_voxels, max_run=cfg.slots_per_voxel)
+
+    wv = geometry.world_voxel(est_points, cfg)
+    point_valid = est_valid & geometry.in_window(wv, origin, cfg)
+    cell = torch.where(point_valid, geometry.storage_index(wv, cfg),
+                       0).to(torch.int64)
+    w_static = torch.where(point_valid, w_static_v[cell], zero)
+    w_mid = torch.where(point_valid, w_mid_v[cell], zero)
+    w_dyn = torch.where(point_valid, w_dyn_v[cell], zero)
+
+    pos, vel = birth_table(cfg, est_points, est_vel, est_dynamic, w_static,
+                           w_mid, w_dyn, rt, *draws)
+    births = P * n_b
+    valid = point_valid[:, None].expand(P, n_b).reshape(-1)
+    new_particles, born, over = insert_compact(
+        particles, cfg, pos=pos.reshape(births, 3), vel=vel.reshape(births, 3),
+        weight=w_new.expand(births), valid=valid, origin=origin,
+        flag=FLAG_NEWBORN,
+        t=update_time if cfg.record_particle_time else None,
+        count_v=count_v)
+    stats = {
+        "birth_candidates": valid.sum(),
+        "born": born,
+        "newborn_weight": w_new,
+        "pool_overflow": over,
+    }
+    return new_particles, stats

@@ -1,7 +1,8 @@
 """Map state as plain dataclasses of tensors (mirrors ``dspmap_tpu/state.py``).
 
 Layout is the JAX package's at every public function: slot planes
-``[S, V]`` (S = slots per voxel, V = storage voxels), flags int32 with
+``[S, V]`` (S = slots per voxel, V = storage voxels) in the pool layout,
+1-D planes ``[P = cfg.compact_capacity]`` in the compact layout, flags int32 with
 0 dead / 1 valid / 3 newborn, f32 values, and a horizon-major future grid
 ``[T, V]``.  A flat plane is ``.view(-1)`` of a contiguous ``[S, V]``
 tensor, so the JAX package's tiled/flat relayout helpers have no
@@ -39,7 +40,8 @@ def _to(obj, device):
 
 @dataclasses.dataclass
 class Particles:
-    """SoA particle pool, every field ``[S, V]`` (flags int32, rest f32)."""
+    """SoA particle store, every field ``[S, V]`` (pool layout) or ``[P]``
+    (compact layout); flags int32, the rest f32."""
 
     flags: torch.Tensor
     px: torch.Tensor
@@ -166,13 +168,14 @@ def init_estimator_state(cfg: MapConfig, device="cpu") -> EstimatorState:
 
 def init_state(cfg: MapConfig, seed: int = 0, sensor_pos=(0.0, 0.0, 0.0),
                device="cpu") -> MapState:
-    """Fresh, empty pool-layout map centered at ``sensor_pos`` on ``device``.
+    """Fresh, empty map centered at ``sensor_pos`` on ``device``: particle
+    planes ``[S, V]`` in the pool layout, ``[P]`` in the compact layout.
 
     ``seed`` seeds the step's ``torch.Generator``."""
-    if cfg.layout != "pool":
-        raise NotImplementedError("the port runs the pool layout only")
     device = torch.device(device)
-    s, v = cfg.slots_per_voxel, cfg.storage_voxels
+    v = cfg.storage_voxels
+    shape = ((cfg.compact_capacity,) if cfg.layout == "compact"
+             else (cfg.slots_per_voxel, v))
     sensor_np = np.asarray(sensor_pos, np.float32)
     half = np.asarray(cfg.half_extent, np.float32)
     origin_np = np.floor(
@@ -180,7 +183,7 @@ def init_state(cfg: MapConfig, seed: int = 0, sensor_pos=(0.0, 0.0, 0.0),
     ).astype(np.int32)
 
     def zeros(dtype=torch.float32):
-        return torch.zeros((s, v), dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     particles = Particles(
         flags=zeros(torch.int32), px=zeros(), py=zeros(), pz=zeros(),

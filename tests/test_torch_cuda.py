@@ -12,7 +12,7 @@ import torch
 
 import dspmap_tpu_torch as T
 from dspmap_tpu_torch import kernels
-from dspmap_tpu_torch.ops import occupancy, sweep, update
+from dspmap_tpu_torch.ops import compact, occupancy, sweep, update
 
 pytestmark = pytest.mark.cuda
 
@@ -161,3 +161,38 @@ def test_pair_kernels_match_float64(device):
         got = kern(pos, vec, pts, 0.1).double()
         ref = plain(pos.double(), vec.double(), pts.double(), 0.1)
         torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-6)
+
+
+#: the compact step's seg_scans calls at large_urban (S = 10): (columns,
+#: n_tot, max_run) of occupancy_compact's two calls and of segment_table's
+#: calls in birth and rebin
+SEGSCAN_CASES = [(7, 2, 20), (2, 2, 20), (4, 0, 10), (1, 0, 10)]
+
+
+@pytest.mark.parametrize("C,n_tot,max_run", SEGSCAN_CASES)
+def test_segscan_kernel_bit_equal_to_plain(device, C, n_tot, max_run):
+    """K4 at P = 131072 (large_urban's row count): runs of 1..max_run rows,
+    fragments of one run further on, a dead tail and some -0.0 values;
+    ``hi`` equal on every row, ``tot`` on every live row."""
+    rng = np.random.default_rng(C * 100 + max_run)
+    P = 131072
+    key = np.repeat(np.arange(P), rng.integers(1, max_run + 1, P))[:P]
+    key[5000:5006] = key[11]
+    key[-P // 5:] = 1 << 30
+    live = torch.from_numpy(key < 1 << 30).to(device)
+    st = torch.from_numpy(np.concatenate([[True], key[1:] != key[:-1]]))
+    en = torch.from_numpy(np.concatenate([key[1:] != key[:-1], [True]])
+                          & (key < 1 << 30))
+    x = rng.uniform(0, 1, (C, P)).astype(np.float32)
+    x[:, ::101] = -0.0
+    cols = [torch.from_numpy(c).to(device) for c in x]
+    st, en = st.to(device), en.to(device)
+    n0 = kernels.LAUNCHES["seg_scans"]
+    got = compact.seg_scans(cols, st, en, max_run, n_tot)
+    want = compact.seg_scans_plain(cols, st, en, max_run, n_tot)
+    assert kernels.LAUNCHES["seg_scans"] == n0 + 1
+    assert len(got[0]) == C and len(got[1]) == n_tot
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    for g, w in zip(got[1], want[1]):
+        assert torch.equal(g[live].view(torch.int32), w[live].view(torch.int32))

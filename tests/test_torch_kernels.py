@@ -25,7 +25,7 @@ from dspmap_tpu.ops.occupancy import _pool_pass_xla
 from dspmap_tpu.ops.sweep import sweep_reference as jax_sweep
 from dspmap_tpu.ops.update import _pair_g as jax_pair_g
 from dspmap_tpu_torch import kernels
-from dspmap_tpu_torch.ops import occupancy, sweep, update
+from dspmap_tpu_torch.ops import compact, occupancy, sweep, update
 
 torch.set_num_threads(2)
 
@@ -254,14 +254,45 @@ def test_pair_passes_plain_in_float64_match_direct_form():
 
 
 def test_kernel_build_targets_hopper_only():
-    """The library is built for sm_90a alone, and the wrappers never read
-    the JAX package's ``use_pallas_*`` flags."""
+    """The library is built for sm_90a alone, every entry point is defined
+    in a source, and the wrappers never read the JAX package's
+    ``use_pallas_*`` flags."""
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert set(kernels.LAUNCHES) == {"occupancy_pool_pass", "sweep",
-                                     "update_pass1", "update_pass2"}
-    for name in kernels.SOURCES:
-        assert (kernels.CSRC / name).exists()
+                                     "update_pass1", "update_pass2",
+                                     "seg_scans"}
+    text = "".join((kernels.CSRC / name).read_text()
+                   for name in kernels.SOURCES)
+    for name in kernels.ENTRY_POINTS:
+        assert f"DSPMAP_API int {name}(" in text, name
+        assert name[len("dspmap_"):] in kernels.LAUNCHES
     import inspect
-    for mod in (occupancy, sweep, update):
+    for mod in (occupancy, sweep, update, compact):
         assert "use_pallas" not in inspect.getsource(mod)
+
+
+def test_segscan_wrapper_takes_plain_on_cpu():
+    """On CPU tensors ``seg_scans`` runs the plain version and launches
+    nothing; the CUDA entry point refuses CPU tensors and a reach beyond
+    the kernel's."""
+    rng = np.random.default_rng(4)
+    cols = [torch.from_numpy(rng.random(300).astype(np.float32))
+            for _ in range(2)]
+    key = np.repeat(np.arange(300), 3)[:300]
+    st = torch.from_numpy(np.concatenate([[True], key[1:] != key[:-1]]))
+    en = torch.from_numpy(np.concatenate([key[1:] != key[:-1], [True]]))
+    before = dict(kernels.LAUNCHES)
+    got = compact.seg_scans(cols, st, en, 4, 1)
+    want = compact.seg_scans_plain(cols, st, en, 4, 1)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+    hi, tot = got[0][0], got[1][0]  # runs of three rows
+    assert torch.equal(tot.view(100, 3), hi[2::3, None].expand(100, 3))
+    torch.testing.assert_close(hi[2::3], cols[0].view(100, 3).sum(1),
+                               rtol=1e-6, atol=0)
+    with pytest.raises((RuntimeError, AssertionError, ValueError)):
+        compact.seg_scans_cuda(cols, st, en, 4, 1)
+    with pytest.raises(ValueError):
+        compact.seg_scans_cuda(cols, st, en, compact.KERNEL_MAX_REACH + 1, 0)
+    assert kernels.LAUNCHES == before

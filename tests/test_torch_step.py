@@ -31,121 +31,48 @@ Bars (chosen from the data; see each test):
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import dspmap_tpu as J
 import dspmap_tpu_torch as T
-from dspmap_tpu.utils import sim
+from torch_parity import (KW, check_frame, check_setters, pin_newborn_weight,
+                          record)
 
 torch.set_num_threads(2)
-
-KW = dict(nx=24, ny=24, nz=12, voxel_resolution=0.25, max_input_points=1024,
-          mover_capacity=8192, pyramid_slot_capacity=96, max_clusters=16)
-N_FRAMES = 12
-RESAMPLE_COUNTERS = ("alive", "resample_dropped", "resample_copies")
-
-
-def jax_draws(rng, cfg):
-    """The JAX step's draws for key ``rng``, as numpy (see module doc)."""
-    keys = jax.random.split(rng, 6)
-    _, sub = jax.random.split(keys[0])
-    fresh = jax.random.uniform(sub, (cfg.max_clusters,), jnp.float32, 0.1, 1.0)
-    kp, kv, ku = jax.random.split(keys[3], 3)
-    shape = (cfg.max_input_points, cfg.newborn_particles_per_point, 3)
-    return tuple(np.array(x) for x in (
-        fresh, jax.random.normal(kp, shape, jnp.float32),
-        jax.random.normal(kv, shape, jnp.float32),
-        jax.random.uniform(ku, shape, jnp.float32, -1.0, 1.0)))
 
 
 @pytest.fixture(scope="module")
 def jax_run():
-    """The JAX reference run: per frame the state before, the draws, the
-    frame inputs, the state after and the metrics (all numpy)."""
+    """The JAX reference run (see ``torch_parity.record``), its config, the
+    final occupancy at 0.2 and the jitted step."""
     jcfg = J.example_node_settings(J.dsp_dynamic(**KW))
-    state = J.init_state(jcfg, jax.random.key(0))
     step = jax.jit(J.make_step(jcfg))
-    frames = []
-    for pts, n, pos, quat, t in sim.generate_sequence(N_FRAMES, jcfg, seed=7):
-        before = jax.device_get(state)
-        draws = jax_draws(state.rng, jcfg)
-        state, out = step(state, J.Frame(jnp.asarray(pts), jnp.int32(n),
-                                         jnp.asarray(pos), jnp.asarray(quat),
-                                         jnp.asarray(t)))
-        frames.append(dict(
-            before=before, draws=draws, frame=(pts, n, pos, quat, t),
-            after=jax.device_get(state), accepted=bool(out.accepted),
-            metrics={k: np.asarray(v) for k, v in out.metrics.items()}))
+    frames, state = record(jcfg, step, J.init_state(jcfg, jax.random.key(0)))
     occ = J.get_occupancy_map(state, jcfg, 0.2)[0]
-    return jcfg, frames, np.asarray(occ)
+    return jcfg, frames, np.asarray(occ), step
 
 
 def _tcfg():
     return T.example_node_settings(T.dsp_dynamic(**KW))
 
 
-def _pin_newborn_weight(monkeypatch, jax_weight):
-    """Make the port's birth stage use the JAX newborn weight's exact bits:
-    ``norm_coeff`` is replaced by the f32 value ``c`` with
-    ``w_b * c == jax_weight``."""
-    import dspmap_tpu_torch.models.pipeline as pipeline
-
-    orig = pipeline.particle_birth
-
-    def birth(p, cfg, draws, **kw):
-        w_b = np.float32(kw["rt"].newborn_particle_weight)
-        target = np.float32(jax_weight["value"])
-        c = np.float32(target / w_b)
-        for _ in range(8):
-            if np.float32(w_b * c) == target:
-                break
-            c = np.nextafter(c, np.float32(np.inf) if np.float32(w_b * c) < target
-                             else np.float32(-np.inf))
-        assert np.float32(w_b * c) == target
-        kw["norm_coeff"] = torch.tensor(float(c), dtype=torch.float32)
-        return orig(p, cfg, draws, **kw)
-
-    monkeypatch.setattr(pipeline, "particle_birth", birth)
-
-
 @pytest.mark.parametrize("pinned", [True, False],
                          ids=["newborn_weight_pinned", "free_newborn_weight"])
 def test_teacher_forced_frames_match_jax(jax_run, monkeypatch, pinned):
-    jcfg, frames, _ = jax_run
+    _, frames, _, _ = jax_run
     tcfg = _tcfg()
     jax_weight = {}
     if pinned:
-        _pin_newborn_weight(monkeypatch, jax_weight)
+        pin_newborn_weight(monkeypatch, "particle_birth", jax_weight)
     step = T.make_step(tcfg)
     flag_fracs = []
     for i, f in enumerate(frames[:6]):
         jax_weight["value"] = f["metrics"]["newborn_weight"]
         state = T.state_from_numpy(f["before"], tcfg)
         new, out = step(state, T.Frame(*f["frame"]), f["draws"])
-        assert out.accepted == f["accepted"]
-        want = f["after"]
-        flags = new.particles.flags.numpy()
-        frac = np.mean(flags == np.asarray(want.particles.flags))
-        flag_fracs.append(frac)
-        assert frac >= (0.999 if pinned else 0.995), (i, frac)
-        for name in ("weight_sum", "future"):
-            close = np.isclose(getattr(new, name).numpy(),
-                               np.asarray(getattr(want, name)),
-                               rtol=1e-4, atol=1e-7)
-            assert close.mean() >= 0.999, (i, name, close.mean())
-        assert set(out.metrics) == set(f["metrics"]), i
-        for k, v in f["metrics"].items():
-            got = float(out.metrics[k])
-            if k == "newborn_weight":
-                np.testing.assert_allclose(got, float(v), rtol=1e-5)
-                continue
-            slack = 0.1 if k in RESAMPLE_COUNTERS and not pinned else 0.005
-            assert abs(got - int(v)) <= max(2, slack * abs(int(v))), (i, k, got, v)
-        np.testing.assert_array_equal(new.origin, np.asarray(want.origin))
-        assert new.update_counter == int(want.update_counter)
+        flag_fracs.append(check_frame(i, new, out, f, pinned))
     assert np.mean(flag_fracs) >= 0.999, flag_fracs
     # the run exercised births, the measurement update and movers
     last = frames[5]["metrics"]
@@ -154,7 +81,7 @@ def test_teacher_forced_frames_match_jax(jax_run, monkeypatch, pinned):
 
 
 def test_free_running_matches_jax(jax_run):
-    jcfg, frames, jax_occ = jax_run
+    _, frames, jax_occ, _ = jax_run
     tcfg = _tcfg()
     step = T.make_step(tcfg)
     state = T.state_from_numpy(frames[0]["before"], tcfg)
@@ -180,7 +107,7 @@ def test_free_running_matches_jax(jax_run):
 def test_state_carriers_round_trip(jax_run):
     """``state_from_numpy`` then ``state_to_numpy`` returns the JAX state's
     arrays bit for bit, under the JAX ``MapState``'s field names."""
-    _, frames, _ = jax_run
+    _, frames, _, _ = jax_run
     want = frames[5]["after"]
     got = T.state_to_numpy(T.state_from_numpy(want, _tcfg()))
     for name in ("flags", "px", "py", "pz", "vx", "vy", "vz", "weight", "t"):
@@ -200,7 +127,7 @@ def test_state_carriers_round_trip(jax_run):
 def test_rejected_frame_leaves_state(jax_run):
     """Admission control: a >10 m jump and a bad quaternion are rejected on
     the host and return the input state unchanged."""
-    _, frames, _ = jax_run
+    _, frames, _, _ = jax_run
     tcfg = _tcfg()
     step = T.make_step(tcfg)
     state = T.state_from_numpy(frames[3]["after"], tcfg)
@@ -211,3 +138,11 @@ def test_rejected_frame_leaves_state(jax_run):
         new, out = step(state, bad)
         assert not out.accepted and new is state
         assert int(out.metrics["alive"]) == 0
+
+
+def test_live_setters_match_jax(jax_run, monkeypatch):
+    """``set_observation_stddev`` and ``set_detection_probability`` between
+    frames on both packages: the next frame within the pinned
+    teacher-forced bars (``torch_parity.check_setters``)."""
+    _, frames, _, jstep = jax_run
+    check_setters(jstep, _tcfg(), frames, monkeypatch, "particle_birth")

@@ -1,0 +1,132 @@
+"""Shared pieces of the port-vs-JAX step tests (``tests/test_torch_step.py``,
+``tests/test_torch_compact.py``): the JAX step's random draws, a recorded
+JAX run, the newborn-weight pin and the teacher-forced bars.  The bars and
+their reasons are stated in ``tests/test_torch_step.py``'s docstring."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import dspmap_tpu as J
+import dspmap_tpu_torch as T
+from dspmap_tpu.utils import sim
+
+KW = dict(nx=24, ny=24, nz=12, voxel_resolution=0.25, max_input_points=1024,
+          mover_capacity=8192, pyramid_slot_capacity=96, max_clusters=16)
+N_FRAMES = 12
+RESAMPLE_COUNTERS = ("alive", "resample_dropped", "resample_copies")
+
+
+def jax_draws(rng, cfg):
+    """The JAX step's draws for key ``rng``, as numpy: ``keys =
+    split(rng, 6)``; the estimator's uniform from ``split(keys[0])[1]``,
+    the birth table's normal/normal/uniform from ``split(keys[3], 3)``."""
+    keys = jax.random.split(rng, 6)
+    _, sub = jax.random.split(keys[0])
+    fresh = jax.random.uniform(sub, (cfg.max_clusters,), jnp.float32, 0.1, 1.0)
+    kp, kv, ku = jax.random.split(keys[3], 3)
+    shape = (cfg.max_input_points, cfg.newborn_particles_per_point, 3)
+    return tuple(np.array(x) for x in (
+        fresh, jax.random.normal(kp, shape, jnp.float32),
+        jax.random.normal(kv, shape, jnp.float32),
+        jax.random.uniform(ku, shape, jnp.float32, -1.0, 1.0)))
+
+
+def record(jcfg, step, state, n_frames=N_FRAMES):
+    """Run the jitted JAX ``step`` over the street sequence (seed 7) from
+    ``state``: per frame the state before, the draws, the frame inputs,
+    the state after and the metrics (all numpy), and the JAX state after
+    (``live``).  Returns ``(frames, final state)``."""
+    frames = []
+    for pts, n, pos, quat, t in sim.generate_sequence(n_frames, jcfg, seed=7):
+        before = jax.device_get(state)
+        draws = jax_draws(state.rng, jcfg)
+        state, out = step(state, J.Frame(jnp.asarray(pts), jnp.int32(n),
+                                         jnp.asarray(pos), jnp.asarray(quat),
+                                         jnp.asarray(t)))
+        frames.append(dict(
+            before=before, draws=draws, frame=(pts, n, pos, quat, t),
+            after=jax.device_get(state), live=state,
+            accepted=bool(out.accepted),
+            metrics={k: np.asarray(v) for k, v in out.metrics.items()}))
+    return frames, state
+
+
+def pin_newborn_weight(monkeypatch, birth_name, jax_weight):
+    """Make the port's birth stage (``pipeline.<birth_name>``) use the JAX
+    newborn weight's exact bits: ``norm_coeff`` is replaced by the f32
+    value ``c`` with ``w_b * c == jax_weight["value"]``."""
+    import dspmap_tpu_torch.models.pipeline as pipeline
+
+    orig = getattr(pipeline, birth_name)
+
+    def birth(p, cfg, draws, **kw):
+        w_b = np.float32(kw["rt"].newborn_particle_weight)
+        target = np.float32(jax_weight["value"])
+        c = np.float32(target / w_b)
+        for _ in range(8):
+            if np.float32(w_b * c) == target:
+                break
+            c = np.nextafter(c, np.float32(np.inf) if np.float32(w_b * c) < target
+                             else np.float32(-np.inf))
+        assert np.float32(w_b * c) == target
+        kw["norm_coeff"] = torch.tensor(float(c), dtype=torch.float32)
+        return orig(p, cfg, draws, **kw)
+
+    monkeypatch.setattr(pipeline, birth_name, birth)
+
+
+def check_frame(i, new, out, f, pinned):
+    """The teacher-forced bars for one frame; returns the share of equal
+    flags (held per frame here, and on average by the caller)."""
+    assert out.accepted == f["accepted"]
+    want = f["after"]
+    frac = np.mean(new.particles.flags.numpy()
+                   == np.asarray(want.particles.flags))
+    assert frac >= (0.999 if pinned else 0.995), (i, frac)
+    for name in ("weight_sum", "future"):
+        close = np.isclose(getattr(new, name).numpy(),
+                           np.asarray(getattr(want, name)),
+                           rtol=1e-4, atol=1e-7)
+        assert close.mean() >= 0.999, (i, name, close.mean())
+    assert set(out.metrics) == set(f["metrics"]), i
+    for k, v in f["metrics"].items():
+        got = float(out.metrics[k])
+        if k == "newborn_weight":
+            np.testing.assert_allclose(got, float(v), rtol=1e-5)
+            continue
+        slack = 0.1 if k in RESAMPLE_COUNTERS and not pinned else 0.005
+        assert abs(got - int(v)) <= max(2, slack * abs(int(v))), (i, k, got, v)
+    np.testing.assert_array_equal(new.origin, np.asarray(want.origin))
+    assert new.update_counter == int(want.update_counter)
+    return frac
+
+
+def check_setters(jstep, tcfg, frames, monkeypatch, birth_name):
+    """Change ``sigma_ob`` and ``p_detection`` between frames on both
+    packages and hold the next frame to the JAX frame with the pinned
+    teacher-forced bars."""
+    f = frames[4]
+    jstate = J.set_detection_probability(
+        J.set_observation_stddev(f["live"], 0.13), 0.8)
+    pts, n, pos, quat, t = frames[5]["frame"]
+    want_state, want_out = jstep(jstate, J.Frame(
+        jnp.asarray(pts), jnp.int32(n), jnp.asarray(pos), jnp.asarray(quat),
+        jnp.asarray(t)))
+    nxt = dict(frames[5], before=jax.device_get(jstate),
+               after=jax.device_get(want_state),
+               accepted=bool(want_out.accepted),
+               metrics={k: np.asarray(v) for k, v in want_out.metrics.items()})
+    state = T.state_from_numpy(f["after"], tcfg)
+    state = T.set_detection_probability(T.set_observation_stddev(state, 0.13),
+                                        0.8)
+    assert state.params.sigma_ob == float(np.float32(0.13))
+    assert state.params.p_detection == float(np.float32(0.8))
+    jax_weight = {"value": nxt["metrics"]["newborn_weight"]}
+    pin_newborn_weight(monkeypatch, birth_name, jax_weight)
+    new, out = T.make_step(tcfg)(state, T.Frame(*nxt["frame"]), nxt["draws"])
+    check_frame(5, new, out, nxt, pinned=True)
+    # the setters moved the result: the unchanged JAX frame differs
+    assert not np.array_equal(np.asarray(frames[5]["after"].weight_sum),
+                              np.asarray(nxt["after"].weight_sum))
