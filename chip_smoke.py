@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's four paths on one CUDA card and check them.
 
 Run from the root of a checkout on a machine with an H100::
 
@@ -10,20 +10,28 @@ Phases (each prints one line; any failure raises and exits nonzero):
 1. the card: CUDA present, compute capability 9.x, name and power limit;
 2. build the port's CUDA kernels from ``dspmap_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes its path gives it -- K1-K3 at the flagship step's
-   (``example_node_settings(dsp_dynamic())``), K4 at ``large_urban()``'s
-   -- with inputs made from a numpy seed, plus the median time of each
-   over 20 runs (CUDA events);
-4. the flagship path: 5 warm-up and 30 timed frames of the synthetic
-   street sequence through ``make_step`` (pool layout), with the kernels'
-   launch counts; one warm frame runs under PyTorch's sync debug mode and
-   must not synchronize the host with the card;
-5. card against CPU: the state after frame 10 is copied to the CPU and the
-   next frame is stepped on both with the same random draws (see
-   :func:`card_vs_cpu` for the bars);
-6. the large_urban path (compact layout, ``make_step(large_urban())``):
-   3 warm-up and 10 timed frames, launch counts, the sync watch, and one
-   frame on the card against the CPU as in phase 5.
+   shapes its paths give it, with inputs made from a numpy seed, plus the
+   median time of each over 20 runs (CUDA events), the least time the card
+   could take for the same work (``bound_ms``: bytes moved once over
+   3.35 TB/s, or float operations over 67 TFLOP/s, whichever is larger)
+   and, where one PyTorch call computes the same function, that call's
+   time: K1 (pool pass) at S = 18, 50 and 60 slots, K2 (sweep) at the same
+   three pools, K3a/K3b (pair passes) at (448, 64, 288), (504, 32, 288)
+   and (4536, 16, 400), K4 (segmented scans) at P = 131072 rows, K5a/K5b
+   (relayout) at (60, 75776) for an f32 and an i32 plane beside
+   ``clone()``;
+4. the four paths at full width through ``make_step`` on the synthetic
+   street sequence -- ``flagship`` (``example_node_settings(
+   dsp_dynamic())``, pool layout), ``large_urban`` (compact layout),
+   ``static`` (``example_node_settings(dsp_static())``) and ``multi``
+   (``example_node_settings(dsp_dynamic_multi_neighbors())``, whose
+   planes of 17.3 MiB take the flat working phase through K5) -- each with
+   the kernels' launch counts set to 0 before and pinned after, one warm
+   frame under PyTorch's sync debug mode (it must not synchronize the host
+   with the card), finite state and occupied voxels;
+5. card against CPU for each path: the state after a kept frame is copied
+   to the CPU and the next frame is stepped on both with the same random
+   draws (see :func:`card_vs_cpu` for the bars).
 
 The second-to-last line is a JSON object with every kernel's measurements,
 the last ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -88,10 +96,32 @@ def _require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def _flagship_pool(cfg, rng, device):
+#: the card's published peaks (H100 SXM): device memory and float32
+#: outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+
+def _bound(n_bytes: float, n_flops: float):
+    """``(bound_ms, bound_by)``: the larger of the bytes the function must
+    move once over the memory rate and its float operations over the f32
+    peak."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = n_flops / PEAK_F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _row(err, ms, plain_ms, n_bytes, n_flops, library_ms=None, **extra):
+    bound_ms, bound_by = _bound(n_bytes, n_flops)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, **extra)
+
+
+def _populated_pool(cfg, rng, device):
     """A populated [S, V] pool, built like tests/test_pallas.py builds its
     occupancy pool: random voxels holding 1..S slots of valid/newborn
-    particles with uniform weights, 30% of them moving in x or y."""
+    particles with uniform weights, 30% of them moving in x or y (none
+    under the static model)."""
     import torch
     import dspmap_tpu_torch as dm
 
@@ -106,7 +136,7 @@ def _flagship_pool(cfg, rng, device):
     flags[:, cols] = np.where(occ, rng.choice([1, 1, 1, 3], size=(S, n_vox)), 0)
     valid = flags != 0
     weight = np.where(valid, rng.uniform(0.0005, 1.0, (S, V)), 0).astype(np.float32)
-    mv = valid & (rng.random((S, V)) < 0.3)
+    mv = valid & (rng.random((S, V)) < 0.3) & (cfg.motion_model != "static")
     vx = np.where(mv, rng.normal(0, 0.8, (S, V)), 0).astype(np.float32)
     vy = np.where(mv, rng.normal(0, 0.8, (S, V)), 0).astype(np.float32)
     # positions uniform over the window of a sensor at the origin
@@ -120,38 +150,61 @@ def _flagship_pool(cfg, rng, device):
                         weight=t(weight), t=zeros.clone())
 
 
-def check_kernels(cfg, device):
-    """Phase 3: every kernel against its plain version on the card."""
+#: float operations per slot of the pool pass (cull, three to five
+#: slot-order sums, the weight cumsum, two grid thresholds of a divide, a
+#: subtract and a ceil each, the new weight), of the sweep (advance, voxel,
+#: rotation, two atan2 of about 20 each) and per particle-point pair of the
+#: pair passes (three differences, their squares summed, the scale, an exp
+#: of about 8, the constant, the weight, the sum)
+K1_FLOPS_PER_SLOT = 24
+K2_FLOPS_PER_SLOT = 80
+K3_FLOPS_PER_PAIR = 20
+
+
+def check_kernels(label, cfg, device):
+    """Phase 3 for one pool-layout configuration: K1, K2, K3a and K3b against
+    their plain versions on the card at ``cfg``'s shapes.  Returns
+    ``{kernel name: measurements}``."""
     import torch
     from dspmap_tpu_torch import geometry, kernels
     from dspmap_tpu_torch.ops import occupancy, sweep, update
 
     rng = np.random.default_rng(0)
-    pool = _flagship_pool(cfg, rng, device)
-    rows = []
+    pool = _populated_pool(cfg, rng, device)
+    S, V = cfg.slots_per_voxel, cfg.storage_voxels
+    n_vel = occupancy._n_vel(cfg)
+    shape = f"S={S} V={V} n_vel={n_vel}"
+    rows = {}
 
     # K1: occupancy pool pass --------------------------------------------
     got = occupancy.pool_pass_cuda(pool, cfg, with_moving=False)
     ref = occupancy.pool_pass_plain(pool, cfg, with_moving=False)
     torch.cuda.synchronize()
-    _require(torch.equal(got[0]["flags"], ref[0]["flags"]), "K1 flags differ")
-    werr = (got[0]["weight"] - ref[0]["weight"]).abs()
-    _require(bool((werr <= 1e-9 + 1e-6 * ref[0]["weight"].abs()).all()),
-             "K1 weights beyond rtol 1e-6")
+    _require(torch.equal(got[0]["flags"], ref[0]["flags"]),
+             f"K1 {label} flags differ")
+    _require(torch.equal(got[0]["weight"], ref[0]["weight"]),
+             f"K1 {label} weights differ")
     for name in ("px", "py", "pz", "vx", "vy"):
-        _require(torch.allclose(got[0][name], ref[0][name], rtol=1e-6, atol=0),
-                 f"K1 {name} differs")
-    _require(torch.allclose(got[1], ref[1], rtol=1e-6, atol=0), "K1 weight_sum")
-    _require(torch.allclose(got[4], ref[4], rtol=1e-6, atol=0), "K1 static")
+        _require(torch.equal(got[0][name], ref[0][name]),
+                 f"K1 {label} {name} differs")
+    _require(torch.equal(got[1], ref[1]), f"K1 {label} weight_sum")
+    _require(torch.equal(got[4], ref[4]), f"K1 {label} static contribution")
     for a, b in zip(got[6], ref[6]):
-        _require(float(a.sum()) == float(b.sum()), "K1 counter sums differ")
-    k1_err = float(torch.maximum(werr.max(), (got[1] - ref[1]).abs().max()))
+        _require(torch.equal(a, b), f"K1 {label} counters differ")
+    _require(float(ref[6][4].sum()) > 0, f"K1 {label}: nothing resampled")
+    k1_err = float(torch.maximum(
+        (got[0]["weight"] - ref[0]["weight"]).abs().max(),
+        (got[1] - ref[1]).abs().max()))
     k1_ms = _median_ms(lambda: occupancy.pool_pass_cuda(pool, cfg, False))
     k1_plain = _median_ms(lambda: occupancy.pool_pass_plain(pool, cfg, False))
-    _say("K1", flags="exact", max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain)
-    rows.append(("occupancy_pool_pass", "dspmap_tpu_torch/csrc/occupancy.cu",
-                 "dspmap_tpu/ops/pallas/occupancy.py:231", k1_err, k1_ms,
-                 k1_plain))
+    # read and written once: flags, weight, px, py, pz and the carried
+    # velocity planes per slot; 8 + n_vel per-voxel vectors out
+    k1_bytes = 2 * 4 * (5 + n_vel) * S * V + 4 * (8 + n_vel) * V
+    rows["occupancy_pool_pass"] = _row(
+        k1_err, k1_ms, k1_plain, k1_bytes, K1_FLOPS_PER_SLOT * S * V,
+        shape=shape)
+    _say(f"K1_{label}", flags="exact", weights="exact",
+         **rows["occupancy_pool_pass"])
 
     # K2: fused sweep, moving sensor pose --------------------------------
     dt = np.float32(0.1)
@@ -164,38 +217,43 @@ def check_kernels(cfg, device):
     torch.cuda.synchronize()
     k2_err = max(float((got.px - ref.px).abs().max()),
                  float((got.py - ref.py).abs().max()))
-    _require(k2_err <= 1e-5, f"K2 positions differ by {k2_err}")
+    _require(k2_err <= 1e-5, f"K2 {label} positions differ by {k2_err}")
+    if cfg.motion_model == "static":  # no advance: positions pass through
+        _require(torch.equal(got.px, pool.px) and torch.equal(got.py, pool.py),
+                 f"K2 {label} moved a static particle")
     flips = {n: float((getattr(got, n) != getattr(ref, n)).float().mean())
              for n in ("flags", "new_cell", "tags")}
-    _require(all(f < 1e-3 for f in flips.values()), f"K2 flips {flips}")
-    _require(float(got.fov.float().mean()) > 0.01, "K2 input has no FOV slots")
+    _require(all(f < 1e-3 for f in flips.values()), f"K2 {label} flips {flips}")
+    _require(float(got.fov.float().mean()) > 0.01,
+             f"K2 {label} input has no FOV slots")
     k2_ms = _median_ms(lambda: sweep.sweep_cuda(pool, cfg, dt, origin, sensor,
                                                 quat))
     k2_plain = _median_ms(lambda: sweep.sweep_reference(pool, cfg, dt, origin,
                                                         sensor, quat))
-    _say("K2", max_abs_err=k2_err, flips=json.dumps(flips), ms=k2_ms,
-         plain_ms=k2_plain)
-    rows.append(("sweep", "dspmap_tpu_torch/csrc/sweep.cu",
-                 "dspmap_tpu/ops/pallas/sweep.py:137", k2_err, k2_ms, k2_plain))
+    # in: flags px py pz vx vy; out: px py flags new_cell tags
+    rows["sweep"] = _row(k2_err, k2_ms, k2_plain, 4 * 11 * S * V,
+                         K2_FLOPS_PER_SLOT * S * V, shape=f"S={S} V={V}",
+                         flips=flips)
+    _say(f"K2_{label}", **rows["sweep"])
 
-    # K3: pair passes at 448 x 64 x 288 ----------------------------------
+    # K3: pair passes at [n_pyr, S_t] x [n_pyr, CK] ----------------------
     n_pyr, st = cfg.n_pyramids, cfg.dense_slots
     ck = cfg.neighbor_cells * cfg.obs_dense
     sigma = float(np.float32(cfg.sigma_ob))
     centre = np.asarray([4.0, 0.5, 1.0], np.float32)
     pos = (centre + rng.normal(0, 1.0, (n_pyr, st, 3))).astype(np.float32)
     pts = (centre + rng.normal(0, 1.0, (n_pyr, ck, 3))).astype(np.float32)
-    pos = pos.reshape(n_pyr, st, 3)
     # pair each point with particles a few sigma away so g is not all 0
     pts[:, :st] = pos + rng.normal(0, 2 * sigma, pos.shape).astype(np.float32)
     w = (rng.random((n_pyr, st)) * (rng.random((n_pyr, st)) > 0.3)).astype(np.float32)
     cinv = (rng.random((n_pyr, ck)) * (rng.random((n_pyr, ck)) > 0.5)).astype(np.float32)
     T = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
     pos_t, pts_t, w_t, cinv_t = T(pos), T(pts), T(w), T(cinv)
-    for name, kern, plain, vec in (
-            ("update_pass1", update.update_pass1, update.update_pass1_plain, w_t),
+    for name, kern, plain, vec, n_out in (
+            ("update_pass1", update.update_pass1, update.update_pass1_plain,
+             w_t, ck),
             ("update_pass2", update.update_pass2, update.update_pass2_plain,
-             cinv_t)):
+             cinv_t, st)):
         got = kern(pos_t, vec, pts_t, sigma)
         ref32 = plain(pos_t, vec, pts_t, sigma)
         ref64 = plain(pos_t.double(), vec.double(), pts_t.double(), sigma)
@@ -204,16 +262,75 @@ def check_kernels(cfg, device):
         err_p = float((ref32.double() - ref64).abs().max())
         within = bool(torch.allclose(got.double(), ref64, rtol=2e-5, atol=1e-6))
         _require(within or err_k <= err_p,
-                 f"{name}: kernel err {err_k} vs plain f32 err {err_p}")
-        _require(float(ref64.abs().max()) > 1e-3, f"{name}: degenerate input")
+                 f"{name} {label}: kernel err {err_k} vs plain f32 err {err_p}")
+        _require(float(ref64.abs().max()) > 1e-3,
+                 f"{name} {label}: degenerate input")
         ms = _median_ms(lambda: kern(pos_t, vec, pts_t, sigma))
         pms = _median_ms(lambda: plain(pos_t, vec, pts_t, sigma))
-        _say(name, max_abs_err_vs_f64=err_k, plain_f32_err_vs_f64=err_p,
-             within_rtol_2e5=within, ms=ms, plain_ms=pms)
-        rows.append((name, "dspmap_tpu_torch/csrc/update.cu",
-                     "dspmap_tpu/ops/pallas/update.py:"
-                     + ("117" if name == "update_pass1" else "125"),
-                     err_k, ms, pms))
+        n_bytes = 4 * (n_pyr * st * 3 + n_pyr * ck * 3 + vec.numel()
+                       + n_pyr * n_out)
+        rows[name] = _row(err_k, ms, pms, n_bytes,
+                          K3_FLOPS_PER_PAIR * n_pyr * st * ck,
+                          shape=f"rows={n_pyr} S_t={st} CK={ck}",
+                          plain_f32_err_vs_f64=err_p, within_rtol_2e5=within)
+        _say(f"{name}_{label}", **rows[name])
+    kernels.reset_launch_counts()
+    return rows
+
+
+def check_relayout(cfg, device):
+    """Phase 3, K5: ``to_flat`` and ``from_flat`` at ``cfg``'s plane shape
+    for an f32 and an i32 plane, bit-equal to their plain versions: the
+    source untouched, the sentinel word of the working buffer outside the
+    flat plane, the restored plane fresh and of the exact size.  Timed
+    beside ``clone()`` over four distinct planes in turn (145 MB of
+    traffic, so no launch finds its plane in the 50 MB L2, as in the step).
+    Returns ``{kernel name: measurements}``."""
+    import torch
+    from dspmap_tpu_torch import kernels, state
+    from dspmap_tpu_torch.ops import relayout
+    from dspmap_tpu_torch.ops.common import padded_buffer
+
+    S, V = cfg.slots_per_voxel, cfg.storage_voxels
+    _require(S * V * 4 >= state._DMA_RELAYOUT_BYTES and V % 1024 == 0,
+             "the relayout kernels are not on this configuration's path")
+    rng = np.random.default_rng(5)
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    for dtype in (torch.float32, torch.int32):
+        src = torch.from_numpy(rng.integers(
+            -2**31, 2**31 - 1, (S, V)).astype(np.int32)).to(device).view(dtype)
+        keep = src.clone()
+        flat = relayout.to_flat_cuda(src)
+        want = relayout.to_flat_plain(src)
+        back = relayout.from_flat_cuda(flat, S, V)
+        want_back = relayout.from_flat_plain(want, S, V)
+        torch.cuda.synchronize()
+        _require(flat.shape == (S * V,) and flat.dtype == dtype
+                 and torch.equal(bits(flat), bits(want)), f"K5a {dtype}")
+        _require(padded_buffer(flat).shape == (S * V + 1,), "K5a buffer")
+        _require(torch.equal(bits(src), bits(keep)), "K5a wrote its source")
+        _require(back.shape == (S, V)
+                 and torch.equal(bits(back), bits(want_back))
+                 and torch.equal(bits(back), bits(keep)), f"K5b {dtype}")
+        _require(back.untyped_storage().nbytes() == S * V * 4,
+                 "K5b plane is not of the exact size")
+        _require(torch.equal(bits(flat), bits(want)), "K5b wrote its source")
+    planes = [torch.from_numpy(rng.random((S, V), np.float32)).to(device)
+              for _ in range(4)]
+    flats = [relayout.to_flat_cuda(x) for x in planes]
+    each = lambda fn, xs: (lambda: [fn(x) for x in xs])  # noqa: E731
+    n = len(planes)
+    rows = {}
+    for name, kern, plain, xs in (
+            ("to_flat", relayout.to_flat_cuda, relayout.to_flat_plain, planes),
+            ("from_flat", lambda f: relayout.from_flat_cuda(f, S, V),
+             lambda f: relayout.from_flat_plain(f, S, V), flats)):
+        rows[name] = _row(
+            0.0, _median_ms(each(kern, xs)) / n, _median_ms(each(plain, xs)) / n,
+            2 * 4 * S * V, 0,
+            library_ms=_median_ms(each(torch.clone, xs)) / n,
+            shape=f"S={S} V={V}", library_call="torch.clone")
+        _say(f"K5_{name}", bit_equal=True, **rows[name])
     kernels.reset_launch_counts()
     return rows
 
@@ -261,12 +378,15 @@ def check_segscan(cfg, device):
                                                        n_tot))
         pms = _median_ms(lambda: compact.seg_scans_plain(cols, st, en,
                                                          max_run, n_tot))
-        times[C] = (ms, pms)
+        # in: C columns and two flag bytes a row; out: C hi and n_tot tot
+        # columns; log2(reach) adds a column forward, a select backward
+        steps = int(np.log2(compact._reach(max_run)))
+        times[C] = _row(0.0, ms, pms, P * (4 * (2 * C + n_tot) + 2),
+                        P * C * steps, shape=f"P={P} C={C} n_tot={n_tot}")
         _say("K4", columns=C, n_tot=n_tot, reach=compact._reach(max_run),
              rows=P, bit_equal=True, ms=ms, plain_ms=pms)
     kernels.reset_launch_counts()
-    return ("seg_scans", "dspmap_tpu_torch/csrc/segscan.cu",
-            "dspmap_tpu/ops/pallas/segscan.py:121", 0.0, *times[7])
+    return {"seg_scans": times[7]}
 
 
 def _agreement(card, cpu) -> dict:
@@ -311,6 +431,7 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu") -> None:
     draws = dm.make_draws(cfg, state.gen, device)
     cpu_draws = tuple(d.cpu() for d in draws)
     cpu_state = state.to("cpu")
+    t0 = time.perf_counter()
     name = ("particle_birth_compact" if cfg.layout == "compact"
             else "particle_birth")
     birth = getattr(pipeline, name)
@@ -333,6 +454,8 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu") -> None:
         setattr(pipeline, name, birth)
     free = _agreement(card, step(cpu_state, frame, cpu_draws))
     torch.cuda.synchronize()
+    _say(label + "_cost", seconds_for_one_card_and_two_cpu_frames=(
+        time.perf_counter() - t0))
     free_flags = 0.995 if cfg.layout == "compact" else 0.999
     for tag, m, flag_bar in ((label, pinned, 0.999),
                              (label + "_free", free, free_flags)):
@@ -344,15 +467,19 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu") -> None:
     _require(free["alive_rel"] <= 0.02, f"{label} free alive")
 
 
+_POOL_FRAME = {"occupancy_pool_pass": 1, "sweep": 1, "update_pass1": 1,
+               "update_pass2": 1, "seg_scans": 0, "to_flat": 0, "from_flat": 0}
 #: per path: (warm-up frames, timed frames, the watched warm frame, the
-#: kernels' launches per frame)
+#: kernels' launches per frame).  The multi-neighbor planes (17.3 MiB) take
+#: the flat working phase: flags, px, py, pz, vx, vy and weight are copied
+#: in by K5a (vz is made anew as zeros, t is not touched), and all eight
+#: flat planes are copied out by K5b.
 PATHS = {
-    "flagship": (5, 30, 4, {"occupancy_pool_pass": 1, "sweep": 1,
-                            "update_pass1": 1, "update_pass2": 1,
-                            "seg_scans": 0}),
-    "large_urban": (3, 10, 2, {"occupancy_pool_pass": 0, "sweep": 0,
-                               "update_pass1": 1, "update_pass2": 1,
-                               "seg_scans": 4}),
+    "flagship": (5, 10, 4, _POOL_FRAME),
+    "large_urban": (3, 6, 2, {**_POOL_FRAME, "occupancy_pool_pass": 0,
+                              "sweep": 0, "seg_scans": 4}),
+    "static": (3, 8, 2, _POOL_FRAME),
+    "multi": (3, 8, 2, {**_POOL_FRAME, "to_flat": 7, "from_flat": 8}),
 }
 
 
@@ -410,6 +537,43 @@ def run_path(name, cfg, device):
     return launches, statistics.median(ms), alive[-1]
 
 
+#: kernel -> (source, the TPU kernel it replaces, the configuration whose
+#: shape the row's own numbers are taken at)
+KERNELS = {
+    "occupancy_pool_pass": ("dspmap_tpu_torch/csrc/occupancy.cu",
+                            "dspmap_tpu/ops/pallas/occupancy.py:231",
+                            "flagship"),
+    "sweep": ("dspmap_tpu_torch/csrc/sweep.cu",
+              "dspmap_tpu/ops/pallas/sweep.py:137", "flagship"),
+    "update_pass1": ("dspmap_tpu_torch/csrc/update.cu",
+                     "dspmap_tpu/ops/pallas/update.py:117", "flagship"),
+    "update_pass2": ("dspmap_tpu_torch/csrc/update.cu",
+                     "dspmap_tpu/ops/pallas/update.py:125", "flagship"),
+    "seg_scans": ("dspmap_tpu_torch/csrc/segscan.cu",
+                  "dspmap_tpu/ops/pallas/segscan.py:121", "large_urban"),
+    "to_flat": ("dspmap_tpu_torch/csrc/relayout.cu",
+                "dspmap_tpu/ops/pallas/relayout.py:182", "multi"),
+    "from_flat": ("dspmap_tpu_torch/csrc/relayout.cu",
+                  "dspmap_tpu/ops/pallas/relayout.py:200", "multi"),
+}
+
+
+def kernel_row(name, by_shape, by_path) -> dict:
+    """One kernel's entry of the ``kernels`` line: its launches over the
+    four paths, its measurements at the shape of its first path, and under
+    ``by_shape`` the same measurements at every shape it was checked at."""
+    source, replaces, own = KERNELS[name]
+    shapes = {label: rows[name] for label, rows in by_shape.items()
+              if name in rows}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {k: p[name] for k, p in by_path.items()},
+            **{k: shapes[own][k] for k in keys}, "by_shape": shapes}
+
+
 def main() -> int:
     import torch
 
@@ -434,23 +598,27 @@ def main() -> int:
     _say("build", seconds=time.perf_counter() - t0)
 
     device = torch.device("cuda", 0)
-    cfg = dm.example_node_settings(dm.dsp_dynamic())
-    urban = dm.large_urban()
-    rows = check_kernels(cfg, device) + [check_segscan(urban, device)]
+    configs = {
+        "flagship": dm.example_node_settings(dm.dsp_dynamic()),
+        "large_urban": dm.large_urban(),
+        "static": dm.example_node_settings(dm.dsp_static()),
+        "multi": dm.example_node_settings(dm.dsp_dynamic_multi_neighbors()),
+    }
+    _require(list(configs) == list(PATHS), "a path without a configuration")
+    by_shape = {label: check_kernels(label, configs[label], device)
+                for label in ("flagship", "static", "multi")}
+    by_shape["large_urban"] = check_segscan(configs["large_urban"], device)
+    by_shape["multi"].update(check_relayout(configs["multi"], device))
     by_path = {}
-    for name, c in (("flagship", cfg), ("large_urban", urban)):
+    for name, c in configs.items():
         launches, frame_ms, alive = run_path(name, c, device)
         by_path[name] = launches
         _say(f"{name}_summary", median_frame_ms=frame_ms, alive=alive,
              card=smi)
 
     print(smi)
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(p[name] for p in by_path.values()),
-         "launches_by_path": {k: p[name] for k, p in by_path.items()},
-         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
-        for name, src, rep, err, k_ms, p_ms in rows]}))
+    print(json.dumps({"kernels": [kernel_row(name, by_shape, by_path)
+                                  for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,9 +5,11 @@ A port of ``dspmap_tpu`` (which stays the reference): the same
 ``MapConfig`` presets, the same per-frame step on the pool and the compact
 layout, the same readouts and live setters.  Tensors on the CPU run every
 stage in plain PyTorch; tensors on a CUDA card run the occupancy pool
-pass, the fused sweep, the measurement-update pair passes and the compact
-layout's segmented scans as CUDA kernels (``csrc/``, built by ``nvcc`` at
-first use).  This package never imports jax.
+pass, the fused sweep, the measurement-update pair passes, the compact
+layout's segmented scans and the relayout copies of large pool planes as
+CUDA kernels (``csrc/``, built by ``nvcc`` at first use).  This package
+never imports jax or ``dspmap_tpu``; a state is built on the CUDA card
+unless the caller names another device.
 
 Quick start::
 
@@ -15,7 +17,7 @@ Quick start::
     from dspmap_tpu_torch.utils import sim
 
     cfg = dm.example_node_settings(dm.dsp_dynamic())
-    state = dm.init_state(cfg, seed=0, device="cuda")
+    state = dm.init_state(cfg, seed=0)  # on the card; device="cpu" for the CPU
     step = dm.make_step(cfg)
     for pts, n, pos, quat, t in sim.generate_sequence(10, cfg, seed=0):
         state, out = step(state, dm.Frame(pts, n, pos, quat, t))

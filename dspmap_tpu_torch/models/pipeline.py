@@ -25,17 +25,18 @@ import torch
 
 from ..config import MapConfig
 from .. import geometry
-from ..state import MapState
+from ..state import MapState, flatten_pool
 from ..estimator import estimate_velocities
 from ..ops.project import project_points
 from ..ops.sweep import sweep
 from ..ops.fov import rebin_and_register
 from ..ops.update import measurement_update
 from ..ops.birth import particle_birth, particle_birth_compact
-from ..ops.common import to_device
+from ..ops.common import padded_buffer, to_device
 from ..ops.compact import (occupancy_compact, rebin_compact,
                            register_fov_compact, sweep_compact)
 from ..ops.occupancy import occupancy_and_resample
+from ..ops.relayout import zeros_flat
 
 
 class Frame(NamedTuple):
@@ -153,6 +154,27 @@ def make_step(cfg: MapConfig):
             sw = sweep(p, cfg, dt, origin, sensor_pos, quat)
             p = dataclasses.replace(p, px=sw.px, py=sw.py, pz=sw.pz,
                                     flags=sw.flags)
+            # -- flat mid-frame phase (state.flatten_pool): from here
+            # through birth every scatter and gather runs on flat [S*V]
+            # planes; occupancy_and_resample converts back once.  Planes
+            # of 16 MiB or more are copied by the relayout kernel into
+            # working buffers that the scatters write in place; smaller
+            # planes are views and each scatter copies as before.
+            # The constant-zero velocity planes are made anew in flat form
+            # rather than copied (each its own working buffer where the
+            # scatters write in place); sw.tags and sw.new_cell are fresh
+            # kernel outputs that nothing scatters into, so a view serves.
+            zero_planes = (("vx", "vy", "vz") if cfg.motion_model == "static"
+                           else ("vz",))
+            p = flatten_pool(p, skip=zero_planes + (
+                () if cfg.record_particle_time else ("t",)))
+            in_place = padded_buffer(p.flags) is not None
+            p = dataclasses.replace(p, **{
+                n: (zeros_flat(p.flags.shape[0], torch.float32, dev)
+                    if in_place else getattr(p, n).view(-1))
+                for n in zero_planes})
+            sw = sw._replace(tags=sw.tags.view(-1),
+                             new_cell=sw.new_cell.view(-1))
             p, fovbin, future_movers, fov_stats = rebin_and_register(
                 p, cfg, sw, sensor_pos, update_time)
 

@@ -12,7 +12,7 @@ import torch
 from ..config import MapConfig
 from .. import geometry
 from ..state import FLAG_NEWBORN
-from .common import to_device
+from .common import pool_sv, to_device
 from .insert import insert_particles
 
 
@@ -55,7 +55,8 @@ def birth_table(cfg: MapConfig, est_points, est_vel, est_dynamic, w_static,
 def particle_birth(particles, cfg: MapConfig, draws, *, est_points, est_vel,
                    est_dynamic, est_valid, norm_coeff, origin, update_time, rt):
     """Returns ``(new_particles, stats)``; ``draws = (noise_p, noise_v,
-    noise_u)``."""
+    noise_u)``.  The pool planes are ``[S, V]`` or flat ``[S*V]``; a flat
+    working plane is written in place."""
     P = est_points.shape[0]
     n_b = cfg.newborn_particles_per_point
     w_new = rt.newborn_particle_weight * norm_coeff
@@ -65,23 +66,25 @@ def particle_birth(particles, cfg: MapConfig, draws, *, est_points, est_vel,
     cell = torch.where(point_valid, geometry.storage_index(wv, cfg), 0)
 
     # per-voxel class-weight tables, summed over slots in slot order
+    S, V = pool_sv(particles.flags, cfg)
     if cfg.motion_model == "static":
         v_planes = ()
     elif cfg.limit_motion_to_xy_plane:
         v_planes = (particles.vx, particles.vy)
     else:
         v_planes = (particles.vx, particles.vy, particles.vz)
-    S, V = particles.flags.shape
+    v_planes = tuple(v.view(S, V) for v in v_planes)
+    flags_sv, weight_sv = particles.flags.view(S, V), particles.weight.view(S, V)
     zero = torch.zeros((), dtype=torch.float32, device=est_points.device)
     w_static_v = w_mid_v = w_dyn_v = torch.zeros(V, dtype=torch.float32,
                                                  device=est_points.device)
     for s in range(S):
-        fl = particles.flags[s]
+        fl = flags_sv[s]
         l1 = torch.zeros(V, dtype=torch.float32, device=fl.device)
         for v in v_planes:
             l1 = l1 + v[s].abs()
         w_c = torch.where((fl != 0) & (fl != FLAG_NEWBORN),
-                          particles.weight[s], zero)
+                          weight_sv[s], zero)
         w_static_v = w_static_v + torch.where(l1 < 0.1, w_c, zero)
         w_mid_v = w_mid_v + torch.where((l1 >= 0.1) & (l1 < 0.5), w_c, zero)
         w_dyn_v = w_dyn_v + torch.where(l1 >= 0.5, w_c, zero)

@@ -8,6 +8,12 @@ overflow counts -- without its TPU mechanisms (the MXU bitmask pack,
 Scatters in JAX's ``mode="drop"`` route out-of-range rows to a sentinel
 element of a buffer one larger and slice it off; ``index_put_`` raises on
 out-of-range rows, and clamping an index would overwrite a live slot.
+
+Pool planes come in two forms (:func:`pool_sv`): ``[S, V]`` and the flat
+``[S*V]`` form of the step's mid-frame phase (``state.flatten_pool``).  A
+flat plane may be a *working plane* (:func:`working_plane`): the prefix view
+of a padded buffer that the step owns, into which :func:`pool_put` and
+:func:`pool_fill` write in place.
 """
 
 from __future__ import annotations
@@ -42,6 +48,16 @@ def _safe(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where((idx >= 0) & (idx < n), idx, n)
 
 
+def _put(buf: torch.Tensor, target: torch.Tensor, idx: torch.Tensor,
+         vals) -> None:
+    """``buf[idx] = vals`` with out-of-range rows sent to ``buf``'s last
+    (sentinel) row; ``buf`` is one row longer than ``target``."""
+    vals = _vals(vals, target)
+    if vals.dim() < idx.dim() + target.dim() - 1:
+        vals = vals.expand(tuple(idx.shape) + tuple(target.shape[1:]))
+    buf.index_put_((_safe(idx, target.shape[0]),), vals)
+
+
 def scatter_set(target: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     """``target.at[idx].set(vals, mode="drop")`` along dim 0 (functional).
 
@@ -51,10 +67,7 @@ def scatter_set(target: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     buf = torch.empty((n + 1,) + tuple(target.shape[1:]), dtype=target.dtype,
                       device=target.device)
     buf[:n] = target
-    vals = _vals(vals, target)
-    if vals.dim() < idx.dim() + target.dim() - 1:
-        vals = vals.expand(tuple(idx.shape) + tuple(target.shape[1:]))
-    buf.index_put_((_safe(idx, n),), vals)
+    _put(buf, target, idx, vals)
     return buf[:n]
 
 
@@ -80,6 +93,31 @@ def scatter_max(target: torch.Tensor, idx: torch.Tensor,
                               include_self=True)[:n]
 
 
+def pool_sv(plane: torch.Tensor, cfg) -> tuple:
+    """``(S, V)`` of a pool plane in the ``[S, V]`` or the flat ``[S*V]``
+    form."""
+    if plane.dim() == 2:
+        return tuple(plane.shape)
+    s = cfg.slots_per_voxel
+    return s, plane.shape[0] // s
+
+
+def working_plane(buf: torch.Tensor) -> torch.Tensor:
+    """The ``[n]`` prefix view of a padded 1-D buffer ``[n + 1]`` that the
+    step owns, marked so that :func:`pool_put` and :func:`pool_fill` write
+    into it in place (the last element is the scatters' drop sentinel).
+    The mark lives on this tensor object only: anything computed from it is
+    an ordinary tensor."""
+    flat = buf[:buf.shape[0] - 1]
+    flat.padded = buf
+    return flat
+
+
+def padded_buffer(plane: torch.Tensor):
+    """The padded buffer behind a working plane, else ``None``."""
+    return getattr(plane, "padded", None)
+
+
 def pool_take(plane: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
     """Gather flat pool positions from a contiguous plane of any shape;
     out-of-range ``flat`` (the ``S*V`` sentinel) clamps, like the JAX
@@ -90,8 +128,21 @@ def pool_take(plane: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
 
 def pool_put(plane: torch.Tensor, flat: torch.Tensor, vals) -> torch.Tensor:
     """Scatter ``vals`` at flat pool positions, dropping out-of-range rows
-    (the ``S*V`` drop sentinel).  Returns a new plane of ``plane``'s shape."""
+    (the ``S*V`` drop sentinel).  Returns a new plane of ``plane``'s shape,
+    or, for a working plane, ``plane`` itself written in place."""
+    buf = padded_buffer(plane)
+    if buf is not None:
+        _put(buf, plane, flat, vals)
+        return plane
     return scatter_set(plane.reshape(-1), flat, vals).view(plane.shape)
+
+
+def pool_fill(plane: torch.Tensor, mask: torch.Tensor, value) -> torch.Tensor:
+    """``where(mask, value, plane)``: a new plane, or, for a working plane,
+    ``plane`` itself filled in place."""
+    if padded_buffer(plane) is not None:
+        return plane.masked_fill_(mask, value)
+    return torch.where(mask, value, plane)
 
 
 def compact_mask(mask: torch.Tensor, capacity: int):

@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 from ..config import MapConfig
-from .common import (compact_mask, group_ranks, inverse_ranks, pool_take,
-                     scatter_set, sort_by_destination)
+from .common import (compact_mask, group_ranks, inverse_ranks, pool_fill,
+                     pool_sv, pool_take, scatter_set, sort_by_destination)
 from .insert import allocate_slots, scatter_candidates
 
 
@@ -113,9 +113,11 @@ def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,
     """Returns ``(new_particles, FovBinning, future_movers, stats)`` with
     ``future_movers = (flat[m_cap], valid[m_cap], n_dropped)``.
 
-    ``particles`` are the post-sweep planes ``[S, V]``; ``sw`` the sweep's
-    tags and new cells."""
-    S, V = particles.flags.shape
+    ``particles`` are the post-sweep planes and ``sw`` the sweep's tags and
+    new cells, both ``[S, V]`` or both flat ``[S*V]`` (the step's mid-frame
+    form).  A flat working plane is written in place: the caller's
+    ``particles`` must not be read afterwards."""
+    S, V = pool_sv(particles.flags, cfg)
     SV = S * V
     n_pyr = cfg.n_pyramids
     cap, m_cap = cfg.fov_buffer_capacity, cfg.mover_capacity
@@ -125,7 +127,7 @@ def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,
     total_movers = sw.mover.sum()
     total_fov = sw.fov.sum()
     vacated = dataclasses.replace(
-        particles, flags=torch.where(sw.mover, 0, particles.flags))
+        particles, flags=pool_fill(particles.flags, sw.mover, 0))
 
     tags = pool_take(sw.tags, idx)
     px = pool_take(particles.px, idx)
@@ -146,7 +148,8 @@ def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,
     order, _, ranks_sorted = sort_by_destination(mov_cell, mov_ok)
     mov_ranks = inverse_ranks(order, ranks_sorted)
     safe_src = torch.where(mov_ok, flat0[mov_i], SV).clamp(max=SV - 1)
-    new_flat, keep_ins = allocate_slots(vacated, mov_cell, mov_ranks, mov_ok)
+    new_flat, keep_ins = allocate_slots(vacated, cfg, mov_cell, mov_ranks,
+                                        mov_ok)
     cols_m = (px[mov_i], py[mov_i], pz[mov_i],
               pool_take(particles.vx, safe_src),
               pool_take(particles.vy, safe_src),

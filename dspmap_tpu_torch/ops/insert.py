@@ -6,6 +6,10 @@ Only the immediate, full-width path is ported: the JAX package's
 prefix-bucket ``compact_to`` switch and the deferred-payload path for
 pools of 64 MB or more give the same result and exist for TPU scatter
 costs.
+
+Every function takes the pool planes in their ``[S, V]`` or their flat
+``[S*V]`` form (``ops.common.pool_sv``); the scatters write a flat working
+plane in place (``ops.common.pool_put``).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 
 from ..config import MapConfig
 from .. import geometry
-from .common import inverse_ranks, pool_put, sort_by_destination
+from .common import inverse_ranks, pool_put, pool_sv, sort_by_destination
 
 
 def empty_slot_lookup(flags: torch.Tensor, cell: torch.Tensor,
@@ -24,20 +28,21 @@ def empty_slot_lookup(flags: torch.Tensor, cell: torch.Tensor,
     """Per candidate, the slot of the ``ranks``-th empty slot of voxel
     ``cell`` in ``flags [S, V]``.  Returns ``(slot, n_empty)`` with
     ``slot = S`` when ``ranks >= n_empty``."""
-    empty = flags[:, cell.to(torch.int64)] == 0  # [S, M]
+    empty = flags[:, cell.to(torch.int64)] == 0  # [S, M] (S row gathers)
     cum = torch.cumsum(empty, 0, dtype=torch.int32)
     n_empty = cum[-1]
     slot = (cum <= ranks[None, :]).sum(0, dtype=torch.int32)
     return torch.where(ranks < n_empty, slot, flags.shape[0]), n_empty
 
 
-def allocate_slots(particles, cell, ranks, valid):
+def allocate_slots(particles, cfg: MapConfig, cell, ranks, valid):
     """Final flat pool position per candidate (``S*V`` sentinel when the
     voxel is full or the candidate invalid).  Returns ``(flat, keep)``."""
-    S, V = particles.flags.shape
+    S, V = pool_sv(particles.flags, cfg)
     in_bounds = valid & (cell < V)
     safe_cell = cell.clamp(0, V - 1)
-    slot, n_empty = empty_slot_lookup(particles.flags, safe_cell, ranks)
+    slot, n_empty = empty_slot_lookup(particles.flags.view(S, V), safe_cell,
+                                      ranks)
     keep = in_bounds & (ranks < n_empty)
     return torch.where(keep, slot * V + safe_cell, S * V), keep
 
@@ -69,15 +74,15 @@ def insert_particles(particles, cfg: MapConfig, *, pos, vel, weight, valid,
     """Insert unsorted candidates; arrival ranks come from a stable
     destination sort.  Candidates outside the window are dropped
     (``dsp_dynamic.h:875,1062-1074``)."""
-    S, V = particles.flags.shape
+    S, V = pool_sv(particles.flags, cfg)
     wv = geometry.world_voxel(pos, cfg)
     inside = geometry.in_window(wv, origin, cfg)
     dest = geometry.storage_index(wv, cfg)
     valid = valid & inside & (dest >= 0) & (dest < V)
     order, _, ranks_sorted = sort_by_destination(dest, valid)
     ranks = inverse_ranks(order, ranks_sorted)
-    flat, _ = allocate_slots(particles, torch.where(valid, dest, V), ranks,
-                             valid)
+    flat, _ = allocate_slots(particles, cfg, torch.where(valid, dest, V),
+                             ranks, valid)
     cols = (pos[:, 0], pos[:, 1], pos[:, 2], vel[:, 0], vel[:, 1], vel[:, 2],
             weight)
     return scatter_candidates(particles, flat, cols, flag, t)

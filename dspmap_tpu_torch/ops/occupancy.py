@@ -12,9 +12,14 @@ into flag flips (voxels of equal-weight newborns sit exactly on that grid).
 Sums run in slot order; the inclusive weight cumsum runs in slot order
 within blocks of :data:`SCAN_BLOCK` slots and adds the running total of the
 earlier blocks -- the association of XLA's rewrite of ``jnp.cumsum``
-(measured bit-equal at 10, 18, 45 and 60 slots).  ``torch.cumsum`` on the
-CPU accumulates float32 in float64, so the plain version spells its
-slot-axis sums out as row loops.
+(measured bit-equal at 10, 18, 45, 48, 50, 60, 64 and 70 slots).  The
+slot-axis totals (``weight_sum``, the velocity sums, the static
+contribution) run in slot order up to 32 slots; from 33 to 64 slots XLA's
+CPU reduce sums the first ``ceil(S/2)`` slots and the rest separately, each
+in slot order, and adds the two (measured at 33, 45, 50, 60 and 64; at 65
+and beyond it splits otherwise, and no preset goes there).
+``torch.cumsum`` and ``torch.sum`` on the CPU accumulate float32 otherwise,
+so the plain version spells its slot-axis sums out as row loops.
 """
 
 from __future__ import annotations
@@ -25,10 +30,12 @@ import torch
 
 from ..config import MapConfig
 from .. import geometry, kernels
-from .common import pool_take, scatter_add, select_rows, to_device
+from ..state import unflatten_pool
+from .common import pool_take, scatter_add, to_device
 
-#: slot depths the CUDA kernel is instantiated for
-KERNEL_SLOTS = (18,)
+#: slot depths the CUDA kernel is instantiated for: the flagship's, the
+#: static preset's and the multi-neighbor preset's
+KERNEL_SLOTS = (18, 50, 60)
 #: block length of the slot-axis weight cumsum (see module docstring)
 SCAN_BLOCK = 16
 
@@ -57,11 +64,24 @@ def _row_cumsum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def sum_split(S: int) -> int:
+    """Where the slot-axis total of ``S`` slots is split in two partial
+    sums (``S``: not at all); see the module docstring."""
+    return (S + 1) // 2 if 32 < S <= 64 else S
+
+
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
-    acc = x[0].clone()
-    for s in range(1, x.shape[0]):
-        acc = acc + x[s]
-    return acc
+    """Slot-axis total of ``[S, V]`` with XLA's association: slot order,
+    in two partial sums beyond 32 slots."""
+    S = x.shape[0]
+    parts = []
+    for lo, hi in ((0, sum_split(S)), (sum_split(S), S)):
+        if lo < hi:
+            acc = x[lo].clone()
+            for s in range(lo + 1, hi):
+                acc = acc + x[s]
+            parts.append(acc)
+    return parts[0] if len(parts) == 1 else parts[0] + parts[1]
 
 
 def pool_pass_plain(particles, cfg: MapConfig, with_moving: bool = True):
@@ -115,9 +135,11 @@ def pool_pass_plain(particles, cfg: MapConfig, with_moving: bool = True):
     total_free = free_i.sum(0, dtype=torch.int32)
     demand_end = torch.cumsum(extra, 0, dtype=torch.int32)
     total_extra = demand_end[-1]
-    src_idx = torch.zeros((S, V), dtype=torch.int32, device=w.device)
-    for j in range(S):
-        src_idx = src_idx + (demand_end[j][None, :] <= free_rank)
+    # per slot, the count of demand_end[j] <= free_rank: demand_end is
+    # non-decreasing along the slot axis, so the count is a binary search
+    src_idx = torch.searchsorted(demand_end.T.contiguous(),
+                                 free_rank.T.contiguous(), right=True).T
+    src_idx = src_idx.clamp(max=S - 1)  # == S only where nothing is filled
     filled = is_free & (free_rank < torch.minimum(total_extra, total_free)) & do_rs
 
     demand_start = demand_end - extra
@@ -132,7 +154,7 @@ def pool_pass_plain(particles, cfg: MapConfig, with_moving: bool = True):
     new_flags = torch.where(filled, 1, new_flags).to(torch.int32)
 
     def place(field):
-        return torch.where(filled, select_rows(field, src_idx, S), field)
+        return torch.where(filled, field.gather(0, src_idx), field)
 
     fields = dict(flags=new_flags, weight=new_w, px=place(p.px),
                   py=place(p.py), pz=place(p.pz))
@@ -212,7 +234,13 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
     """Returns ``(new_particles, weight_sum[V], vel_avg[V, 3], future[T, V],
     stats)``.  ``future_movers = (flat, valid, n_dropped)`` is the
     pre-compacted nonzero-velocity candidate set from
-    :func:`~.fov.rebin_and_register`."""
+    :func:`~.fov.rebin_and_register`.
+
+    Ends the step's flat mid-frame phase: flat planes are restored to
+    ``[S, V]`` first (``state.unflatten_pool``; kernel K5b for large
+    planes), which also makes every plane of the returned state a fresh
+    tensor of the exact size."""
+    particles = unflatten_pool(particles, cfg.slots_per_voxel)
     S, V = particles.flags.shape
     T = cfg.n_horizons
     dev = particles.flags.device

@@ -99,7 +99,16 @@ def update_pass2_plain(pos, cinv, nbr_pts, sigma: float):
     return torch.bmm(g, cinv[:, :, None])[:, :, 0]
 
 
-def _pair_cuda(name: str, pos, vec, nbr_pts, sigma: float, out_cols: int):
+def prescale_pairs(pos, nbr_pts, sigma: float):
+    """``(pos / sigma, nbr_pts / sigma)`` as contiguous f32 tensors: the
+    pair kernels' operands, scaled once for both passes of a frame so that
+    sigma never enters the kernel (as the Pallas kernel's caller does)."""
+    inv = float(np.float32(1.0) / np.float32(sigma))
+    return (pos * inv).contiguous(), (nbr_pts * inv).contiguous()
+
+
+def _pair_cuda(name: str, pos, vec, nbr_pts, sigma: float, out_cols: int,
+               scaled=None):
     rows, st, _ = pos.shape
     ck = nbr_pts.shape[1]
     if pos.dtype != torch.float32 or nbr_pts.dtype != torch.float32:
@@ -108,11 +117,7 @@ def _pair_cuda(name: str, pos, vec, nbr_pts, sigma: float, out_cols: int):
         raise ValueError(f"bad shapes {tuple(pos.shape)} {tuple(nbr_pts.shape)}")
     if vec.shape != (rows, st if name == "update_pass1" else ck):
         raise ValueError(f"bad row vector shape {tuple(vec.shape)}")
-    # pre-scale both sides by 1/sigma outside the kernel (as the Pallas
-    # kernel's driver does), so sigma never enters the kernel
-    inv = float(np.float32(1.0) / np.float32(sigma))
-    pos_s = (pos * inv).contiguous()
-    pts_s = (nbr_pts * inv).contiguous()
+    pos_s, pts_s = scaled or prescale_pairs(pos, nbr_pts, sigma)
     vec = vec.to(torch.float32).contiguous()
     kernels.check_cuda(pos_s, vec, pts_s)
     out = torch.empty((rows, out_cols), dtype=torch.float32, device=pos.device)
@@ -120,19 +125,21 @@ def _pair_cuda(name: str, pos, vec, nbr_pts, sigma: float, out_cols: int):
     return out
 
 
-def update_pass1(pos, w, nbr_pts, sigma: float):
-    """Pass-1 dense block: kernel K3a on CUDA tensors, plain on the CPU."""
+def update_pass1(pos, w, nbr_pts, sigma: float, scaled=None):
+    """Pass-1 dense block: kernel K3a on CUDA tensors, plain on the CPU.
+    ``scaled`` optionally carries :func:`prescale_pairs` of the same
+    operands, shared by both passes."""
     if pos.is_cuda:
         return _pair_cuda("update_pass1", pos, w, nbr_pts, sigma,
-                          nbr_pts.shape[1])
+                          nbr_pts.shape[1], scaled)
     return update_pass1_plain(pos, w, nbr_pts, sigma)
 
 
-def update_pass2(pos, cinv, nbr_pts, sigma: float):
+def update_pass2(pos, cinv, nbr_pts, sigma: float, scaled=None):
     """Pass-2 dense block: kernel K3b on CUDA tensors, plain on the CPU."""
     if pos.is_cuda:
         return _pair_cuda("update_pass2", pos, cinv, nbr_pts, sigma,
-                          pos.shape[1])
+                          pos.shape[1], scaled)
     return update_pass2_plain(pos, cinv, nbr_pts, sigma)
 
 
@@ -187,7 +194,9 @@ def measurement_update(particles, fovbin, obs, cfg: MapConfig,
         g_py = g_py * adj.repeat_interleave(Ks, dim=1)  # [Psp, Yc*Ks]
 
     # ---- pass 1: C(z) --------------------------------------------------
-    c_part = update_pass1(fovbin.pos, pw, nbr_pts, sigma)
+    scaled = (prescale_pairs(fovbin.pos, nbr_pts, sigma)
+              if fovbin.pos.is_cuda else None)
+    c_part = update_pass1(fovbin.pos, pw, nbr_pts, sigma, scaled)
     if have_psp:
         onehot_p = ((sp_pyr_safe.to(torch.int32)[None, :] == arange_pyr[:, None])
                     & fovbin.sp_mask[None, :])
@@ -209,7 +218,7 @@ def measurement_update(particles, fovbin, obs, cfg: MapConfig,
     # ---- pass 2: weight factors ---------------------------------------
     nbr_cinv = torch.where(
         nbr_mask, 1.0 / gather_neighbors(c_grid, cfg, 1.0), 0.0)
-    sum_dense = update_pass2(fovbin.pos, nbr_cinv, nbr_pts, sigma)
+    sum_dense = update_pass2(fovbin.pos, nbr_cinv, nbr_pts, sigma, scaled)
     if have_osp:
         y_cinv = torch.where(obs.spill_pts_mask, 1.0 / c_spill, 0.0)
         contrib = torch.bmm(g_dy, y_cinv[:, :, None])[:, :, 0]

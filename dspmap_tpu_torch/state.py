@@ -4,9 +4,17 @@ Layout is the JAX package's at every public function: slot planes
 ``[S, V]`` (S = slots per voxel, V = storage voxels) in the pool layout,
 1-D planes ``[P = cfg.compact_capacity]`` in the compact layout, flags int32 with
 0 dead / 1 valid / 3 newborn, f32 values, and a horizon-major future grid
-``[T, V]``.  A flat plane is ``.view(-1)`` of a contiguous ``[S, V]``
-tensor, so the JAX package's tiled/flat relayout helpers have no
-counterpart here.
+``[T, V]``.
+
+Between the sweep and the occupancy stage the step keeps the pool planes
+in their flat ``[S*V]`` form (:func:`flatten_pool` / :func:`unflatten_pool`,
+as the JAX package does).  A flat plane is ``.reshape(-1)`` of the
+``[S, V]`` tensor, except for planes of :data:`_DMA_RELAYOUT_BYTES` or more:
+those are copied by the relayout kernels (``ops/relayout.py``) into a
+working buffer that the step owns and may scatter into in place.
+
+Every entry point that builds a state builds it on the CUDA card unless the
+caller names another device.
 
 The JAX ``rng`` key has no counterpart: the step draws its noise from a
 ``torch.Generator`` held in :attr:`MapState.gen` (seeded in
@@ -22,12 +30,25 @@ import numpy as np
 import torch
 
 from .config import MapConfig
+from .ops import relayout
 
 FLAG_DEAD = 0
 FLAG_VALID = 1
 FLAG_NEWBORN = 3
 
 _PLANES = ("flags", "px", "py", "pz", "vx", "vy", "vz", "weight", "t")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card and
+    raises when there is none (nothing carries on on the CPU unasked)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the map state is built on the card by default; "
+            "pass device='cpu' to build it on the CPU")
+    return torch.device("cuda")
 
 
 def _to(obj, device):
@@ -156,7 +177,65 @@ class MapState:
         )
 
 
-def init_estimator_state(cfg: MapConfig, device="cpu") -> EstimatorState:
+#: planes of this many bytes or more (with ``V % 1024 == 0``) change form
+#: through the relayout kernels (the JAX package's line, ``state.py:88``)
+_DMA_RELAYOUT_BYTES = 16 << 20
+
+
+def ravel_plane(x: torch.Tensor) -> torch.Tensor:
+    """``[S, V]`` -> ``[S*V]``.  A large plane is copied by
+    :func:`~dspmap_tpu_torch.ops.relayout.to_flat` (kernel K5a on a CUDA
+    tensor) into a flat working buffer of the step; any other plane is a
+    view of ``x``."""
+    if (x.dim() == 2 and x.numel() * x.element_size() >= _DMA_RELAYOUT_BYTES
+            and x.shape[1] % 1024 == 0):
+        return relayout.to_flat(x)
+    return x.reshape(-1)
+
+
+def unravel_plane(x: torch.Tensor, slots: int) -> torch.Tensor:
+    """``[S*V]`` -> ``[S, V]`` (inverse of :func:`ravel_plane`): a fresh
+    exact-size plane from
+    :func:`~dspmap_tpu_torch.ops.relayout.from_flat` (kernel K5b on a CUDA
+    tensor) for a large plane, a view otherwise."""
+    v = x.shape[0] // slots
+    if (x.numel() * x.element_size() >= _DMA_RELAYOUT_BYTES
+            and v % 1024 == 0):
+        return relayout.from_flat(x, slots, v)
+    return x.reshape(slots, v)
+
+
+def flatten_pool(p: Particles, skip: tuple = ()) -> Particles:
+    """Ravel every pool plane to its flat ``[S*V]`` form: the mid-frame
+    representation of the scatter-heavy stages (mover insertion ->
+    measurement writeback -> birth insertion).
+
+    ``skip`` names planes left in their 2-D form: planes that nothing
+    touches during the flat phase (the ``t`` plane when
+    ``record_particle_time`` is off).  ``flags`` can never be skipped
+    (:func:`unflatten_pool` keys off it)."""
+    names = {f.name for f in dataclasses.fields(p)}
+    if not (isinstance(skip, (tuple, frozenset, set))
+            and set(skip) <= names - {"flags"}):
+        raise ValueError(
+            f"flatten_pool skip must be a tuple/set of pool field names "
+            f"excluding 'flags'; got {skip!r}")
+    return dataclasses.replace(
+        p, **{n: ravel_plane(getattr(p, n)) for n in _PLANES if n not in skip})
+
+
+def unflatten_pool(p: Particles, slots: int) -> Particles:
+    """Restore ``[S, V]`` planes from the flat mid-frame form (a no-op on
+    planes already 2-D, such as those :func:`flatten_pool` skipped)."""
+    if p.flags.dim() == 2:
+        return p
+    return dataclasses.replace(
+        p, **{n: unravel_plane(getattr(p, n), slots) for n in _PLANES
+              if getattr(p, n).dim() == 1})
+
+
+def init_estimator_state(cfg: MapConfig, device=None) -> EstimatorState:
+    device = resolve_device(device)
     c = cfg.max_clusters
     return EstimatorState(
         prev_centers=torch.zeros((c, 3), dtype=torch.float32, device=device),
@@ -167,12 +246,13 @@ def init_estimator_state(cfg: MapConfig, device="cpu") -> EstimatorState:
 
 
 def init_state(cfg: MapConfig, seed: int = 0, sensor_pos=(0.0, 0.0, 0.0),
-               device="cpu") -> MapState:
-    """Fresh, empty map centered at ``sensor_pos`` on ``device``: particle
-    planes ``[S, V]`` in the pool layout, ``[P]`` in the compact layout.
+               device=None) -> MapState:
+    """Fresh, empty map centered at ``sensor_pos`` on ``device`` (``None``:
+    the CUDA card; raises without one): particle planes ``[S, V]`` in the
+    pool layout, ``[P]`` in the compact layout.
 
     ``seed`` seeds the step's ``torch.Generator``."""
-    device = torch.device(device)
+    device = resolve_device(device)
     v = cfg.storage_voxels
     shape = ((cfg.compact_capacity,) if cfg.layout == "compact"
              else (cfg.slots_per_voxel, v))
@@ -212,12 +292,13 @@ def init_state(cfg: MapConfig, seed: int = 0, sensor_pos=(0.0, 0.0, 0.0),
 
 # -------------------------------------------------- cross-framework carriers
 
-def state_from_numpy(tree, cfg: MapConfig, device="cpu", seed: int = 0):
-    """Build the port's :class:`MapState` from the JAX package's ``MapState``
-    after ``jax.device_get`` (any object with the same attribute names whose
+def state_from_numpy(tree, cfg: MapConfig, device=None, seed: int = 0):
+    """Build the port's :class:`MapState` on ``device`` (``None``: the CUDA
+    card; raises without one) from the JAX package's ``MapState`` after
+    ``jax.device_get`` (any object with the same attribute names whose
     leaves are numpy arrays).  The JAX ``rng`` key has no counterpart; the
     port's generator is seeded from ``seed``."""
-    device = torch.device(device)
+    device = resolve_device(device)
 
     def t(x, dtype=None):
         a = np.asarray(x)

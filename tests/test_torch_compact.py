@@ -267,7 +267,7 @@ def test_register_fov_compact_and_update_match_jax(jax_run):
         got_p, fovbin, Observation(
             **{k: _t(getattr(out["obs"], k)) for k in Observation._fields}),
         tcfg, _t(out["expected"]), float(out["update_time"]),
-        T.state_from_numpy(jax_run["before"], tcfg).params)
+        T.state_from_numpy(jax_run["before"], tcfg, device="cpu").params)
     changed = np.asarray(out["p_upd"].weight) != np.asarray(out["p_fov"].weight)
     assert changed.sum() > 20
     np.testing.assert_allclose(upd.weight.numpy(), out["p_upd"].weight,
@@ -303,7 +303,7 @@ def test_particle_birth_compact_matches_jax(jax_run):
         est_valid=est.valid, norm_coeff=_t(out["norm"]),
         origin=np.asarray(out["origin"]),
         update_time=float(out["update_time"]),
-        rt=T.state_from_numpy(jax_run["before"], tcfg).params)
+        rt=T.state_from_numpy(jax_run["before"], tcfg, device="cpu").params)
     assert int(out["birth_stats"]["born"]) > 100
     _eq(got.flags, out["p_born"].flags)
     for k in PLANES[1:]:
@@ -399,7 +399,7 @@ def test_init_state_and_carriers(jax_run):
     ``[T, V]``, equal to the JAX state's; a JAX state round-trips through
     ``state_from_numpy`` / ``state_to_numpy`` bit for bit."""
     tcfg = _tcfg()
-    fresh = T.init_state(tcfg, seed=0)
+    fresh = T.init_state(tcfg, seed=0, device="cpu")
     want = jax.device_get(J.init_state(jax_run["cfg"], jax.random.key(0)))
     for k in PLANES:
         _eq(getattr(fresh.particles, k), getattr(want.particles, k), k)
@@ -407,7 +407,7 @@ def test_init_state_and_carriers(jax_run):
     for k in ("weight_sum", "vel_avg", "future", "origin"):
         _eq(getattr(fresh, k), getattr(want, k), k)
     after = jax_run["frames"][5]["after"]
-    got = T.state_to_numpy(T.state_from_numpy(after, tcfg))
+    got = T.state_to_numpy(T.state_from_numpy(after, tcfg, device="cpu"))
     for k in PLANES:
         _eq(got["particles"][k], getattr(after.particles, k), k)
     for k in ("weight_sum", "vel_avg", "future"):
@@ -427,7 +427,7 @@ def test_compact_teacher_forced_frames_match_jax(jax_run, monkeypatch,
     fracs = []
     for i, f in enumerate(frames[:6]):
         jax_weight["value"] = f["metrics"]["newborn_weight"]
-        new, out = step(T.state_from_numpy(f["before"], tcfg),
+        new, out = step(T.state_from_numpy(f["before"], tcfg, device="cpu"),
                         T.Frame(*f["frame"]), f["draws"])
         fracs.append(check_frame(i, new, out, f, pinned))
     assert np.mean(fracs) >= 0.999, fracs
@@ -440,7 +440,7 @@ def test_compact_free_running_matches_jax(jax_run):
     frames = jax_run["frames"]
     tcfg = _tcfg()
     step = T.make_step(tcfg)
-    state = T.state_from_numpy(frames[0]["before"], tcfg)
+    state = T.state_from_numpy(frames[0]["before"], tcfg, device="cpu")
     for i, f in enumerate(frames):
         state, out = step(state, T.Frame(*f["frame"]), f["draws"])
         a_t, a_j = int(out.metrics["alive"]), int(f["metrics"]["alive"])
@@ -463,7 +463,7 @@ def test_compact_readouts_match_jax(jax_run):
     jcfg, tcfg = jax_run["cfg"], _tcfg()
     after = jax_run["frames"][-1]["after"]
     want = J.read_occupancy(jax.device_put(after), jcfg, 0.2)
-    state = T.state_from_numpy(after, tcfg)
+    state = T.state_from_numpy(after, tcfg, device="cpu")
     got = T.read_occupancy(state, tcfg, 0.2)
     for g, w, name in zip(got[:4], want[:4], ("occupied", "centers",
                                               "future", "weight")):
@@ -489,7 +489,7 @@ def test_compact_rejected_frame_and_noisy_arm():
     metric (``pool_overflow`` included) zero; the noisy-prediction arm is
     not ported and raises."""
     tcfg = _tcfg()
-    state = T.init_state(tcfg, seed=0)
+    state = T.init_state(tcfg, seed=0, device="cpu")
     step = T.make_step(tcfg)
     new, out = step(state, T.Frame(np.zeros((1024, 3), np.float32), 0,
                                    np.zeros(3, np.float32),

@@ -4,7 +4,8 @@ Marked ``cuda``: each test skips unless a compute-capability-9.x card is
 present.  On a machine with an H100 (and without jax, which
 ``tests/conftest.py`` imports) run
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``;
-``chip_smoke.py`` runs the same checks at the flagship shapes."""
+``chip_smoke.py`` runs the same checks at the full-width shapes of every
+path."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,9 @@ import torch
 
 import dspmap_tpu_torch as T
 from dspmap_tpu_torch import kernels
-from dspmap_tpu_torch.ops import compact, occupancy, sweep, update
+from dspmap_tpu_torch.ops import compact, occupancy, relayout, sweep, update
+from dspmap_tpu_torch.ops.common import padded_buffer
+from dspmap_tpu_torch.utils import sim
 
 pytestmark = pytest.mark.cuda
 
@@ -148,19 +151,29 @@ def test_wrappers_refuse_operands_the_kernels_do_not_take(device):
     assert kernels.LAUNCHES == n0
 
 
-def test_pair_kernels_match_float64(device):
+#: (rows, S_t, CK) of the pair passes: the flagship's and large_urban's
+#: tile, the static preset's and the multi-neighbor preset's
+PAIR_SHAPES = [(448, 64, 288), (504, 32, 288), (4536, 16, 400)]
+
+
+@pytest.mark.parametrize("rows,s_t,ck", PAIR_SHAPES)
+def test_pair_kernels_match_float64(device, rows, s_t, ck):
     rng = np.random.default_rng(2)
-    pos = rng.normal(3, 1, (448, 64, 3))
-    pts = rng.normal(3, 1, (448, 288, 3))
-    pts[:, :64] = pos + rng.normal(0, 0.1, pos.shape)
+    pos = rng.normal(3, 1, (rows, s_t, 3))
+    pts = rng.normal(3, 1, (rows, ck, 3))
+    pts[:, :s_t] = pos + rng.normal(0, 0.1, pos.shape)
     pos, pts, w, cinv = (
         torch.from_numpy(x.astype(np.float32)).to(device)
-        for x in (pos, pts, rng.random((448, 64)), rng.random((448, 288))))
+        for x in (pos, pts, rng.random((rows, s_t)), rng.random((rows, ck))))
+    scaled = update.prescale_pairs(pos, pts, 0.1)
     for kern, plain, vec in ((update.update_pass1, update.update_pass1_plain, w),
                              (update.update_pass2, update.update_pass2_plain, cinv)):
-        got = kern(pos, vec, pts, 0.1).double()
         ref = plain(pos.double(), vec.double(), pts.double(), 0.1)
-        torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-6)
+        assert float(ref.abs().max()) > 1e-3
+        got = kern(pos, vec, pts, 0.1)
+        torch.testing.assert_close(got.double(), ref, rtol=2e-5, atol=1e-6)
+        # operands scaled once and shared by both passes: the same bits
+        assert torch.equal(kern(pos, vec, pts, 0.1, scaled), got)
 
 
 #: the compact step's seg_scans calls at large_urban (S = 10): (columns,
@@ -196,3 +209,124 @@ def test_segscan_kernel_bit_equal_to_plain(device, C, n_tot, max_run):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
     for g, w in zip(got[1], want[1]):
         assert torch.equal(g[live].view(torch.int32), w[live].view(torch.int32))
+
+
+# ------------------------------------------- the static and multi presets
+
+#: preset -> (constructor, slots per voxel, velocity planes of the pool pass)
+PRESETS = {"static": ("dsp_static", 50, 0),
+           "multi": ("dsp_dynamic_multi_neighbors", 60, 2)}
+
+
+def _preset(name, **kw):
+    fn, slots, n_vel = PRESETS[name]
+    cfg = T.example_node_settings(getattr(T, fn)(**kw))
+    assert cfg.slots_per_voxel == slots and occupancy._n_vel(cfg) == n_vel
+    return cfg
+
+
+def _tie_pool(cfg, device, seed=11, n_voxels=1500):
+    """Voxels of ``resample_min_count..S`` newborns of one weight each: the
+    resample's ``ceil(x/wa - 1/2)`` thresholds fall exactly on the grid."""
+    rng = np.random.default_rng(seed)
+    S, V = cfg.slots_per_voxel, cfg.storage_voxels
+    cols = rng.choice(cfg.voxel_num, size=n_voxels, replace=False)
+    k = rng.integers(cfg.resample_min_count, S + 1, size=n_voxels)
+    occ = np.arange(S)[:, None] < k[None, :]
+    flags = np.zeros((S, V), np.int32)
+    weight = np.zeros((S, V), np.float32)
+    flags[:, cols] = np.where(occ, 3, 0)
+    weight[:, cols] = np.where(occ, rng.uniform(0.002, 0.2, n_voxels)[None, :], 0)
+    z = lambda: torch.zeros((S, V), device=device)  # noqa: E731
+    return T.Particles(flags=torch.from_numpy(flags).to(device), px=z(),
+                       py=z(), pz=z(), vx=z(), vy=z(), vz=z(),
+                       weight=torch.from_numpy(weight).to(device), t=z())
+
+
+@pytest.mark.parametrize("pool", ["random", "ties"])
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_occupancy_kernel_matches_plain_at_deep_slots(device, preset, pool):
+    """K1 at S = 50 (no velocity planes) and S = 60 (two): flags, weights,
+    payload and per-voxel sums equal to the plain version bit for bit, on a
+    random pool and on voxels of equal-weight newborns."""
+    cfg = _preset(preset, nx=24, ny=24, nz=12, voxel_resolution=0.25,
+                  max_input_points=1024)
+    p = _pool(cfg, device) if pool == "random" else _tie_pool(cfg, device)
+    n0 = kernels.LAUNCHES["occupancy_pool_pass"]
+    got = occupancy.occupancy_pool_pass(p, cfg, with_moving=True)
+    want = occupancy.pool_pass_plain(p, cfg, with_moving=True)
+    assert kernels.LAUNCHES["occupancy_pool_pass"] == n0 + 1
+    for name in ("flags", "weight", "px", "py", "pz", "vx", "vy", "vz", "t"):
+        assert torch.equal(got[0][name], want[0][name]), name
+    assert torch.equal(got[5], want[5])
+    for a, b in zip((got[1], got[2], got[4]) + got[3] + got[6],
+                    (want[1], want[2], want[4]) + want[3] + want[6]):
+        assert torch.equal(a, b)
+    # the resample dropped slots and, on the random pool, filled free ones
+    # (voxels of equal weights place at most one copy a particle)
+    assert float(want[6][3].sum()) > 0
+    assert pool == "ties" or float(want[6][4].sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_relayout_kernels_bit_equal(device, dtype):
+    """K5a and K5b at the multi-neighbor preset's plane (60, 75776): exact
+    copies, the source untouched, the flat plane a working plane whose
+    sentinel word is not part of it, the restored plane fresh and of the
+    exact size; a misaligned or ragged plane raises."""
+    S, V = 60, 75776
+    rng = np.random.default_rng(3)
+    src = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (S, V)).astype(
+        np.int32)).to(device).view(dtype)
+    keep = src.clone()
+    n0 = dict(kernels.LAUNCHES)
+    flat = relayout.to_flat(src)
+    back = relayout.from_flat(flat, S, V)
+    assert kernels.LAUNCHES["to_flat"] == n0["to_flat"] + 1
+    assert kernels.LAUNCHES["from_flat"] == n0["from_flat"] + 1
+    bits = lambda x: x.view(torch.int32)  # noqa: E731
+    assert flat.shape == (S * V,) and flat.dtype == dtype
+    assert torch.equal(bits(flat), bits(keep).reshape(-1))
+    assert torch.equal(bits(src), bits(keep))
+    assert padded_buffer(flat).shape == (S * V + 1,)
+    assert back.shape == (S, V) and torch.equal(bits(back), bits(keep))
+    assert back.untyped_storage().nbytes() == S * V * 4
+    assert padded_buffer(back) is None
+    with pytest.raises(ValueError):
+        relayout.to_flat_cuda(src[:, :1000].contiguous())
+    with pytest.raises(ValueError):
+        relayout.from_flat_cuda(padded_buffer(flat)[1:], S, V)  # 4-byte offset
+    assert kernels.LAUNCHES["to_flat"] == n0["to_flat"] + 1
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_preset_frames_on_the_card(device, preset):
+    """Three frames of the full-width preset through ``make_step`` on the
+    card: one launch of K1, K2, K3a and K3b a frame, the relayout kernels
+    only where the planes reach 16 MiB (multi: 7 in, 8 out a frame), a
+    finite map with live particles, the input state left as it was."""
+    cfg = _preset(preset)
+    state = T.init_state(cfg, seed=0)
+    assert state.device.type == "cuda"
+    step = T.make_step(cfg)
+    kernels.reset_launch_counts()
+    for pts, n, pos, quat, t in sim.generate_sequence(3, cfg, seed=0):
+        before = state.particles.clone()
+        new, out = step(state, T.Frame(pts, n, pos, quat, t))
+        for name in ("flags", "px", "py", "pz", "vx", "vy", "vz", "weight"):
+            assert torch.equal(getattr(state.particles, name),
+                               getattr(before, name)), name
+        state = new
+        assert out.accepted
+    big = preset == "multi"
+    assert kernels.LAUNCHES == {
+        "occupancy_pool_pass": 3, "sweep": 3, "update_pass1": 3,
+        "update_pass2": 3, "seg_scans": 0,
+        "to_flat": 21 if big else 0, "from_flat": 24 if big else 0}
+    assert int(out.metrics["alive"]) > 0 and int(out.metrics["born"]) > 0
+    assert state.particles.flags.shape == (cfg.slots_per_voxel,
+                                           cfg.storage_voxels)
+    for name in ("weight_sum", "vel_avg", "future"):
+        assert bool(torch.isfinite(getattr(state, name)).all()), name
+    if preset == "static":
+        assert not state.particles.vx.any() and not state.particles.vy.any()

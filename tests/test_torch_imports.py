@@ -1,15 +1,22 @@
-"""The port imports without jax, and its configuration is the JAX package's."""
+"""The port stands alone -- it imports and runs without jax and without the
+JAX package beside it -- and its own copies of the configuration and the
+scene generator have not drifted from the JAX package's."""
 
 import dataclasses
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import torch
 
 import dspmap_tpu as J
 import dspmap_tpu_torch as T
+from dspmap_tpu.utils import sim as jsim
+from dspmap_tpu_torch.utils import sim as tsim
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -28,7 +35,7 @@ cfg = dm.example_node_settings(dm.dsp_dynamic(
     nx=24, ny=24, nz=12, voxel_resolution=0.25, max_input_points=1024,
     mover_capacity=1024, pyramid_slot_capacity=16, max_clusters=4,
     layout=sys.argv[1]))
-state = dm.init_state(cfg, seed=0)
+state = dm.init_state(cfg, seed=0, device="cpu")
 step = dm.make_step(cfg)
 for pts, n, pos, quat, t in sim.generate_sequence(2, cfg, seed=7):
     state, out = step(state, dm.Frame(pts, n, pos, quat, t))
@@ -53,19 +60,133 @@ def test_port_runs_a_step_without_jax(layout):
     assert res.stdout.startswith("OK")
 
 
+_ALONE_SCRIPT = """
+import sys
+sys.modules["jax"] = None  # any import of jax raises ImportError
+import importlib
+import pathlib
+import pkgutil
+import torch
+torch.set_num_threads(1)
+import dspmap_tpu_torch as dm
+from dspmap_tpu_torch.utils import sim
+here = pathlib.Path.cwd().resolve()
+assert pathlib.Path(dm.__file__).resolve().is_relative_to(here), dm.__file__
+assert not (here / "dspmap_tpu").exists()
+names = [m.name for m in pkgutil.walk_packages(dm.__path__, "dspmap_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "dspmap_tpu_torch.ops.relayout" in names
+assert not [m for m in sys.modules if m == "dspmap_tpu" or m.startswith("dspmap_tpu.")]
+cut = dict(nx=24, ny=24, nz=12, voxel_resolution=0.25, max_input_points=1024,
+           mover_capacity=1024, max_clusters=4)
+shapes = []
+for preset, kw in (("dsp_dynamic", {}), ("dsp_static", {}),
+                   ("dsp_dynamic_multi_neighbors", {}),
+                   ("large_urban", dict(particle_capacity=4096))):
+    cfg = dm.example_node_settings(getattr(dm, preset)(**cut, **kw))
+    state = dm.init_state(cfg, seed=0, device="cpu")
+    shapes.append(tuple(state.particles.flags.shape))
+    step = dm.make_step(cfg)
+    for pts, n, pos, quat, t in sim.generate_sequence(2, cfg, seed=7):
+        state, out = step(state, dm.Frame(pts, n, pos, quat, t))
+        assert out.accepted, preset
+    assert int(out.metrics["alive"]) > 0, preset
+assert shapes == [(18, 7168), (50, 7168), (60, 7168), (4096,)], shapes
+print("OK", shapes)
+"""
+
+
+def test_port_copied_alone_runs_every_preset(tmp_path):
+    """The package copied into an empty directory -- no ``dspmap_tpu/``
+    beside it, ``jax`` blocked -- imports every module, builds a state for
+    the flagship, static, multi-neighbor and compact presets and steps two
+    frames of each on the CPU."""
+    shutil.copytree(REPO / "dspmap_tpu_torch", tmp_path / "dspmap_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    res = subprocess.run([sys.executable, "-c", _ALONE_SCRIPT], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.startswith("OK")
+
+
+def test_port_sources_name_no_module_of_the_jax_package():
+    """No source of the port imports ``jax`` or ``dspmap_tpu``, and the
+    by-path loader is gone."""
+    pkg = REPO / "dspmap_tpu_torch"
+    assert not (pkg / "_jaxfree.py").exists()
+    for path in list(pkg.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            words = line.strip().split()
+            if words[:1] in (["import"], ["from"]):
+                root = words[1].split(".")[0]
+                assert root not in ("jax", "jaxlib", "dspmap_tpu"), (path, line)
+            assert "spec_from_file_location" not in line, (path, line)
+
+
+_DERIVED = sorted(n for n, v in vars(T.MapConfig).items()
+                  if isinstance(v, property))
+
+
 @pytest.mark.parametrize("preset", ["dsp_dynamic", "dsp_dynamic_multi_neighbors",
                                     "dsp_static", "large_urban"])
 def test_presets_equal_jax_presets(preset):
-    """Field for field, with and without the node settings, and every
-    derived size the port reads."""
-    j, t = getattr(J, preset)(), getattr(T, preset)()
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
-    assert (dataclasses.asdict(T.example_node_settings(t))
-            == dataclasses.asdict(J.example_node_settings(j)))
-    for name in ("slots_per_voxel", "storage_voxels", "n_pyramids",
-                 "pyramid_slots", "dense_slots", "obs_dense",
-                 "fov_buffer_capacity", "neighbor_cells"):
-        assert getattr(t, name) == getattr(j, name), name
+    """The port's copy of the configuration against the JAX package's:
+    field for field, with and without the node settings and under
+    overrides, every derived size, and a round trip through
+    ``dataclasses.asdict`` in both directions."""
+    assert _DERIVED == sorted(n for n, v in vars(J.MapConfig).items()
+                              if isinstance(v, property))
+    assert len(_DERIVED) > 20 and "storage_voxels" in _DERIVED
+    cut = dict(nx=24, ny=20, nz=12, max_input_points=1024)
+    for kw in ({}, cut):
+        j, t = getattr(J, preset)(**kw), getattr(T, preset)(**kw)
+        for jc, tc in ((j, t), (J.example_node_settings(j),
+                                T.example_node_settings(t))):
+            assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+            for name in _DERIVED:
+                assert getattr(tc, name) == getattr(jc, name), name
+            assert T.MapConfig(**dataclasses.asdict(jc)) == tc
+            assert J.MapConfig(**dataclasses.asdict(tc)) == jc
+    assert (T.performance_level_parameters(55.0)
+            == J.performance_level_parameters(55.0))
+
+
+@pytest.mark.parametrize("preset", ["dsp_dynamic", "dsp_static"])
+def test_sim_copy_generates_the_jax_packages_frames(preset):
+    """``generate_sequence(3, cfg, seed=0)`` of the port's copy of
+    ``utils/sim.py`` against the JAX package's: every array equal."""
+    j = J.example_node_settings(getattr(J, preset)())
+    t = T.example_node_settings(getattr(T, preset)())
+    got, want = (list(m.generate_sequence(3, c, seed=0))
+                 for m, c in ((tsim, t), (jsim, j)))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert len(g) == len(w) == 5
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert sorted(n for n in vars(tsim) if not n.startswith("_")) == sorted(
+        n for n in vars(jsim) if not n.startswith("_"))
+
+
+def test_state_constructors_default_to_the_card():
+    """``init_state``, ``init_estimator_state`` and ``state_from_numpy``
+    with no device build on CUDA, and raise an error that names CUDA where
+    there is no card: nothing carries on on the CPU unasked."""
+    cfg = T.dsp_dynamic(nx=16, ny=16, nz=8, max_input_points=128)
+    cpu = T.init_state(cfg, device="cpu")
+    assert cpu.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert T.init_state(cfg).device.type == "cuda"
+        assert T.state_from_numpy(cpu, cfg).device.type == "cuda"
+        return
+    from dspmap_tpu_torch.state import init_estimator_state
+    for build in (lambda: T.init_state(cfg),
+                  lambda: init_estimator_state(cfg),
+                  lambda: T.state_from_numpy(cpu, cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
 
 
 def test_flagship_sizes():

@@ -25,7 +25,7 @@ from dspmap_tpu.ops.occupancy import _pool_pass_xla
 from dspmap_tpu.ops.sweep import sweep_reference as jax_sweep
 from dspmap_tpu.ops.update import _pair_g as jax_pair_g
 from dspmap_tpu_torch import kernels
-from dspmap_tpu_torch.ops import compact, occupancy, sweep, update
+from dspmap_tpu_torch.ops import compact, occupancy, relayout, sweep, update
 
 torch.set_num_threads(2)
 
@@ -261,14 +261,14 @@ def test_kernel_build_targets_hopper_only():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert set(kernels.LAUNCHES) == {"occupancy_pool_pass", "sweep",
                                      "update_pass1", "update_pass2",
-                                     "seg_scans"}
+                                     "seg_scans", "to_flat", "from_flat"}
     text = "".join((kernels.CSRC / name).read_text()
                    for name in kernels.SOURCES)
     for name in kernels.ENTRY_POINTS:
         assert f"DSPMAP_API int {name}(" in text, name
         assert name[len("dspmap_"):] in kernels.LAUNCHES
     import inspect
-    for mod in (occupancy, sweep, update, compact):
+    for mod in (occupancy, sweep, update, compact, relayout):
         assert "use_pallas" not in inspect.getsource(mod)
 
 

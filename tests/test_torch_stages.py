@@ -128,7 +128,7 @@ def _tcfg():
 
 
 def _rt(before):
-    return T.state_from_numpy(before, _tcfg()).params
+    return T.state_from_numpy(before, _tcfg(), device="cpu").params
 
 
 def test_estimate_velocities_matches_jax(staged):
@@ -140,7 +140,7 @@ def test_estimate_velocities_matches_jax(staged):
     obs, keys = out["obs"], out["keys"]
     fresh = jax.random.uniform(jax.random.split(keys[0])[1], (cfg.max_clusters,),
                                jnp.float32, 0.1, 1.0)
-    est_state = T.state_from_numpy(before, tcfg).estimator
+    est_state = T.state_from_numpy(before, tcfg, device="cpu").estimator
     got, got_state = estimate_velocities(
         _t(obs.cloud_world), _t(obs.cloud_valid), est_state, tcfg,
         float(out["dt"]), _t(fresh))

@@ -70,7 +70,7 @@ def test_teacher_forced_frames_match_jax(jax_run, monkeypatch, pinned):
     flag_fracs = []
     for i, f in enumerate(frames[:6]):
         jax_weight["value"] = f["metrics"]["newborn_weight"]
-        state = T.state_from_numpy(f["before"], tcfg)
+        state = T.state_from_numpy(f["before"], tcfg, device="cpu")
         new, out = step(state, T.Frame(*f["frame"]), f["draws"])
         flag_fracs.append(check_frame(i, new, out, f, pinned))
     assert np.mean(flag_fracs) >= 0.999, flag_fracs
@@ -84,7 +84,7 @@ def test_free_running_matches_jax(jax_run):
     _, frames, jax_occ, _ = jax_run
     tcfg = _tcfg()
     step = T.make_step(tcfg)
-    state = T.state_from_numpy(frames[0]["before"], tcfg)
+    state = T.state_from_numpy(frames[0]["before"], tcfg, device="cpu")
     for i, f in enumerate(frames):
         state, out = step(state, T.Frame(*f["frame"]), f["draws"])
         a_t, a_j = int(out.metrics["alive"]), int(f["metrics"]["alive"])
@@ -109,7 +109,7 @@ def test_state_carriers_round_trip(jax_run):
     arrays bit for bit, under the JAX ``MapState``'s field names."""
     _, frames, _, _ = jax_run
     want = frames[5]["after"]
-    got = T.state_to_numpy(T.state_from_numpy(want, _tcfg()))
+    got = T.state_to_numpy(T.state_from_numpy(want, _tcfg(), device="cpu"))
     for name in ("flags", "px", "py", "pz", "vx", "vy", "vz", "weight", "t"):
         np.testing.assert_array_equal(got["particles"][name],
                                       np.asarray(getattr(want.particles, name)))
@@ -130,7 +130,7 @@ def test_rejected_frame_leaves_state(jax_run):
     _, frames, _, _ = jax_run
     tcfg = _tcfg()
     step = T.make_step(tcfg)
-    state = T.state_from_numpy(frames[3]["after"], tcfg)
+    state = T.state_from_numpy(frames[3]["after"], tcfg, device="cpu")
     pts, n, pos, quat, t = frames[4]["frame"]
     for bad in (T.Frame(pts, n, pos + np.float32(11.0), quat, t),
                 T.Frame(pts, n, pos, quat * np.float32(2.0), t),

@@ -118,7 +118,7 @@ def check_setters(jstep, tcfg, frames, monkeypatch, birth_name):
                after=jax.device_get(want_state),
                accepted=bool(want_out.accepted),
                metrics={k: np.asarray(v) for k, v in want_out.metrics.items()})
-    state = T.state_from_numpy(f["after"], tcfg)
+    state = T.state_from_numpy(f["after"], tcfg, device="cpu")
     state = T.set_detection_probability(T.set_observation_stddev(state, 0.13),
                                         0.8)
     assert state.params.sigma_ob == float(np.float32(0.13))
@@ -130,3 +130,95 @@ def check_setters(jstep, tcfg, frames, monkeypatch, birth_name):
     # the setters moved the result: the unchanged JAX frame differs
     assert not np.array_equal(np.asarray(frames[5]["after"].weight_sum),
                               np.asarray(nxt["after"].weight_sum))
+
+
+# --- shared by the preset tests (tests/test_torch_presets*.py) -------------
+
+PLANES = ("flags", "px", "py", "pz", "vx", "vy", "vz", "weight", "t")
+#: per preset: the pyramid slot capacity the full-size preset derives (the
+#: cut map would derive 8), so the cut keeps the preset's two update tiers
+PRESETS = {
+    "static": ("dsp_static", dict(pyramid_slot_capacity=240)),
+    "multi": ("dsp_dynamic_multi_neighbors", dict(pyramid_slot_capacity=72)),
+}
+
+
+def preset_configs(name, node=True, **overrides):
+    """``(JAX config, port config)`` of preset ``name`` cut as ``KW`` cuts
+    the flagship, with the preset's own pyramid slot capacity."""
+    fn, keep = PRESETS[name]
+    kw = {**KW, **keep, **overrides}
+    jcfg, tcfg = getattr(J, fn)(**kw), getattr(T, fn)(**kw)
+    if node:
+        jcfg, tcfg = J.example_node_settings(jcfg), T.example_node_settings(tcfg)
+    return jcfg, tcfg
+
+
+def both(arrays):
+    """(JAX Particles, port Particles on the CPU) over the same numpy
+    planes."""
+    jp = J.Particles(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    tp = T.Particles(**{k: torch.from_numpy(v.copy())
+                        for k, v in arrays.items()})
+    return jp, tp
+
+
+def empty_planes(cfg):
+    S, V = cfg.slots_per_voxel, cfg.storage_voxels
+    a = {k: np.zeros((S, V), np.float32) for k in PLANES}
+    a["flags"] = np.zeros((S, V), np.int32)
+    return a
+
+
+def occupancy_pool(cfg, seed, n_voxels=300):
+    """A pool like ``tests/test_pallas.py``'s occupancy pool: ``n_voxels``
+    voxels of 1..S valid or newborn particles with uniform weights;
+    velocities obey the configuration's clamp (none under the static
+    model, vz = 0 under limit-xy)."""
+    rng = np.random.default_rng(seed)
+    S, V = cfg.slots_per_voxel, cfg.storage_voxels
+    a = empty_planes(cfg)
+    for c in rng.choice(cfg.voxel_num, size=n_voxels, replace=False):
+        k = rng.integers(1, S + 1)
+        slots = rng.choice(S, size=k, replace=False)
+        a["flags"][slots, c] = rng.choice([1, 1, 1, 3], size=k)
+        a["weight"][slots, c] = rng.uniform(0.0005, 1.0, size=k)
+        if cfg.motion_model != "static":
+            a["vx"][slots, c] = np.where(rng.random(k) < 0.3, 1.0, 0.0)
+            a["vy"][slots, c] = np.where(rng.random(k) < 0.2, -0.5, 0.0)
+    for k in ("px", "py", "pz"):
+        a[k] = rng.normal(0, 1, (S, V)).astype(np.float32)
+    a["t"] = rng.uniform(0, 5, (S, V)).astype(np.float32)
+    return a
+
+
+def tie_pool(cfg, seed, n_voxels=1500):
+    """Voxels holding ``resample_min_count..S`` newborns of one weight each:
+    the resample's ``ceil(x/wa - 1/2)`` thresholds fall exactly on the
+    grid, where the last bit of the slot-axis cumsum decides."""
+    rng = np.random.default_rng(seed)
+    S = cfg.slots_per_voxel
+    a = empty_planes(cfg)
+    cols = rng.choice(cfg.voxel_num, size=n_voxels, replace=False)
+    k = rng.integers(cfg.resample_min_count, S + 1, size=cols.size)
+    occ = np.arange(S)[:, None] < k[None, :]
+    a["flags"][:, cols] = np.where(occ, 3, 0)
+    a["weight"][:, cols] = np.where(
+        occ, rng.uniform(0.002, 0.2, cols.size)[None, :], 0).astype(np.float32)
+    return a
+
+
+def teacher_forced(frames, tcfg, monkeypatch, pinned, birth_name="particle_birth"):
+    """Every recorded frame through the port's step from the JAX state
+    before it, held to ``check_frame``; returns the per-frame flag shares."""
+    jax_weight = {}
+    if pinned:
+        pin_newborn_weight(monkeypatch, birth_name, jax_weight)
+    step = T.make_step(tcfg)
+    fracs = []
+    for i, f in enumerate(frames):
+        jax_weight["value"] = f["metrics"]["newborn_weight"]
+        state = T.state_from_numpy(f["before"], tcfg, device="cpu")
+        new, out = step(state, T.Frame(*f["frame"]), f["draws"])
+        fracs.append(check_frame(i, new, out, f, pinned))
+    return fracs
