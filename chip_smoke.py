@@ -11,21 +11,24 @@ Phases (each prints one line; any failure raises and exits nonzero):
 2. build the port's CUDA kernels from ``dspmap_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes its paths give it, with inputs made from a numpy seed, plus the
-   median time of each over 20 runs (CUDA events), the least time the card
-   could take for the same work (``bound_ms``: bytes moved once over
-   3.35 TB/s, or float operations over 67 TFLOP/s, whichever is larger)
-   and, where one PyTorch call computes the same function, that call's
-   time: K1 (pool pass) at S = 18, 50 and 60 slots, K2 (sweep) at the same
-   three pools, K3a/K3b (pair passes) at (448, 64, 288), (504, 32, 288)
-   and (4536, 16, 400), K4 (segmented scans) at P = 131072 rows, K5a/K5b
-   (relayout) at (60, 75776) for an f32 and an i32 plane beside
-   ``clone()``;
+   median time of each over 20 runs (``ms``: CUDA events around the
+   wrapper; ``device_ms``: the kernel's own duration from the profiler's
+   device-side events), the least time the card could take for the same
+   work (``bound_ms``: bytes moved once over 3.35 TB/s, or float
+   operations over 67 TFLOP/s, whichever is larger) and, where PyTorch
+   calls compute the same function, their time: K1 (pool pass) at S = 18,
+   50 and 60 slots, K2 (sweep) at the same three pools, K3a/K3b (pair
+   passes) at (448, 64, 288), (504, 32, 288) and (4536, 16, 400), K4
+   (segmented scans) at P = 131072 rows, K5a/K5b (relayout) at (60, 75776):
+   the seven planes of a frame in one launch beside seven ``clone()``
+   calls, one plane beside one;
 4. the four paths at full width through ``make_step`` on the synthetic
    street sequence -- ``flagship`` (``example_node_settings(
    dsp_dynamic())``, pool layout), ``large_urban`` (compact layout),
    ``static`` (``example_node_settings(dsp_static())``) and ``multi``
    (``example_node_settings(dsp_dynamic_multi_neighbors())``, whose
-   planes of 17.3 MiB take the flat working phase through K5) -- each with
+   planes of 17.3 MiB take the flat working phase through K5: one launch
+   in and one out a frame) -- each with
    the kernels' launch counts set to 0 before and pinned after, one warm
    frame under PyTorch's sync debug mode (it must not synchronize the host
    with the card), finite state and occupied voxels;
@@ -55,21 +58,21 @@ def _say(phase: str, **kv) -> None:
           flush=True)
 
 
-def _median_ms(fn, n: int = 20) -> float:
-    import torch
+def _median_ms(fn) -> float:
+    """Median of 20 calls, CUDA events around the call."""
+    from dspmap_tpu_torch.utils.kernel_times import median_ms
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return median_ms(fn)
+
+
+def _device_ms(fn, own: bool = True) -> float:
+    """Median of 20 calls of the time the card spent in the port's own
+    kernels during one call (the profiler's device-side events); with
+    ``own`` false, in whatever it ran."""
+    from dspmap_tpu_torch.utils.kernel_times import ANY_KERNEL, device_ms
+    from dspmap_tpu_torch.utils.stage_times import OWN_KERNELS
+
+    return device_ms(fn, names=OWN_KERNELS if own else ANY_KERNEL)
 
 
 def _watch_syncs(fn):
@@ -111,43 +114,16 @@ def _bound(n_bytes: float, n_flops: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def _row(err, ms, plain_ms, n_bytes, n_flops, library_ms=None, **extra):
+def _row(err, kernel, plain, n_bytes, n_flops, library=None, **extra):
+    """One kernel's measurements at one shape: ``kernel``, ``plain`` and
+    ``library`` are the calls to time."""
     bound_ms, bound_by = _bound(n_bytes, n_flops)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, **extra)
-
-
-def _populated_pool(cfg, rng, device):
-    """A populated [S, V] pool, built like tests/test_pallas.py builds its
-    occupancy pool: random voxels holding 1..S slots of valid/newborn
-    particles with uniform weights, 30% of them moving in x or y (none
-    under the static model)."""
-    import torch
-    import dspmap_tpu_torch as dm
-
-    S, V = cfg.slots_per_voxel, cfg.storage_voxels
-    n_vox = V // 4
-    cols = rng.choice(cfg.voxel_num, size=n_vox, replace=False)
-    k = rng.integers(1, S + 1, size=n_vox)
-    occ = np.arange(S)[:, None] < k[None, :]  # first k slots, then shuffle
-    occ = np.take_along_axis(occ, rng.permuted(
-        np.tile(np.arange(S)[:, None], (1, n_vox)), axis=0), axis=0)
-    flags = np.zeros((S, V), np.int32)
-    flags[:, cols] = np.where(occ, rng.choice([1, 1, 1, 3], size=(S, n_vox)), 0)
-    valid = flags != 0
-    weight = np.where(valid, rng.uniform(0.0005, 1.0, (S, V)), 0).astype(np.float32)
-    mv = valid & (rng.random((S, V)) < 0.3) & (cfg.motion_model != "static")
-    vx = np.where(mv, rng.normal(0, 0.8, (S, V)), 0).astype(np.float32)
-    vy = np.where(mv, rng.normal(0, 0.8, (S, V)), 0).astype(np.float32)
-    # positions uniform over the window of a sensor at the origin
-    half = np.asarray(cfg.half_extent, np.float32)
-    pos = [rng.uniform(-h, h, (S, V)).astype(np.float32) for h in half]
-    pos[2] = pos[2] + half[2]
-    t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
-    zeros = torch.zeros((S, V), dtype=torch.float32, device=device)
-    return dm.Particles(flags=t(flags), px=t(pos[0]), py=t(pos[1]),
-                        pz=t(pos[2]), vx=t(vx), vy=t(vy), vz=zeros.clone(),
-                        weight=t(weight), t=zeros.clone())
+    return dict(max_abs_err=err, ms=_median_ms(kernel),
+                device_ms=_device_ms(kernel), plain_ms=_median_ms(plain),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=_median_ms(library) if library else None,
+                **({"library_device_ms": _device_ms(library, own=False)}
+                   if library else {}), **extra)
 
 
 #: float operations per slot of the pool pass (cull, three to five
@@ -169,8 +145,10 @@ def check_kernels(label, cfg, device):
     from dspmap_tpu_torch import geometry, kernels
     from dspmap_tpu_torch.ops import occupancy, sweep, update
 
+    from dspmap_tpu_torch.utils.kernel_times import populated_pool
+
     rng = np.random.default_rng(0)
-    pool = _populated_pool(cfg, rng, device)
+    pool = populated_pool(cfg, rng, device)
     S, V = cfg.slots_per_voxel, cfg.storage_voxels
     n_vel = occupancy._n_vel(cfg)
     shape = f"S={S} V={V} n_vel={n_vel}"
@@ -195,14 +173,13 @@ def check_kernels(label, cfg, device):
     k1_err = float(torch.maximum(
         (got[0]["weight"] - ref[0]["weight"]).abs().max(),
         (got[1] - ref[1]).abs().max()))
-    k1_ms = _median_ms(lambda: occupancy.pool_pass_cuda(pool, cfg, False))
-    k1_plain = _median_ms(lambda: occupancy.pool_pass_plain(pool, cfg, False))
     # read and written once: flags, weight, px, py, pz and the carried
     # velocity planes per slot; 8 + n_vel per-voxel vectors out
     k1_bytes = 2 * 4 * (5 + n_vel) * S * V + 4 * (8 + n_vel) * V
     rows["occupancy_pool_pass"] = _row(
-        k1_err, k1_ms, k1_plain, k1_bytes, K1_FLOPS_PER_SLOT * S * V,
-        shape=shape)
+        k1_err, lambda: occupancy.pool_pass_cuda(pool, cfg, False),
+        lambda: occupancy.pool_pass_plain(pool, cfg, False), k1_bytes,
+        K1_FLOPS_PER_SLOT * S * V, shape=shape)
     _say(f"K1_{label}", flags="exact", weights="exact",
          **rows["occupancy_pool_pass"])
 
@@ -226,14 +203,12 @@ def check_kernels(label, cfg, device):
     _require(all(f < 1e-3 for f in flips.values()), f"K2 {label} flips {flips}")
     _require(float(got.fov.float().mean()) > 0.01,
              f"K2 {label} input has no FOV slots")
-    k2_ms = _median_ms(lambda: sweep.sweep_cuda(pool, cfg, dt, origin, sensor,
-                                                quat))
-    k2_plain = _median_ms(lambda: sweep.sweep_reference(pool, cfg, dt, origin,
-                                                        sensor, quat))
     # in: flags px py pz vx vy; out: px py flags new_cell tags
-    rows["sweep"] = _row(k2_err, k2_ms, k2_plain, 4 * 11 * S * V,
-                         K2_FLOPS_PER_SLOT * S * V, shape=f"S={S} V={V}",
-                         flips=flips)
+    rows["sweep"] = _row(
+        k2_err, lambda: sweep.sweep_cuda(pool, cfg, dt, origin, sensor, quat),
+        lambda: sweep.sweep_reference(pool, cfg, dt, origin, sensor, quat),
+        4 * 11 * S * V, K2_FLOPS_PER_SLOT * S * V, shape=f"S={S} V={V}",
+        flips=flips)
     _say(f"K2_{label}", **rows["sweep"])
 
     # K3: pair passes at [n_pyr, S_t] x [n_pyr, CK] ----------------------
@@ -265,11 +240,10 @@ def check_kernels(label, cfg, device):
                  f"{name} {label}: kernel err {err_k} vs plain f32 err {err_p}")
         _require(float(ref64.abs().max()) > 1e-3,
                  f"{name} {label}: degenerate input")
-        ms = _median_ms(lambda: kern(pos_t, vec, pts_t, sigma))
-        pms = _median_ms(lambda: plain(pos_t, vec, pts_t, sigma))
         n_bytes = 4 * (n_pyr * st * 3 + n_pyr * ck * 3 + vec.numel()
                        + n_pyr * n_out)
-        rows[name] = _row(err_k, ms, pms, n_bytes,
+        rows[name] = _row(err_k, lambda: kern(pos_t, vec, pts_t, sigma),
+                          lambda: plain(pos_t, vec, pts_t, sigma), n_bytes,
                           K3_FLOPS_PER_PAIR * n_pyr * st * ck,
                           shape=f"rows={n_pyr} S_t={st} CK={ck}",
                           plain_f32_err_vs_f64=err_p, within_rtol_2e5=within)
@@ -278,12 +252,43 @@ def check_kernels(label, cfg, device):
     return rows
 
 
+def check_cuda_cost(device) -> None:
+    """Phase 2's second line: host microseconds of ``kernels.check_cuda`` on
+    one tensor with its per-device answer kept, and with the card asked for
+    its compute capability on every call."""
+    import torch
+    from dspmap_tpu_torch import kernels
+
+    x = torch.zeros(4, device=device)
+
+    def asked_each_time():
+        kernels._capability.clear()
+        kernels.check_cuda(x)
+
+    def per_call_us(fn, n=5000):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    _say("check_cuda", kept_us=per_call_us(lambda: kernels.check_cuda(x)),
+         asked_each_time_us=per_call_us(asked_each_time))
+
+
+#: planes one multi frame copies in (flags i32, then px, py, pz, vx, vy and
+#: weight) and out (the zero vz plane)
+RELAYOUT_IN, RELAYOUT_OUT = 7, 1
+
+
 def check_relayout(cfg, device):
-    """Phase 3, K5: ``to_flat`` and ``from_flat`` at ``cfg``'s plane shape
-    for an f32 and an i32 plane, bit-equal to their plain versions: the
-    source untouched, the sentinel word of the working buffer outside the
-    flat plane, the restored plane fresh and of the exact size.  Timed
-    beside ``clone()`` over four distinct planes in turn (145 MB of
+    """Phase 3, K5: ``to_flat_many`` and ``from_flat_many`` at ``cfg``'s
+    plane shape, bit-equal to their plain versions for the seven planes of
+    a frame (one i32, six f32) in one launch and for one plane: the sources
+    untouched, the buffers of one call apart, the sentinel word of each
+    working buffer outside its flat plane, the restored planes fresh and of
+    the exact size.  Timed beside as many ``clone()`` calls on the same
+    planes; a one-plane launch takes four distinct planes in turn (145 MB of
     traffic, so no launch finds its plane in the 50 MB L2, as in the step).
     Returns ``{kernel name: measurements}``."""
     import torch
@@ -296,40 +301,65 @@ def check_relayout(cfg, device):
              "the relayout kernels are not on this configuration's path")
     rng = np.random.default_rng(5)
     bits = lambda t: t.view(torch.int32)  # noqa: E731
-    for dtype in (torch.float32, torch.int32):
-        src = torch.from_numpy(rng.integers(
-            -2**31, 2**31 - 1, (S, V)).astype(np.int32)).to(device).view(dtype)
-        keep = src.clone()
-        flat = relayout.to_flat_cuda(src)
-        want = relayout.to_flat_plain(src)
-        back = relayout.from_flat_cuda(flat, S, V)
-        want_back = relayout.from_flat_plain(want, S, V)
+    same = lambda xs, ys: all(  # noqa: E731
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(bits(x), bits(y)) for x, y in zip(xs, ys))
+    planes = [torch.from_numpy(rng.integers(
+        -2**31, 2**31 - 1, (S, V)).astype(np.int32)).to(device).view(dtype)
+        for dtype in [torch.int32] + [torch.float32] * (RELAYOUT_IN - 1)]
+    keep = [x.clone() for x in planes]
+    for n in (RELAYOUT_IN, 1):
+        src = planes[:n]
+        flats = relayout.to_flat_many_cuda(src)
+        want = relayout.to_flat_many_plain(src)
+        backs = relayout.from_flat_many_cuda(flats, S, V)
+        want_backs = relayout.from_flat_many_plain(want, S, V)
         torch.cuda.synchronize()
-        _require(flat.shape == (S * V,) and flat.dtype == dtype
-                 and torch.equal(bits(flat), bits(want)), f"K5a {dtype}")
-        _require(padded_buffer(flat).shape == (S * V + 1,), "K5a buffer")
-        _require(torch.equal(bits(src), bits(keep)), "K5a wrote its source")
-        _require(back.shape == (S, V)
-                 and torch.equal(bits(back), bits(want_back))
-                 and torch.equal(bits(back), bits(keep)), f"K5b {dtype}")
-        _require(back.untyped_storage().nbytes() == S * V * 4,
-                 "K5b plane is not of the exact size")
-        _require(torch.equal(bits(flat), bits(want)), "K5b wrote its source")
-    planes = [torch.from_numpy(rng.random((S, V), np.float32)).to(device)
-              for _ in range(4)]
-    flats = [relayout.to_flat_cuda(x) for x in planes]
+        tag = f"n={n}"
+        _require(all(f.shape == (S * V,) for f in flats)
+                 and same(flats, want), f"K5a {tag}")
+        bufs = [padded_buffer(f) for f in flats]
+        _require(all(b.shape == (S * V + 1,) and b.data_ptr() % 16 == 0
+                     for b in bufs), f"K5a buffers {tag}")
+        starts = sorted(b.data_ptr() for b in bufs)
+        _require(all(y - x >= 4 * (S * V + 1)
+                     for x, y in zip(starts, starts[1:])),
+                 f"K5a buffers overlap {tag}")
+        _require(same(planes, keep), f"K5a wrote its source {tag}")
+        _require(all(x.shape == (S, V) for x in backs)
+                 and same(backs, want_backs) and same(backs, keep[:n]),
+                 f"K5b {tag}")
+        _require(all(x.untyped_storage().nbytes() == S * V * 4
+                     for x in backs), "K5b plane is not of the exact size")
+        _require(same(flats, want), f"K5b wrote its source {tag}")
+    f32 = planes[1:5]  # four distinct planes for the one-plane launches
+    flats = relayout.to_flat_many_cuda(planes)
     each = lambda fn, xs: (lambda: [fn(x) for x in xs])  # noqa: E731
-    n = len(planes)
+    per = lambda row, n: {  # noqa: E731  (a row of n launches, per launch)
+        k: (v / n if k == "ms" or k.endswith("_ms") else v)
+        for k, v in row.items()}
+    n_bytes = 2 * 4 * S * V
     rows = {}
-    for name, kern, plain, xs in (
-            ("to_flat", relayout.to_flat_cuda, relayout.to_flat_plain, planes),
-            ("from_flat", lambda f: relayout.from_flat_cuda(f, S, V),
-             lambda f: relayout.from_flat_plain(f, S, V), flats)):
-        rows[name] = _row(
-            0.0, _median_ms(each(kern, xs)) / n, _median_ms(each(plain, xs)) / n,
-            2 * 4 * S * V, 0,
-            library_ms=_median_ms(each(torch.clone, xs)) / n,
-            shape=f"S={S} V={V}", library_call="torch.clone")
+    # K5a: the frame's seven planes in one launch, beside seven clone() calls
+    rows["to_flat"] = _row(
+        0.0, lambda: relayout.to_flat_many_cuda(planes),
+        lambda: relayout.to_flat_many_plain(planes), RELAYOUT_IN * n_bytes, 0,
+        library=each(torch.clone, planes),
+        shape=f"n={RELAYOUT_IN} S={S} V={V}",
+        library_call=f"{RELAYOUT_IN} x torch.clone",
+        one_plane=per(_row(
+            0.0, each(relayout.to_flat_cuda, f32),
+            each(relayout.to_flat_plain, f32), len(f32) * n_bytes, 0,
+            library=each(torch.clone, f32)), len(f32)))
+    # K5b: the one plane a frame copies out, beside one clone() call
+    one = flats[1:5]
+    rows["from_flat"] = per(_row(
+        0.0, each(lambda f: relayout.from_flat_cuda(f, S, V), one),
+        each(lambda f: relayout.from_flat_plain(f, S, V), one),
+        len(one) * n_bytes, 0, library=each(torch.clone, one),
+        shape=f"n={RELAYOUT_OUT} S={S} V={V}", library_call="torch.clone"),
+        len(one))
+    for name in rows:
         _say(f"K5_{name}", bit_equal=True, **rows[name])
     kernels.reset_launch_counts()
     return rows
@@ -374,17 +404,17 @@ def check_segscan(cfg, device):
                      for g, r in zip(got[0], ref[0])), f"K4 hi {C} cols")
         _require(all(torch.equal(bits(g[live]), bits(r[live]))
                      for g, r in zip(got[1], ref[1])), f"K4 tot {C} cols")
-        ms = _median_ms(lambda: compact.seg_scans_cuda(cols, st, en, max_run,
-                                                       n_tot))
-        pms = _median_ms(lambda: compact.seg_scans_plain(cols, st, en,
-                                                         max_run, n_tot))
         # in: C columns and two flag bytes a row; out: C hi and n_tot tot
         # columns; log2(reach) adds a column forward, a select backward
         steps = int(np.log2(compact._reach(max_run)))
-        times[C] = _row(0.0, ms, pms, P * (4 * (2 * C + n_tot) + 2),
-                        P * C * steps, shape=f"P={P} C={C} n_tot={n_tot}")
+        times[C] = _row(
+            0.0, lambda: compact.seg_scans_cuda(cols, st, en, max_run, n_tot),
+            lambda: compact.seg_scans_plain(cols, st, en, max_run, n_tot),
+            P * (4 * (2 * C + n_tot) + 2), P * C * steps,
+            shape=f"P={P} C={C} n_tot={n_tot}")
         _say("K4", columns=C, n_tot=n_tot, reach=compact._reach(max_run),
-             rows=P, bit_equal=True, ms=ms, plain_ms=pms)
+             rows=P, bit_equal=True, ms=times[C]["ms"],
+             device_ms=times[C]["device_ms"], plain_ms=times[C]["plain_ms"])
     kernels.reset_launch_counts()
     return {"seg_scans": times[7]}
 
@@ -472,14 +502,15 @@ _POOL_FRAME = {"occupancy_pool_pass": 1, "sweep": 1, "update_pass1": 1,
 #: per path: (warm-up frames, timed frames, the watched warm frame, the
 #: kernels' launches per frame).  The multi-neighbor planes (17.3 MiB) take
 #: the flat working phase: flags, px, py, pz, vx, vy and weight are copied
-#: in by K5a (vz is made anew as zeros, t is not touched), and all eight
-#: flat planes are copied out by K5b.
+#: in by one K5a launch (vz is made anew as zeros, t is not touched); K1
+#: reads the seven working planes where they lie, and one K5b launch copies
+#: out vz, which K1 hands through.
 PATHS = {
     "flagship": (5, 10, 4, _POOL_FRAME),
     "large_urban": (3, 6, 2, {**_POOL_FRAME, "occupancy_pool_pass": 0,
                               "sweep": 0, "seg_scans": 4}),
     "static": (3, 8, 2, _POOL_FRAME),
-    "multi": (3, 8, 2, {**_POOL_FRAME, "to_flat": 7, "from_flat": 8}),
+    "multi": (3, 8, 2, {**_POOL_FRAME, "to_flat": 1, "from_flat": 1}),
 }
 
 
@@ -565,8 +596,8 @@ def kernel_row(name, by_shape, by_path) -> dict:
     source, replaces, own = KERNELS[name]
     shapes = {label: rows[name] for label, rows in by_shape.items()
               if name in rows}
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(p[name] for p in by_path.values()),
@@ -598,6 +629,7 @@ def main() -> int:
     _say("build", seconds=time.perf_counter() - t0)
 
     device = torch.device("cuda", 0)
+    check_cuda_cost(device)
     configs = {
         "flagship": dm.example_node_settings(dm.dsp_dynamic()),
         "large_urban": dm.large_urban(),

@@ -30,7 +30,6 @@ import shutil
 import subprocess
 import threading
 
-import numpy as np
 import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent
@@ -50,6 +49,9 @@ LAUNCHES = {"occupancy_pool_pass": 0, "sweep": 0,
 
 _lib = None
 _lock = threading.Lock()
+#: compute capability by device index: asked of the card once, not
+#: once a launch
+_capability: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -132,7 +134,10 @@ def check_cuda(*tensors: torch.Tensor, shape=None) -> None:
     contiguous and, where ``shape`` is given, has that shape (the library
     holds ``sm_90a`` code only)."""
     dev = tensors[0].device
-    major, minor = torch.cuda.get_device_capability(dev)
+    cap = _capability.get(dev.index)
+    if cap is None:
+        cap = _capability[dev.index] = torch.cuda.get_device_capability(dev)
+    major, minor = cap
     if major != 9:
         raise RuntimeError(
             f"the port's kernels are built for sm_90a; {dev} is sm_{major}{minor}")
@@ -148,15 +153,17 @@ def check_cuda(*tensors: torch.Tensor, shape=None) -> None:
 
 def launch(name: str, ptrs, fparams=(), iparams=()) -> None:
     """Launch entry point ``dspmap_<name>`` on the current stream and count
-    it; raises on a nonzero ``cudaGetLastError()``."""
-    p = np.asarray([0 if x is None else (x.data_ptr() if isinstance(
-        x, torch.Tensor) else int(x)) for x in ptrs], np.uint64)
-    f = np.asarray(list(fparams) + [0.0], np.float32)
-    i = np.asarray(list(iparams) + [0], np.int32)
+    it; raises on a nonzero ``cudaGetLastError()``.  ``ptrs`` holds tensors,
+    device addresses as ints, or ``None`` for a null pointer."""
+    vals = [0 if x is None else (x.data_ptr() if isinstance(
+        x, torch.Tensor) else int(x)) for x in ptrs]
+    p = (ctypes.c_uint64 * len(vals))(*vals)
+    f = (ctypes.c_float * (len(fparams) + 1))(*fparams)
+    i = (ctypes.c_int * (len(iparams) + 1))(*iparams)
     stream = torch.cuda.current_stream().cuda_stream
     so = lib()
     rc = getattr(so, "dspmap_" + name)(
-        p.ctypes.data, f.ctypes.data, i.ctypes.data, stream)
+        ctypes.addressof(p), ctypes.addressof(f), ctypes.addressof(i), stream)
     if rc != 0:
         raise RuntimeError(f"dspmap_{name} launch failed: "
                            f"{so.dspmap_error_string(rc).decode()} ({rc})")

@@ -102,13 +102,15 @@ def pool_sv(plane: torch.Tensor, cfg) -> tuple:
     return s, plane.shape[0] // s
 
 
-def working_plane(buf: torch.Tensor) -> torch.Tensor:
+def working_plane(buf: torch.Tensor, flat=None) -> torch.Tensor:
     """The ``[n]`` prefix view of a padded 1-D buffer ``[n + 1]`` that the
     step owns, marked so that :func:`pool_put` and :func:`pool_fill` write
     into it in place (the last element is the scatters' drop sentinel).
     The mark lives on this tensor object only: anything computed from it is
-    an ordinary tensor."""
-    flat = buf[:buf.shape[0] - 1]
+    an ordinary tensor.  ``flat`` hands in the prefix view where the caller
+    has cut it already."""
+    if flat is None:
+        flat = buf[:buf.shape[0] - 1]
     flat.padded = buf
     return flat
 

@@ -48,6 +48,15 @@ def _n_vel(cfg: MapConfig) -> int:
     return 2 if cfg.limit_motion_to_xy_plane else 3
 
 
+def rewritten_planes(cfg: MapConfig) -> tuple:
+    """Names of the planes the pool pass reads and writes anew, in the
+    order kernel K1 stages them; the others (the clamped velocity planes,
+    ``t`` unless recorded) it hands through."""
+    return (("flags", "weight") + ("vx", "vy", "vz")[:_n_vel(cfg)]
+            + ("px", "py", "pz")
+            + (("t",) if cfg.record_particle_time else ()))
+
+
 def _row_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive slot-axis cumsum of ``[S, V]`` in x's dtype: in slot order
     within blocks of ``SCAN_BLOCK`` slots, plus the earlier blocks' total."""
@@ -182,42 +191,32 @@ def pool_pass_cuda(particles, cfg: MapConfig, with_moving: bool = True):
         raise ValueError(f"occupancy kernel is built for S in {KERNEL_SLOTS}, "
                          f"got S={S}")
     n_vel = _n_vel(cfg)
-    vels = [p.vx, p.vy, p.vz][:n_vel]
-    with_t = bool(cfg.record_particle_time)
-    ins = [p.flags, p.weight, p.px, p.py, p.pz, *vels] + ([p.t] if with_t else [])
+    names = rewritten_planes(cfg)
+    ins = [getattr(p, n) for n in names]
     kernels.check_cuda(*ins, shape=(S, V))
     if p.flags.dtype != torch.int32 or any(
             x.dtype != torch.float32 for x in ins[1:]):
         raise TypeError("occupancy kernel takes int32 flags, float32 planes")
     dev = p.flags.device
 
-    def plane(dtype=torch.float32):
-        return torch.empty((S, V), dtype=dtype, device=dev)
-
-    def vec():
-        return torch.empty(V, dtype=torch.float32, device=dev)
-
-    oflags, ow, opx, opy, opz = plane(torch.int32), plane(), plane(), plane(), plane()
-    ot = plane() if with_t else None
-    ovel = [plane() for _ in range(n_vel)]
-    omoving = plane(torch.bool) if with_moving else None
-    aggs = [vec() for _ in range(8)]
-    vsum = [vec() for _ in range(n_vel)]
-    pad3 = lambda xs: list(xs) + [None] * (3 - len(xs))  # noqa: E731
-    ptrs = ([p.flags, p.weight, p.px, p.py, p.pz, p.t if with_t else None]
-            + pad3(vels)
-            + [oflags, ow, opx, opy, opz, ot] + pad3(ovel) + [omoving]
-            + aggs + pad3(vsum))
-    kernels.launch("occupancy_pool_pass", ptrs,
+    outs = [torch.empty((S, V), dtype=x.dtype, device=dev) for x in ins]
+    omoving = (torch.empty((S, V), dtype=torch.bool, device=dev)
+               if with_moving else None)
+    # weight_sum outlives the step in the returned state, so it is an
+    # allocation of its own; the other per-voxel vectors share one
+    ws = torch.empty(V, dtype=torch.float32, device=dev)
+    rest = torch.empty((7 + n_vel, V), dtype=torch.float32,
+                       device=dev).unbind(0)
+    aggs, vsum = [ws, *rest[:7]], list(rest[7:])
+    kernels.launch("occupancy_pool_pass",
+                   ins + outs + [omoving] + aggs + vsum + [None] * (3 - n_vel),
                    (cfg.weight_cull_threshold,),
-                   (S, V, n_vel, cfg.resample_min_count,
+                   (S, V, n_vel, len(ins), cfg.resample_min_count,
                     cfg.max_particles_per_voxel))
     ws, n_old, static_c, n_valid, n_culled, do_rs, n_dropped, n_filled = aggs
-    vel_out = ovel + [p.vx, p.vy, p.vz][n_vel:]
     vsums = vsum + [torch.zeros(V, dtype=torch.float32, device=dev)] * (3 - n_vel)
-    fields = dict(flags=oflags, weight=ow, px=opx, py=opy, pz=opz,
-                  vx=vel_out[0], vy=vel_out[1], vz=vel_out[2],
-                  t=ot if with_t else p.t)
+    fields = {n: getattr(p, n) for n in ("vx", "vy", "vz", "t")}
+    fields.update(zip(names, outs))
     return (fields, ws, n_old, tuple(vsums), static_c, omoving,
             (n_valid, n_culled, do_rs, n_dropped, n_filled))
 
@@ -236,11 +235,14 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
     pre-compacted nonzero-velocity candidate set from
     :func:`~.fov.rebin_and_register`.
 
-    Ends the step's flat mid-frame phase: flat planes are restored to
-    ``[S, V]`` first (``state.unflatten_pool``; kernel K5b for large
-    planes), which also makes every plane of the returned state a fresh
-    tensor of the exact size."""
-    particles = unflatten_pool(particles, cfg.slots_per_voxel)
+    Ends the step's flat mid-frame phase.  The pool pass reads each plane
+    it rewrites once and returns a fresh plane of the exact size, so those
+    planes reach it as ``[S, V]`` views of their flat working buffers; only
+    a flat plane that the pool pass hands through (a constant-zero velocity
+    plane) is copied out (``state.unflatten_pool``; kernel K5b for large
+    planes).  Either way the returned state holds no working buffer."""
+    particles = unflatten_pool(particles, cfg.slots_per_voxel,
+                               views=rewritten_planes(cfg))
     S, V = particles.flags.shape
     T = cfg.n_horizons
     dev = particles.flags.device

@@ -182,13 +182,18 @@ class MapState:
 _DMA_RELAYOUT_BYTES = 16 << 20
 
 
+def _takes_relayout(x: torch.Tensor, width: int) -> bool:
+    """Whether a pool plane of ``width`` voxels changes form by a copy."""
+    return (x.numel() * x.element_size() >= _DMA_RELAYOUT_BYTES
+            and width % 1024 == 0)
+
+
 def ravel_plane(x: torch.Tensor) -> torch.Tensor:
     """``[S, V]`` -> ``[S*V]``.  A large plane is copied by
     :func:`~dspmap_tpu_torch.ops.relayout.to_flat` (kernel K5a on a CUDA
     tensor) into a flat working buffer of the step; any other plane is a
     view of ``x``."""
-    if (x.dim() == 2 and x.numel() * x.element_size() >= _DMA_RELAYOUT_BYTES
-            and x.shape[1] % 1024 == 0):
+    if x.dim() == 2 and _takes_relayout(x, x.shape[1]):
         return relayout.to_flat(x)
     return x.reshape(-1)
 
@@ -199,8 +204,7 @@ def unravel_plane(x: torch.Tensor, slots: int) -> torch.Tensor:
     :func:`~dspmap_tpu_torch.ops.relayout.from_flat` (kernel K5b on a CUDA
     tensor) for a large plane, a view otherwise."""
     v = x.shape[0] // slots
-    if (x.numel() * x.element_size() >= _DMA_RELAYOUT_BYTES
-            and v % 1024 == 0):
+    if _takes_relayout(x, v):
         return relayout.from_flat(x, slots, v)
     return x.reshape(slots, v)
 
@@ -208,7 +212,9 @@ def unravel_plane(x: torch.Tensor, slots: int) -> torch.Tensor:
 def flatten_pool(p: Particles, skip: tuple = ()) -> Particles:
     """Ravel every pool plane to its flat ``[S*V]`` form: the mid-frame
     representation of the scatter-heavy stages (mover insertion ->
-    measurement writeback -> birth insertion).
+    measurement writeback -> birth insertion).  The large planes (see
+    :func:`ravel_plane`) are copied together, by one call of
+    :func:`~dspmap_tpu_torch.ops.relayout.to_flat_many`.
 
     ``skip`` names planes left in their 2-D form: planes that nothing
     touches during the flat phase (the ``t`` plane when
@@ -220,18 +226,36 @@ def flatten_pool(p: Particles, skip: tuple = ()) -> Particles:
         raise ValueError(
             f"flatten_pool skip must be a tuple/set of pool field names "
             f"excluding 'flags'; got {skip!r}")
-    return dataclasses.replace(
-        p, **{n: ravel_plane(getattr(p, n)) for n in _PLANES if n not in skip})
+    todo = [n for n in _PLANES if n not in skip]
+    big = [n for n in todo if getattr(p, n).dim() == 2
+           and _takes_relayout(getattr(p, n), getattr(p, n).shape[1])]
+    flat = {n: getattr(p, n).reshape(-1) for n in todo if n not in big}
+    if big:
+        flat.update(zip(big, relayout.to_flat_many(
+            [getattr(p, n) for n in big])))
+    return dataclasses.replace(p, **flat)
 
 
-def unflatten_pool(p: Particles, slots: int) -> Particles:
+def unflatten_pool(p: Particles, slots: int, views: tuple = ()) -> Particles:
     """Restore ``[S, V]`` planes from the flat mid-frame form (a no-op on
-    planes already 2-D, such as those :func:`flatten_pool` skipped)."""
+    planes already 2-D, such as those :func:`flatten_pool` skipped).  The
+    large planes become fresh planes of the exact size, by one call of
+    :func:`~dspmap_tpu_torch.ops.relayout.from_flat_many`.
+
+    ``views`` names planes to restore as views whatever their size: planes
+    that the caller only reads and then drops (the occupancy pool pass reads
+    each of its inputs once and writes fresh outputs)."""
     if p.flags.dim() == 2:
         return p
-    return dataclasses.replace(
-        p, **{n: unravel_plane(getattr(p, n), slots) for n in _PLANES
-              if getattr(p, n).dim() == 1})
+    todo = [n for n in _PLANES if getattr(p, n).dim() == 1]
+    v = p.flags.shape[0] // slots
+    big = [n for n in todo if n not in views
+           and _takes_relayout(getattr(p, n), v)]
+    planes = {n: getattr(p, n).view(slots, v) for n in todo if n not in big}
+    if big:
+        planes.update(zip(big, relayout.from_flat_many(
+            [getattr(p, n) for n in big], slots, v)))
+    return dataclasses.replace(p, **planes)
 
 
 def init_estimator_state(cfg: MapConfig, device=None) -> EstimatorState:

@@ -49,9 +49,8 @@ STAGES = ("project_points", "estimate_velocities", "sweep", "sweep_compact",
           "occupancy_compact")
 WARMUP, TIMED = 5, 8
 #: the ``__global__`` functions of ``csrc/*.cu``
-OWN_KERNELS = ("occupancy_kernel_deep", "occupancy_kernel", "sweep_kernel",
-               "pass1_kernel", "pass2_kernel", "segscan_kernel",
-               "copy16_kernel")
+OWN_KERNELS = ("occupancy_tile_kernel", "sweep_kernel", "pass1_kernel",
+               "pass2_kernel", "segscan_kernel", "copy16_kernel")
 
 
 def configs() -> dict:

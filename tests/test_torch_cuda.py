@@ -46,12 +46,16 @@ def _cfg(**kw):
         pyramid_slot_capacity=96, **kw))
 
 
-def _pool(cfg, device, seed=0):
-    """Random pool whose velocities obey the configuration's clamp."""
+def _pool(cfg, device, seed=0, V=None, fill=0.5, live_slots=None):
+    """Random pool whose velocities obey the configuration's clamp: ``V``
+    columns (default: the configuration's), a share ``fill`` of the first
+    ``live_slots`` slots (default: all) of each holding a particle."""
     rng = np.random.default_rng(seed)
-    S, V = cfg.slots_per_voxel, cfg.storage_voxels
-    flags = np.where(rng.random((S, V)) < 0.5,
+    S, V = cfg.slots_per_voxel, V or cfg.storage_voxels
+    flags = np.where(rng.random((S, V)) < fill,
                      rng.choice([1, 1, 3], size=(S, V)), 0).astype(np.int32)
+    if live_slots is not None:
+        flags[live_slots:] = 0
     half = np.asarray(cfg.half_extent, np.float32)
     f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)  # noqa: E731
     mv = rng.random((S, V)) < 0.3
@@ -256,12 +260,7 @@ def test_occupancy_kernel_matches_plain_at_deep_slots(device, preset, pool):
     got = occupancy.occupancy_pool_pass(p, cfg, with_moving=True)
     want = occupancy.pool_pass_plain(p, cfg, with_moving=True)
     assert kernels.LAUNCHES["occupancy_pool_pass"] == n0 + 1
-    for name in ("flags", "weight", "px", "py", "pz", "vx", "vy", "vz", "t"):
-        assert torch.equal(got[0][name], want[0][name]), name
-    assert torch.equal(got[5], want[5])
-    for a, b in zip((got[1], got[2], got[4]) + got[3] + got[6],
-                    (want[1], want[2], want[4]) + want[3] + want[6]):
-        assert torch.equal(a, b)
+    _assert_pool_pass_equal(got, want)
     # the resample dropped slots and, on the random pool, filled free ones
     # (voxels of equal weights place at most one copy a particle)
     assert float(want[6][3].sum()) > 0
@@ -299,12 +298,126 @@ def test_relayout_kernels_bit_equal(device, dtype):
     assert kernels.LAUNCHES["to_flat"] == n0["to_flat"] + 1
 
 
+def _assert_pool_pass_equal(got, want):
+    """Every output of the pool pass bit for bit."""
+    for name in ("flags", "weight", "px", "py", "pz", "vx", "vy", "vz", "t"):
+        assert torch.equal(got[0][name], want[0][name]), name
+    assert torch.equal(got[5], want[5])
+    for a, b in zip((got[1], got[2], got[4]) + got[3] + got[6],
+                    (want[1], want[2], want[4]) + want[3] + want[6]):
+        assert torch.equal(a, b)
+
+
+def _slots_cfg(slots, **kw):
+    """The small configuration of a kernel slot depth: 18 (flagship), 50
+    (static preset), 60 (multi-neighbor preset)."""
+    small = dict(nx=24, ny=24, nz=12, voxel_resolution=0.25,
+                 max_input_points=1024)
+    if slots == 18:
+        return _cfg(**kw)
+    return _preset({50: "static", 60: "multi"}[slots], **small, **kw)
+
+
+@pytest.mark.parametrize("V", [1000, 8 * 128 + 4, 1001, 37],
+                         ids=lambda v: f"V{v}")
+@pytest.mark.parametrize("slots", occupancy.KERNEL_SLOTS)
+def test_occupancy_kernel_ragged_widths(device, slots, V):
+    """K1 at widths that no configuration has: a multiple of 4 that ends in
+    a part tile, and widths that are no multiple of 4 (4-byte copies), one
+    of them narrower than a tile.  Equal to the plain version bit for bit,
+    recorded particle time included."""
+    cfg = _slots_cfg(slots, record_particle_time=True)
+    p = _pool(cfg, device, seed=V, V=V)
+    got = occupancy.occupancy_pool_pass(p, cfg, with_moving=True)
+    want = occupancy.pool_pass_plain(p, cfg, with_moving=True)
+    _assert_pool_pass_equal(got, want)
+    assert float(want[6][2].sum()) > 0  # some voxel resampled
+
+
+@pytest.mark.parametrize("arm", ["none_resamples", "all_resample"])
+@pytest.mark.parametrize("slots", occupancy.KERNEL_SLOTS)
+def test_occupancy_kernel_both_arms_of_the_resample_vote(device, slots, arm):
+    """A pool in which no voxel reaches ``resample_min_count`` (every warp
+    skips the resample) and one in which every voxel does."""
+    cfg = _slots_cfg(slots)
+    few = cfg.resample_min_count - 1
+    p = (_pool(cfg, device, seed=5, fill=1.0, live_slots=few)
+         if arm == "none_resamples" else _pool(cfg, device, seed=6, fill=0.9))
+    got = occupancy.occupancy_pool_pass(p, cfg, with_moving=True)
+    want = occupancy.pool_pass_plain(p, cfg, with_moving=True)
+    _assert_pool_pass_equal(got, want)
+    resampled = want[6][2]
+    if arm == "none_resamples":
+        assert not resampled.any() and float(want[6][0].sum()) > 0
+    else:
+        assert bool(resampled.all())
+
+
+def test_occupancy_kernel_reads_flat_working_planes(device):
+    """Fed ``[S, V]`` views of flat working buffers (as the step feeds it),
+    K1 returns what it returns for restored planes, leaves the buffers as
+    they were and returns planes of the exact size."""
+    cfg = _slots_cfg(60)
+    p = _pool(cfg, device, seed=8)
+    S, V = p.flags.shape
+    names = occupancy.rewritten_planes(cfg)
+    flats = relayout.to_flat_many([getattr(p, n) for n in names])
+    keep = [padded_buffer(f).clone() for f in flats]
+    views = T.Particles(**{**{n: getattr(p, n) for n in ("vz", "t")},
+                           **{n: f.view(S, V) for n, f in zip(names, flats)}})
+    got = occupancy.occupancy_pool_pass(views, cfg, with_moving=True)
+    want = occupancy.occupancy_pool_pass(p, cfg, with_moving=True)
+    _assert_pool_pass_equal(got, want)
+    for f, k in zip(flats, keep):
+        assert torch.equal(padded_buffer(f)[:-1].view(torch.int32),
+                           k[:-1].view(torch.int32))
+    for n in names:
+        assert got[0][n].untyped_storage().nbytes() == S * V * 4, n
+
+
+@pytest.mark.parametrize("n", [1, 7, 9])
+def test_relayout_batched_bit_equal(device, n):
+    """K5 on n planes of mixed dtype in one launch:
+    exact copies both ways, sources untouched, each buffer ``[S*V + 1]``,
+    16-byte aligned and apart from the others, restored planes of the exact
+    size; a tenth plane raises."""
+    S, V = 60, 75776
+    rng = np.random.default_rng(n)
+    planes = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (S, V)).astype(
+        np.int32)).to(device).view(torch.float32 if i % 3 else torch.int32)
+        for i in range(n)]
+    keep = [x.clone() for x in planes]
+    bits = lambda x: x.view(torch.int32)  # noqa: E731
+    n0 = dict(kernels.LAUNCHES)
+    flats = relayout.to_flat_many_cuda(planes)
+    backs = relayout.from_flat_many_cuda(flats, S, V)
+    assert kernels.LAUNCHES["to_flat"] == n0["to_flat"] + 1
+    assert kernels.LAUNCHES["from_flat"] == n0["from_flat"] + 1
+    want = relayout.to_flat_many_plain(planes)
+    starts = []
+    for src, k, flat, w, back in zip(planes, keep, flats, want, backs):
+        assert flat.dtype == src.dtype and flat.shape == (S * V,)
+        assert torch.equal(bits(flat), bits(w))
+        assert torch.equal(bits(src), bits(k))
+        buf = padded_buffer(flat)
+        assert buf.shape == (S * V + 1,) and buf.data_ptr() % 16 == 0
+        starts.append(buf.data_ptr())
+        assert back.shape == (S, V) and back.dtype == src.dtype
+        assert torch.equal(bits(back), bits(k))
+        assert back.untyped_storage().nbytes() == S * V * 4
+    starts.sort()
+    assert all(b - a >= 4 * (S * V + 1) for a, b in zip(starts, starts[1:]))
+    with pytest.raises(ValueError):
+        relayout.to_flat_many_cuda(planes + [planes[0]] * (10 - n))
+
+
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_preset_frames_on_the_card(device, preset):
     """Three frames of the full-width preset through ``make_step`` on the
     card: one launch of K1, K2, K3a and K3b a frame, the relayout kernels
-    only where the planes reach 16 MiB (multi: 7 in, 8 out a frame), a
-    finite map with live particles, the input state left as it was."""
+    only where the planes reach 16 MiB (multi: one launch in, one out a
+    frame), a finite map with live particles, the input state left as it
+    was."""
     cfg = _preset(preset)
     state = T.init_state(cfg, seed=0)
     assert state.device.type == "cuda"
@@ -322,7 +435,7 @@ def test_preset_frames_on_the_card(device, preset):
     assert kernels.LAUNCHES == {
         "occupancy_pool_pass": 3, "sweep": 3, "update_pass1": 3,
         "update_pass2": 3, "seg_scans": 0,
-        "to_flat": 21 if big else 0, "from_flat": 24 if big else 0}
+        "to_flat": 3 if big else 0, "from_flat": 3 if big else 0}
     assert int(out.metrics["alive"]) > 0 and int(out.metrics["born"]) > 0
     assert state.particles.flags.shape == (cfg.slots_per_voxel,
                                            cfg.storage_voxels)

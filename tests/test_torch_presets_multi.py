@@ -11,10 +11,12 @@ particle slots and 16 of 100 observation slots, so the pair passes run at
   (``tests/test_torch_presets_relayout.py`` repeats it with both dense
   tiers cut to 2, which fills the spill tiers with data);
 * the flat mid-frame phase: with ``state._DMA_RELAYOUT_BYTES`` set to 0
-  every pool plane goes through ``to_flat`` into a working buffer that the
-  scatters write in place, and back through ``from_flat``.  One frame that
-  way equals the same frame without it bit for bit, plane by plane, and
-  leaves the input state's tensors as they were.
+  every pool plane goes through one ``to_flat_many`` call into a working
+  buffer that the scatters write in place; the pool pass reads those
+  buffers as views, and the one plane it hands through comes back through
+  ``from_flat_many``.  One frame that way equals the same frame without it
+  bit for bit, plane by plane, and leaves the input state's tensors as
+  they were.
 """
 
 import jax
@@ -67,22 +69,23 @@ def test_flat_phase_frame_is_bit_equal_and_leaves_its_input(multi_run,
     tcfg, frames = multi_run
     f = frames[-1]
     step = T.make_step(tcfg)
-    calls = {"to_flat": 0, "from_flat": 0}
+    calls = {"to_flat_many": [], "from_flat_many": []}  # planes of each call
 
     def counted(name):
         orig = getattr(relayout, name)
 
-        def fn(*a):
-            calls[name] += 1
-            return orig(*a)
+        def fn(planes, *a):
+            calls[name].append(len(planes))
+            return orig(planes, *a)
         return fn
 
-    monkeypatch.setattr(relayout, "to_flat", counted("to_flat"))
-    monkeypatch.setattr(relayout, "from_flat", counted("from_flat"))
+    for name in calls:
+        monkeypatch.setattr(relayout, name, counted(name))
 
     plain_state = T.state_from_numpy(f["before"], tcfg, device="cpu")
     want, want_out = step(plain_state, T.Frame(*f["frame"]), f["draws"])
-    assert calls == {"to_flat": 0, "from_flat": 0}  # 1.7 MB planes: views
+    # 1.7 MB planes: views
+    assert calls == {"to_flat_many": [], "from_flat_many": []}
 
     monkeypatch.setattr(tstate, "_DMA_RELAYOUT_BYTES", 0)
     state = T.state_from_numpy(f["before"], tcfg, device="cpu")
@@ -90,9 +93,11 @@ def test_flat_phase_frame_is_bit_equal_and_leaves_its_input(multi_run,
     snapshot = {n: t.clone() for n, t in kept.items()}
     n0 = dict(kernels.LAUNCHES)
     got, got_out = step(state, T.Frame(*f["frame"]), f["draws"])
-    # flags, px, py, pz, vx, vy and weight are copied in; vz is made anew as
-    # zeros and t is skipped; all eight flat planes are copied back out
-    assert calls == {"to_flat": 7, "from_flat": 8}
+    # flags, px, py, pz, vx, vy and weight are copied in by one call; vz is
+    # made anew as zeros and t is skipped; the pool pass reads the seven as
+    # views and writes them anew, and vz, which it hands through, is
+    # copied back out
+    assert calls == {"to_flat_many": [7], "from_flat_many": [1]}
     assert kernels.LAUNCHES == n0  # CPU tensors launch no kernel
 
     S, V = tcfg.slots_per_voxel, tcfg.storage_voxels
