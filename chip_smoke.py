@@ -18,8 +18,11 @@ Phases (each prints one line; any failure raises and exits nonzero):
    operations over 67 TFLOP/s, whichever is larger) and, where PyTorch
    calls compute the same function, their time: K1 (pool pass) at S = 18,
    50 and 60 slots, K2 (sweep) at the same three pools, K3a/K3b (pair
-   passes) at (448, 64, 288), (504, 32, 288) and (4536, 16, 400), K4
-   (segmented scans) at P = 131072 rows, K5a/K5b (relayout) at (60, 75776):
+   passes) at (448, 64, 288), (504, 32, 288) and (4536, 16, 400), called as
+   the step calls them (operands scaled once for both passes), twice with
+   bit-equal results, and at a ragged shape; K4 (segmented scans) at
+   P = 131072 rows for the four calls of a compact frame, then at reach 64
+   and 512, at reach 1 to 8 and at ragged row counts; K5a/K5b (relayout) at (60, 75776):
    the seven planes of a frame in one launch beside seven ``clone()``
    calls, one plane beside one;
 4. the four paths at full width through ``make_step`` on the synthetic
@@ -137,14 +140,74 @@ K2_FLOPS_PER_SLOT = 80
 K3_FLOPS_PER_PAIR = 20
 
 
+#: the card's special-function rate: 16 ex2 a clock on each of 132 SMs at
+#: the 1.98 GHz boost clock.  A pair term needs one, so this is the least
+#: time of a pair pass by the unit that limits it, printed on the
+#: ``K3_ex2_bound`` lines beside the ``bound_ms`` of the ``kernels`` line (20
+#: float operations a pair over the f32 peak)
+PEAK_EX2_PER_S = 132 * 16 * 1.98e9
+
+
+def check_pairs(label, n_rows, st, ck, sigma, rng, device, timed=True):
+    """Phase 3, K3a and K3b at ``(n_rows, st, ck)``: each pass within rtol
+    2e-5 (atol 1e-6) of its plain version evaluated in float64 (pass 1: or
+    at least as close to it as the plain version in float32), and bit-equal
+    over two calls.  Timed as the step calls them, with the operands scaled
+    once for both passes.  Returns ``{kernel name: measurements}``."""
+    import torch
+    from dspmap_tpu_torch.ops import update
+    from dspmap_tpu_torch.utils.kernel_times import pair_operands
+
+    pos_t, pts_t, w_t, cinv_t = pair_operands(n_rows, st, ck, sigma, rng,
+                                              device)
+    scaled = update.prescale_pairs(pos_t, pts_t, sigma)
+    rows = {}
+    for name, kern, plain, vec, n_out in (
+            ("update_pass1", update.update_pass1, update.update_pass1_plain,
+             w_t, ck),
+            ("update_pass2", update.update_pass2, update.update_pass2_plain,
+             cinv_t, st)):
+        got = kern(pos_t, vec, pts_t, sigma, scaled)
+        again = kern(pos_t, vec, pts_t, sigma)
+        ref32 = plain(pos_t, vec, pts_t, sigma)
+        ref64 = plain(pos_t.double(), vec.double(), pts_t.double(), sigma)
+        torch.cuda.synchronize()
+        _require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                 f"{name} {label}: two calls differ")
+        err_k = float((got.double() - ref64).abs().max())
+        err_p = float((ref32.double() - ref64).abs().max())
+        within = bool(torch.allclose(got.double(), ref64, rtol=2e-5, atol=1e-6))
+        _require(within or (name == "update_pass1" and err_k <= err_p),
+                 f"{name} {label}: kernel err {err_k} vs plain f32 err {err_p}")
+        _require(float(ref64.abs().max()) > 1e-3,
+                 f"{name} {label}: degenerate input")
+        shape = f"rows={n_rows} S_t={st} CK={ck}"
+        if not timed:
+            _say(f"{name}_{label}", shape=shape, max_abs_err=err_k,
+                 within_rtol_2e5=within, two_calls="bit-equal")
+            continue
+        n_bytes = 4 * (n_rows * st * 3 + n_rows * ck * 3 + vec.numel()
+                       + n_rows * n_out)
+        pairs = n_rows * st * ck
+        rows[name] = _row(err_k,
+                          lambda: kern(pos_t, vec, pts_t, sigma, scaled),
+                          lambda: plain(pos_t, vec, pts_t, sigma), n_bytes,
+                          K3_FLOPS_PER_PAIR * pairs, shape=shape,
+                          plain_f32_err_vs_f64=err_p, within_rtol_2e5=within)
+        _say(f"{name}_{label}", **rows[name])
+    if timed:
+        _say(f"K3_ex2_bound_{label}", shape=shape, pairs=pairs,
+             ex2_bound_ms=pairs / PEAK_EX2_PER_S * 1e3)
+    return rows
+
+
 def check_kernels(label, cfg, device):
     """Phase 3 for one pool-layout configuration: K1, K2, K3a and K3b against
     their plain versions on the card at ``cfg``'s shapes.  Returns
     ``{kernel name: measurements}``."""
     import torch
     from dspmap_tpu_torch import geometry, kernels
-    from dspmap_tpu_torch.ops import occupancy, sweep, update
-
+    from dspmap_tpu_torch.ops import occupancy, sweep
     from dspmap_tpu_torch.utils.kernel_times import populated_pool
 
     rng = np.random.default_rng(0)
@@ -212,42 +275,10 @@ def check_kernels(label, cfg, device):
     _say(f"K2_{label}", **rows["sweep"])
 
     # K3: pair passes at [n_pyr, S_t] x [n_pyr, CK] ----------------------
-    n_pyr, st = cfg.n_pyramids, cfg.dense_slots
-    ck = cfg.neighbor_cells * cfg.obs_dense
-    sigma = float(np.float32(cfg.sigma_ob))
-    centre = np.asarray([4.0, 0.5, 1.0], np.float32)
-    pos = (centre + rng.normal(0, 1.0, (n_pyr, st, 3))).astype(np.float32)
-    pts = (centre + rng.normal(0, 1.0, (n_pyr, ck, 3))).astype(np.float32)
-    # pair each point with particles a few sigma away so g is not all 0
-    pts[:, :st] = pos + rng.normal(0, 2 * sigma, pos.shape).astype(np.float32)
-    w = (rng.random((n_pyr, st)) * (rng.random((n_pyr, st)) > 0.3)).astype(np.float32)
-    cinv = (rng.random((n_pyr, ck)) * (rng.random((n_pyr, ck)) > 0.5)).astype(np.float32)
-    T = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
-    pos_t, pts_t, w_t, cinv_t = T(pos), T(pts), T(w), T(cinv)
-    for name, kern, plain, vec, n_out in (
-            ("update_pass1", update.update_pass1, update.update_pass1_plain,
-             w_t, ck),
-            ("update_pass2", update.update_pass2, update.update_pass2_plain,
-             cinv_t, st)):
-        got = kern(pos_t, vec, pts_t, sigma)
-        ref32 = plain(pos_t, vec, pts_t, sigma)
-        ref64 = plain(pos_t.double(), vec.double(), pts_t.double(), sigma)
-        torch.cuda.synchronize()
-        err_k = float((got.double() - ref64).abs().max())
-        err_p = float((ref32.double() - ref64).abs().max())
-        within = bool(torch.allclose(got.double(), ref64, rtol=2e-5, atol=1e-6))
-        _require(within or err_k <= err_p,
-                 f"{name} {label}: kernel err {err_k} vs plain f32 err {err_p}")
-        _require(float(ref64.abs().max()) > 1e-3,
-                 f"{name} {label}: degenerate input")
-        n_bytes = 4 * (n_pyr * st * 3 + n_pyr * ck * 3 + vec.numel()
-                       + n_pyr * n_out)
-        rows[name] = _row(err_k, lambda: kern(pos_t, vec, pts_t, sigma),
-                          lambda: plain(pos_t, vec, pts_t, sigma), n_bytes,
-                          K3_FLOPS_PER_PAIR * n_pyr * st * ck,
-                          shape=f"rows={n_pyr} S_t={st} CK={ck}",
-                          plain_f32_err_vs_f64=err_p, within_rtol_2e5=within)
-        _say(f"{name}_{label}", **rows[name])
+    rows.update(check_pairs(
+        label, cfg.n_pyramids, cfg.dense_slots,
+        cfg.neighbor_cells * cfg.obs_dense, float(np.float32(cfg.sigma_ob)),
+        rng, device))
     kernels.reset_launch_counts()
     return rows
 
@@ -365,58 +396,78 @@ def check_relayout(cfg, device):
     return rows
 
 
-#: (columns, n_tot, max_run) of the compact step's seg_scans calls at
-#: large_urban (S = 10): occupancy_compact's two calls (reach 32) and
-#: segment_table's in birth and rebin (reach 16)
-SEGSCAN_CASES = ((7, 2, 20), (2, 2, 20), (4, 0, 10), (1, 0, 10))
+#: K4 beyond the paths: (row count, n_tot, max_run, column types).  Reach 64
+#: and 512 and reach 1 to 8 take the kernel's tile form; the row counts are
+#: no multiple of a window (32), a strip or a tile (1024)
+SEGSCAN_EXTRA = ((131072, 2, 50, ("f32", "bool", "f32")),
+                 (131072, 1, 400, ("f32", "i32")),
+                 (131072, 1, 1, ("f32", "bool")),
+                 (20011, 2, 2, ("i32", "f32", "bool")),
+                 (33 * 1024 + 1, 2, 3, ("f32", "bool")),
+                 (6001, 1, 7, ("bool", "f32", "i32")),
+                 (131072 - 1000 + 7, 2, 20, ("bool", "f32", "i32")),
+                 (33 * 1024 + 1, 1, 10, ("f32", "bool")),
+                 (20011, 2, 50, ("f32", "bool")),
+                 (6001, 1, 400, ("i32", "f32")))
 
 
 def check_segscan(cfg, device):
     """Phase 3, K4: the segmented-scan kernel against its plain version at
-    ``cfg.compact_capacity`` rows: sorted runs of 1..max_run rows, six
-    rows of one run repeated further on, a dead tail and some -0.0
+    ``cfg.compact_capacity`` rows for the four calls of a compact frame,
+    with the column types the step passes: sorted runs of 1..max_run rows,
+    six rows of one run repeated further on, a dead tail and some -0.0
     values.  ``hi`` must be bit-equal on every row, ``tot`` on every live
-    row.  Returns the JSON row (times of the 7-column call)."""
+    row.  Then the cases of ``SEGSCAN_EXTRA``, bit-equal on every row.
+    Returns the JSON row (times of the 7-column call)."""
     import torch
     from dspmap_tpu_torch import kernels
     from dspmap_tpu_torch.ops import compact
+    from dspmap_tpu_torch.utils.kernel_times import SEGSCAN_CALLS, segscan_case
 
-    P = cfg.compact_capacity
-    times = {}
-    for C, n_tot, max_run in SEGSCAN_CASES:
-        rng = np.random.default_rng(C * 100 + max_run)
-        key = np.repeat(np.arange(P), rng.integers(1, max_run + 1, P))[:P]
-        key[5000:5006] = key[11]
-        key[-P // 5:] = 1 << 30
-        live = torch.from_numpy(key < 1 << 30).to(device)
-        st = torch.from_numpy(
-            np.concatenate([[True], key[1:] != key[:-1]])).to(device)
-        en = torch.from_numpy(np.concatenate([key[1:] != key[:-1], [True]])
-                              & (key < 1 << 30)).to(device)
-        x = rng.uniform(0, 1, (C, P)).astype(np.float32)
-        x[:, ::101] = -0.0
-        cols = [torch.from_numpy(c).to(device) for c in x]
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+
+    def compare(P, n_tot, max_run, types, every_row):
+        cols, st, en, live = segscan_case(P, types, max_run, device)
+        if every_row:
+            live = torch.ones_like(live)
         got = compact.seg_scans_cuda(cols, st, en, max_run, n_tot)
         ref = compact.seg_scans_plain(cols, st, en, max_run, n_tot)
         torch.cuda.synchronize()
-        bits = lambda t: t.view(torch.int32)  # noqa: E731
+        tag = f"P={P} C={len(types)} n_tot={n_tot} max_run={max_run}"
+        _require(len(got[0]) == len(types) and len(got[1]) == n_tot,
+                 f"K4 outputs {tag}")
         _require(all(torch.equal(bits(g), bits(r))
-                     for g, r in zip(got[0], ref[0])), f"K4 hi {C} cols")
+                     for g, r in zip(got[0], ref[0])), f"K4 hi {tag}")
         _require(all(torch.equal(bits(g[live]), bits(r[live]))
-                     for g, r in zip(got[1], ref[1])), f"K4 tot {C} cols")
-        # in: C columns and two flag bytes a row; out: C hi and n_tot tot
-        # columns; log2(reach) adds a column forward, a select backward
+                     for g, r in zip(got[1], ref[1])), f"K4 tot {tag}")
+        return cols, st, en
+
+    P = cfg.compact_capacity
+    times = {}
+    for n_tot, max_run, types in SEGSCAN_CALLS:
+        cols, st, en = compare(P, n_tot, max_run, types, every_row=False)
+        C = len(types)
+        # in: C columns (4 bytes or 1) and two flag bytes a row; out: C hi
+        # and n_tot tot columns; log2(reach) adds a column forward
         steps = int(np.log2(compact._reach(max_run)))
+        in_bytes = sum(c.element_size() for c in cols) + 2
         times[C] = _row(
             0.0, lambda: compact.seg_scans_cuda(cols, st, en, max_run, n_tot),
             lambda: compact.seg_scans_plain(cols, st, en, max_run, n_tot),
-            P * (4 * (2 * C + n_tot) + 2), P * C * steps,
-            shape=f"P={P} C={C} n_tot={n_tot}")
+            P * (in_bytes + 4 * (C + n_tot)), P * C * steps,
+            shape=f"P={P} C={C} n_tot={n_tot} types={','.join(types)}")
         _say("K4", columns=C, n_tot=n_tot, reach=compact._reach(max_run),
              rows=P, bit_equal=True, ms=times[C]["ms"],
-             device_ms=times[C]["device_ms"], plain_ms=times[C]["plain_ms"])
+             device_ms=times[C]["device_ms"], plain_ms=times[C]["plain_ms"],
+             bound_ms=times[C]["bound_ms"])
+    for P_x, n_tot, max_run, types in SEGSCAN_EXTRA:
+        compare(P_x, n_tot, max_run, types, every_row=True)
+        _say("K4_extra", rows=P_x, columns=len(types), n_tot=n_tot,
+             reach=compact._reach(max_run), bit_equal="every row")
     kernels.reset_launch_counts()
-    return {"seg_scans": times[7]}
+    return {"seg_scans": {**times[7], "by_call": {
+        f"C={C}": {k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+        for C, t in times.items()}}}
 
 
 def _agreement(card, cpu) -> dict:
@@ -639,6 +690,11 @@ def main() -> int:
     _require(list(configs) == list(PATHS), "a path without a configuration")
     by_shape = {label: check_kernels(label, configs[label], device)
                 for label in ("flagship", "static", "multi")}
+    # K3 at a shape that is no multiple of pass 2's lane groups, its
+    # particles a lane or its rows a block
+    check_pairs("ragged", 37, 13, 101, 0.1, np.random.default_rng(1), device,
+                timed=False)
+    kernels.reset_launch_counts()
     by_shape["large_urban"] = check_segscan(configs["large_urban"], device)
     by_shape["multi"].update(check_relayout(configs["multi"], device))
     by_path = {}

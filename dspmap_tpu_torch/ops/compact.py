@@ -5,10 +5,13 @@ work -- sorts, short-run segmented scans and scatter-adds.
 
 The segmented scans are kernel K4 (``csrc/segscan.cu``) on CUDA tensors
 and :func:`seg_cumsum_plain` / :func:`fill_from_end_plain` on the CPU, the
-same Hillis-Steele recurrence in the same step order, so the two are
-bit-equal to each other and to the JAX package's ``_seg_cumsum`` /
-``_fill_from_end``.  Run sums stay run-local: a global cumsum differenced
-at run ends moves them by ~3e-4 relative and flips resample boundaries.
+same Hillis-Steele recurrence with the same float adds in the same order,
+so the two are bit-equal to each other and to the JAX package's
+``_seg_cumsum`` / ``_fill_from_end``.  One call is one launch on the
+columns where they lie (f32, bool or i32: no stack, no cast), and its
+``[C, P]`` result feeds the run-end tables as it is.  Run sums stay
+run-local: a global cumsum differenced at run ends moves them by ~3e-4
+relative and flips resample boundaries.
 
 Left out, each exact either way: the ``lax.switch`` bucket ladders of
 ``segment_table`` / ``_ends_table`` (the port compacts run ends at full
@@ -35,6 +38,13 @@ from .fov import _bin_candidates
 
 #: the largest reach (power of two >= max_run) the K4 kernel takes
 KERNEL_MAX_REACH = 512
+#: the most columns one K4 launch takes (the kernel's table, ``kMaxCols``)
+KERNEL_MAX_COLUMNS = 8
+#: the most rows (the kernel indexes rows with 32-bit integers)
+KERNEL_MAX_ROWS = 1 << 30
+#: the kernel's type code of a column
+_COLUMN_TYPES = {torch.float32: 0, torch.bool: 1, torch.uint8: 1,
+                 torch.int32: 2}
 
 
 class CompactSweep(NamedTuple):
@@ -56,19 +66,20 @@ def _require_deterministic(cfg: MapConfig) -> None:
 
 
 def _table(cell, valid, upd: torch.Tensor, n_cells: int) -> torch.Tensor:
-    """``zeros[n_cells + 1, C].at[idx].add(upd, mode="drop")[:n_cells]`` as a
-    column-major ``[C, n_cells]`` table (rows of it are contiguous).
-    Duplicate cells add in row order on the CPU, as XLA's scatter does."""
+    """``zeros[n_cells + 1, C].at[idx].add(upd.T, mode="drop")[:n_cells]``
+    for ``upd [C, n]`` as a column-major ``[C, n_cells]`` table (rows of it
+    are contiguous).  Duplicate cells add in row order on the CPU, as XLA's
+    scatter does."""
     idx = torch.where(valid, cell.to(torch.int64), n_cells)
-    out = torch.zeros((upd.shape[1], n_cells + 1), dtype=torch.float32,
+    out = torch.zeros((upd.shape[0], n_cells + 1), dtype=torch.float32,
                       device=upd.device)
-    out.index_add_(1, idx, upd.T)
+    out.index_add_(1, idx, upd)
     return out[:, :n_cells]
 
 
 def _scatter_add_cols(cell, valid, cols, n_cells):
     """One multi-column scatter-add ``[P] -> C x [n_cells]``."""
-    upd = torch.stack([c.to(torch.float32) for c in cols], dim=-1)
+    upd = torch.stack([c.to(torch.float32) for c in cols])
     return list(_table(cell, valid, upd, n_cells).unbind(0))
 
 
@@ -121,45 +132,69 @@ def fill_from_end_plain(v, is_end, max_run: int):
     return s
 
 
-def seg_scans_plain(cols, is_start, is_end, max_run: int, n_tot: int):
-    """Plain version of :func:`seg_scans`."""
+def _scan_block_plain(cols, is_start, is_end, max_run: int, n_tot: int):
     X = torch.stack([c.to(torch.float32) for c in cols], dim=-1)
     hi = seg_cumsum_plain(X, is_start, max_run)
-    his = list(hi.unbind(1))
-    if n_tot == 0:
-        return his, []
-    tot = fill_from_end_plain(hi[:, :n_tot], is_end, max_run)
-    return his, list(tot.unbind(1))
+    tot = (fill_from_end_plain(hi[:, :n_tot], is_end, max_run) if n_tot
+           else hi[:, :0])
+    return hi.T, tot.T
 
 
-def seg_scans_cuda(cols, is_start, is_end, max_run: int, n_tot: int):
-    """Kernel K4 on CUDA tensors; same result as :func:`seg_scans_plain`."""
+def _scan_block_cuda(cols, is_start, is_end, max_run: int, n_tot: int):
+    """One launch of kernel K4 on the columns where they lie: the kernel
+    takes a table of column pointers with a type code each and reads bool
+    and i32 columns as f32 itself (exactly the plain version's
+    ``.to(float32)``).  ``hi [C, P]`` and ``tot [n_tot, P]`` are two views
+    of one allocation."""
     R = _reach(max_run)
     if R > KERNEL_MAX_REACH:
         raise ValueError(f"segscan kernel takes reach <= {KERNEL_MAX_REACH}, "
                          f"got {R} (max_run {max_run})")
-    if not 0 <= n_tot <= len(cols):
-        raise ValueError(f"n_tot {n_tot} outside [0, {len(cols)}]")
-    xs = torch.stack([c.to(torch.float32) for c in cols])  # [C, P]
-    C, P = xs.shape
+    C = len(cols)
+    if not 1 <= C <= KERNEL_MAX_COLUMNS:
+        raise ValueError(f"segscan kernel takes 1..{KERNEL_MAX_COLUMNS} "
+                         f"columns, got {C}")
+    if not 0 <= n_tot <= C:
+        raise ValueError(f"n_tot {n_tot} outside [0, {C}]")
     if is_start.dtype != torch.bool or is_end.dtype != torch.bool:
         raise TypeError("segscan flags must be bool")
-    st, en = is_start.view(torch.uint8), is_end.view(torch.uint8)
-    kernels.check_cuda(xs, st, en)
-    kernels.check_cuda(st, en, shape=(P,))
-    hi = torch.empty_like(xs)
-    tot = torch.empty((max(n_tot, 1), P), dtype=torch.float32,
-                      device=xs.device)
-    kernels.launch("seg_scans", [xs, st, en, hi, tot], (), (C, P, n_tot, R))
-    return list(hi.unbind(0)), list(tot[:n_tot].unbind(0))
+    try:
+        types = [_COLUMN_TYPES[c.dtype] for c in cols]
+    except KeyError as e:
+        raise TypeError(f"segscan columns are f32, bool, u8 or i32, "
+                        f"got {e.args[0]}") from None
+    P = cols[0].shape[0]
+    if not 1 <= P <= KERNEL_MAX_ROWS:
+        raise ValueError(f"segscan kernel takes 1..{KERNEL_MAX_ROWS} rows, "
+                         f"got {P}")
+    kernels.check_cuda(*cols, is_start, is_end, shape=(P,))
+    out = torch.empty((C + n_tot, P), dtype=torch.float32,
+                      device=cols[0].device)
+    kernels.launch("seg_scans", [*cols, is_start, is_end, out], (),
+                   (C, P, n_tot, R, *types))
+    return out[:C], out[C:]
 
 
 def seg_scans(cols, is_start, is_end, max_run: int, n_tot: int):
-    """(hi per column, tot for the first ``n_tot`` columns): the segmented
-    scan pair -- plain version for CPU tensors, kernel K4 for CUDA ones."""
-    if cols[0].is_cuda:
-        return seg_scans_cuda(cols, is_start, is_end, max_run, n_tot)
-    return seg_scans_plain(cols, is_start, is_end, max_run, n_tot)
+    """``(hi [C, P], tot [n_tot, P])``: the segmented scan pair, one row a
+    column of ``cols`` (``tot`` for the first ``n_tot``) -- plain version
+    for CPU tensors, kernel K4 for CUDA ones.  Columns are ``[P]`` tensors
+    of f32, bool, u8 or i32, read as f32; on the card each must be
+    contiguous (the kernel reads them where they lie)."""
+    block = _scan_block_cuda if cols[0].is_cuda else _scan_block_plain
+    return block(cols, is_start, is_end, max_run, n_tot)
+
+
+def seg_scans_plain(cols, is_start, is_end, max_run: int, n_tot: int):
+    """Plain version of :func:`seg_scans`, as lists of ``[P]`` columns."""
+    hi, tot = _scan_block_plain(cols, is_start, is_end, max_run, n_tot)
+    return list(hi.unbind(0)), list(tot.unbind(0))
+
+
+def seg_scans_cuda(cols, is_start, is_end, max_run: int, n_tot: int):
+    """Kernel K4 on CUDA tensors, as lists of ``[P]`` columns."""
+    hi, tot = _scan_block_cuda(cols, is_start, is_end, max_run, n_tot)
+    return list(hi.unbind(0)), list(tot.unbind(0))
 
 
 def _run_bounds(key):
@@ -170,12 +205,12 @@ def _run_bounds(key):
 
 
 def _ends_table(cums, key, is_end, n_cells):
-    """Per-run totals (``cums [P, C]`` = segmented cumsums, read at run
+    """Per-run totals (``cums [C, P]`` = segmented cumsums, read at run
     ends) scatter-added into a ``[C, n_cells]`` table: run ends compacted
     first-to-last at full width, as the JAX package's bucketed branch."""
     e_i, e_ok, _, _ = compact_mask(is_end, key.shape[0])
     e_i = e_i.to(torch.int64)
-    return _table(key[e_i], e_ok, cums[e_i], n_cells)
+    return _table(key[e_i], e_ok, cums[:, e_i], n_cells)
 
 
 def segment_table(cell, valid, cols, n_cells, max_run: int = 64):
@@ -186,10 +221,10 @@ def segment_table(cell, valid, cols, n_cells, max_run: int = 64):
     prv, nxt = _run_bounds(key)
     is_end = nxt & (key < n_cells)
     zero = torch.zeros((), dtype=torch.float32, device=key.device)
-    his, _ = seg_scans([torch.where(valid, c.to(torch.float32), zero)
-                        for c in cols], prv, nxt, max_run, 0)
-    tbl = _ends_table(torch.stack(his, dim=-1), key, is_end, n_cells)
-    return list(tbl.unbind(0))
+    masked = [c & valid if c.dtype == torch.bool
+              else torch.where(valid, c.to(torch.float32), zero) for c in cols]
+    hi, _ = seg_scans(masked, prv, nxt, max_run, 0)
+    return list(_ends_table(hi, key, is_end, n_cells).unbind(0))
 
 
 def sweep_compact(particles, cfg: MapConfig, dt, origin, sensor_pos, quat):
@@ -395,15 +430,15 @@ def occupancy_compact(particles, cfg: MapConfig, origin, future_in):
 
     # one segmented-scan set feeds the per-voxel table (read at run ends)
     # and the resample walk (per-row prefixes)
-    cols7 = [valid_s.to(f32), w_s, old_s.to(f32),
+    cols7 = [valid_s, w_s, old_s,
              torch.where(old_s, spay[:, 3], zero),
              torch.where(old_s, spay[:, 4], zero),
              torch.where(old_s, spay[:, 5], zero),
              torch.where(old_s & ~mv_s, w_s, zero)]
-    his7, (tot_n, tot_w) = seg_scans(cols7, is_start, is_end, 2 * S, 2)
-    hi_w = his7[1]
+    hi7, (tot_n, tot_w) = seg_scans(cols7, is_start, is_end, 2 * S, 2)
+    hi_w = hi7[1]
     weight_sum, n_old, svx, svy, svz, static_contrib = _ends_table(
-        torch.stack(his7[1:], dim=-1), cell_s, is_end, Vs).unbind(0)
+        hi7[1:], cell_s, is_end, Vs).unbind(0)
     denom = n_old.clamp(min=1.0)
     vel_avg = torch.stack([svx / denom, svy / denom, svz / denom],
                           dim=-1) * (n_old > 0)[:, None]
@@ -437,8 +472,8 @@ def occupancy_compact(particles, cfg: MapConfig, origin, future_in):
     extra = (copies - 1).clamp(min=0)
     survivor = valid_s & ~dropped
 
-    (_, hi_e), (tot_d, _) = seg_scans([dropped.to(f32), extra.to(f32)],
-                                      is_start, is_end, 2 * S, 2)
+    (_, hi_e), (tot_d, _) = seg_scans([dropped, extra], is_start, is_end,
+                                      2 * S, 2)
     demand_start = hi_e - extra
     total_free = (S - tot_n + tot_d).clamp(min=0.0)
     placed = torch.minimum((total_free - demand_start).to(torch.int32)

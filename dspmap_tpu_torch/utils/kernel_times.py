@@ -1,6 +1,7 @@
-"""Times of the pool pass (K1) and of a frame's relayout copies (K5) for the
-checkout in the current directory, to set two versions of the kernels side
-by side in one run on one card.
+"""Times of the pool pass (K1), the pair passes (K3a, K3b), the segmented
+scans (K4) and a frame's relayout copies (K5) for the checkout in the
+current directory, to set two versions of the kernels side by side in one
+run on one card.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
@@ -9,16 +10,25 @@ Run from the root of a checkout, on a machine with a CUDA card::
 The package is taken from the current directory, not from where this file
 lies, so the same file measures an older checkout too (``cd`` there first):
 it uses only what every version of the port has had (``Particles``,
-``ops.occupancy.pool_pass_cuda``, ``ops.relayout.to_flat_cuda`` /
-``from_flat_cuda``) and the batched relayout where the checkout has it.
-``chip_smoke.py`` takes its timers (:func:`median_ms`, :func:`device_ms`)
-and its pool (:func:`populated_pool`) from here.
+``ops.occupancy.pool_pass_cuda``, ``ops.update.update_pass1`` /
+``update_pass2`` / ``prescale_pairs``, ``ops.compact.seg_scans_cuda``,
+``ops.relayout.to_flat_cuda`` / ``from_flat_cuda``) and the batched relayout
+where the checkout has it.  ``chip_smoke.py`` takes its timers
+(:func:`median_ms`, :func:`device_ms`), its pool (:func:`populated_pool`)
+and its K3 and K4 operands (:func:`pair_operands`, :func:`segscan_case`)
+from here.
 
 Prints the card's name and power limit, then one JSON line a measurement:
 
 * ``K1`` at the flagship's, the static preset's and the multi-neighbor
   preset's pool (18 x 175,104, 50 x 75,776, 60 x 75,776;
   :func:`populated_pool`);
+* ``K3a`` and ``K3b`` at the three paths' shapes ``(rows, S_t, CK)``, called
+  as the step calls them, with the operands scaled once for both passes;
+* ``K4`` at large_urban's 131,072 rows for the four calls of a compact
+  frame, each with the column types the step passes (a checkout whose
+  wrapper casts and stacks the columns first pays for that in ``ms``, as
+  its frames did);
 * ``K5_in``: a multi frame's seven planes (60 x 75,776; one i32, six f32)
   into flat working buffers -- one batched launch, or seven one-plane
   launches on a checkout without it -- beside seven ``clone()`` calls;
@@ -41,6 +51,22 @@ import sys
 
 #: substrings of the ``__global__`` names of K1 and K5 in any version
 KERNEL_NAMES = ("occupancy", "copy16")
+#: the same for K3a, K3b and K4
+PASS1_NAMES, PASS2_NAMES, SEGSCAN_NAMES = ("pass1",), ("pass2",), ("segscan",)
+
+#: (rows, S_t, CK) of the pair passes on the flagship and large_urban, the
+#: static and the multi-neighbor paths
+PAIR_SHAPES = {"flagship": (448, 64, 288), "static": (504, 32, 288),
+               "multi": (4536, 16, 400)}
+#: (n_tot, max_run, column types) of the compact step's four seg_scans
+#: calls at large_urban (S = 10): occupancy_compact's two (reach 32), then
+#: segment_table's in birth and in rebin (reach 16)
+SEGSCAN_CALLS = (
+    (2, 20, ("bool", "f32", "bool", "f32", "f32", "f32", "f32")),
+    (2, 20, ("bool", "i32")),
+    (0, 10, ("f32", "f32", "f32", "bool")),
+    (0, 10, ("bool",)),
+)
 #: matches every kernel and copy the card ran
 ANY_KERNEL = ("",)
 
@@ -135,6 +161,55 @@ def populated_pool(cfg, rng, device):
                         weight=t(weight), t=zeros.clone())
 
 
+def pair_operands(rows, st, ck, sigma, rng, device):
+    """``(pos, pts, w, cinv)`` of the pair passes: particles and points a
+    metre around a centre a few metres out, each of the first ``S_t``
+    points within a few sigma of a particle so that g is not all 0."""
+    import numpy as np
+    import torch
+
+    centre = np.asarray([4.0, 0.5, 1.0], np.float32)
+    pos = (centre + rng.normal(0, 1.0, (rows, st, 3))).astype(np.float32)
+    pts = (centre + rng.normal(0, 1.0, (rows, ck, 3))).astype(np.float32)
+    k = min(st, ck)
+    pts[:, :k] = pos[:, :k] + rng.normal(
+        0, 2 * sigma, (rows, k, 3)).astype(np.float32)
+    w = (rng.random((rows, st)) * (rng.random((rows, st)) > 0.3))
+    cinv = (rng.random((rows, ck)) * (rng.random((rows, ck)) > 0.5))
+    return tuple(torch.from_numpy(x.astype(np.float32)).to(device)
+                 for x in (pos, pts, w, cinv))
+
+
+def segscan_case(P, types, max_run, device, seed=0):
+    """``(cols, is_start, is_end, live)`` of one seg_scans call at ``P``
+    rows: sorted runs of 1..max_run rows, six rows of one run repeated
+    further on, a dead tail of a fifth of the rows, some -0.0 values; one
+    column a type name in ``types`` (``f32``, ``bool`` or ``i32``)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + len(types) * 100 + max_run)
+    key = np.repeat(np.arange(P), rng.integers(1, max_run + 1, P))[:P]
+    if P > 5006:
+        key[5000:5006] = key[11]
+    key[-(P // 5):] = 1 << 30
+    ne = key[1:] != key[:-1]
+    is_start = np.concatenate([[True], ne])
+    is_end = np.concatenate([ne, [True]]) & (key < 1 << 30)
+    cols = []
+    for name in types:
+        if name == "bool":
+            col = rng.random(P) < 0.6
+        elif name == "i32":
+            col = rng.integers(0, 9, P).astype(np.int32)
+        else:
+            col = rng.uniform(0, 1, P).astype(np.float32)
+            col[::101] = -0.0
+        cols.append(torch.from_numpy(col).to(device))
+    t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    return cols, t(is_start), t(is_end), t(key < 1 << 30)
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -144,7 +219,7 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, os.getcwd())
     import dspmap_tpu_torch as dm
-    from dspmap_tpu_torch.ops import occupancy, relayout
+    from dspmap_tpu_torch.ops import compact, occupancy, relayout, update
 
     label = argv[0] if argv else os.path.basename(os.getcwd())
     card = subprocess.run(
@@ -167,6 +242,26 @@ def main(argv) -> int:
         say(kernel="K1", path=name, S=cfg.slots_per_voxel,
             V=cfg.storage_voxels, ms=median_ms(run), device_ms=device_ms(run))
         del pool
+
+    for name, (rows, st, ck) in PAIR_SHAPES.items():
+        sigma = float(np.float32(configs[name].sigma_ob))
+        pos, pts, w, cinv = pair_operands(rows, st, ck, sigma,
+                                          np.random.default_rng(0), device)
+        scaled = update.prescale_pairs(pos, pts, sigma)
+        for kernel, fn, vec, names in (
+                ("K3a", update.update_pass1, w, PASS1_NAMES),
+                ("K3b", update.update_pass2, cinv, PASS2_NAMES)):
+            run = lambda: fn(pos, vec, pts, sigma, scaled)  # noqa: E731
+            say(kernel=kernel, path=name, rows=rows, S_t=st, CK=ck,
+                ms=median_ms(run), device_ms=device_ms(run, names=names))
+
+    P = dm.large_urban().compact_capacity
+    for n_tot, max_run, types in SEGSCAN_CALLS:
+        cols, st, en, _ = segscan_case(P, types, max_run, device)
+        run = lambda: compact.seg_scans_cuda(cols, st, en, max_run, n_tot)  # noqa: E731
+        say(kernel="K4", P=P, columns=len(types), n_tot=n_tot,
+            max_run=max_run, types=",".join(types), ms=median_ms(run),
+            device_ms=device_ms(run, names=SEGSCAN_NAMES))
 
     cfg = configs["multi"]
     S, V = cfg.slots_per_voxel, cfg.storage_voxels

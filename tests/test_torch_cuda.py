@@ -16,6 +16,7 @@ from dspmap_tpu_torch import kernels
 from dspmap_tpu_torch.ops import compact, occupancy, relayout, sweep, update
 from dspmap_tpu_torch.ops.common import padded_buffer
 from dspmap_tpu_torch.utils import sim
+from dspmap_tpu_torch.utils.kernel_times import pair_operands, segscan_case
 
 pytestmark = pytest.mark.cuda
 
@@ -156,19 +157,20 @@ def test_wrappers_refuse_operands_the_kernels_do_not_take(device):
 
 
 #: (rows, S_t, CK) of the pair passes: the flagship's and large_urban's
-#: tile, the static preset's and the multi-neighbor preset's
-PAIR_SHAPES = [(448, 64, 288), (504, 32, 288), (4536, 16, 400)]
+#: tile, the static preset's and the multi-neighbor preset's, and a ragged
+#: one (no multiple of pass 2's lane groups, particles a lane or rows a
+#: block)
+PAIR_SHAPES = [(448, 64, 288), (504, 32, 288), (4536, 16, 400), (37, 13, 101)]
+
+
+def _pair_operands(rows, s_t, ck, device, seed=2):
+    return pair_operands(rows, s_t, ck, 0.1, np.random.default_rng(seed),
+                         device)
 
 
 @pytest.mark.parametrize("rows,s_t,ck", PAIR_SHAPES)
 def test_pair_kernels_match_float64(device, rows, s_t, ck):
-    rng = np.random.default_rng(2)
-    pos = rng.normal(3, 1, (rows, s_t, 3))
-    pts = rng.normal(3, 1, (rows, ck, 3))
-    pts[:, :s_t] = pos + rng.normal(0, 0.1, pos.shape)
-    pos, pts, w, cinv = (
-        torch.from_numpy(x.astype(np.float32)).to(device)
-        for x in (pos, pts, rng.random((rows, s_t)), rng.random((rows, ck))))
+    pos, pts, w, cinv = _pair_operands(rows, s_t, ck, device)
     scaled = update.prescale_pairs(pos, pts, 0.1)
     for kern, plain, vec in ((update.update_pass1, update.update_pass1_plain, w),
                              (update.update_pass2, update.update_pass2_plain, cinv)):
@@ -180,10 +182,62 @@ def test_pair_kernels_match_float64(device, rows, s_t, ck):
         assert torch.equal(kern(pos, vec, pts, 0.1, scaled), got)
 
 
+@pytest.mark.parametrize("rows,s_t,ck", PAIR_SHAPES)
+def test_pass2_gives_the_same_bits_every_call(device, rows, s_t, ck):
+    """Pass 2 sums each particle's points across lanes in a fixed order and
+    a fixed shuffle tree: no atomics, so two calls on the same operands
+    agree bit for bit (the newborn weight's last bit decides resample flags
+    downstream), also when other work ran in between."""
+    pos, pts, _, cinv = _pair_operands(rows, s_t, ck, device, seed=7)
+    n0 = kernels.LAUNCHES["update_pass2"]
+    first = update.update_pass2(pos, cinv, pts, 0.1)
+    update.update_pass2(pos.flip(0).contiguous(), cinv, pts, 0.1)
+    second = update.update_pass2(pos, cinv, pts, 0.1)
+    assert kernels.LAUNCHES["update_pass2"] == n0 + 3
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    assert bool(torch.isfinite(first).all()) and float(first.max()) > 0
+
+
+def test_pass2_takes_unaligned_operands(device):
+    """The result does not depend on where the operands' storage starts:
+    points 4 bytes off a 16-byte boundary give the bits of the aligned
+    call (pass 2 stages a point with scalar loads)."""
+    rows, s_t, ck = 64, 16, 400
+    pos, pts, _, cinv = _pair_operands(rows, s_t, ck, device, seed=3)
+    pos_s, pts_s = update.prescale_pairs(pos, pts, 0.1)
+    want = update.update_pass2(pos, cinv, pts, 0.1, (pos_s, pts_s))
+    shifted = torch.empty(pts_s.numel() + 1, device=device)[1:].view(
+        pts_s.shape).copy_(pts_s)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    got = update.update_pass2(pos, cinv, pts, 0.1, (pos_s, shifted))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 #: the compact step's seg_scans calls at large_urban (S = 10): (columns,
 #: n_tot, max_run) of occupancy_compact's two calls and of segment_table's
-#: calls in birth and rebin
-SEGSCAN_CASES = [(7, 2, 20), (2, 2, 20), (4, 0, 10), (1, 0, 10)]
+#: calls in birth and rebin (reach 32, 32, 16, 16: the warp form); then the
+#: tile form at reach 64 and 512 and at reach 1, 2, 4 and 8
+SEGSCAN_CASES = [(7, 2, 20), (2, 2, 20), (4, 0, 10), (1, 0, 10),
+                 (3, 2, 50), (2, 1, 400),
+                 (2, 1, 1), (3, 2, 2), (2, 2, 3), (3, 1, 7)]
+
+
+def _segscan_inputs(P, C, max_run, device, typed=False):
+    """Runs of 1..max_run rows, fragments of one run further on, a dead
+    tail and some -0.0 values; with ``typed`` the first column is bool and
+    the last i32, as the compact step passes them."""
+    types = ["f32"] * C
+    if typed:
+        types[0], types[-1] = "bool", "i32"
+    cols, st, en, live = segscan_case(P, types, max_run, device)
+    return live, st, en, cols
+
+
+def _assert_segscan_equal(got, want, live):
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    for g, w in zip(got[1], want[1]):
+        assert torch.equal(g[live].view(torch.int32), w[live].view(torch.int32))
 
 
 @pytest.mark.parametrize("C,n_tot,max_run", SEGSCAN_CASES)
@@ -191,28 +245,31 @@ def test_segscan_kernel_bit_equal_to_plain(device, C, n_tot, max_run):
     """K4 at P = 131072 (large_urban's row count): runs of 1..max_run rows,
     fragments of one run further on, a dead tail and some -0.0 values;
     ``hi`` equal on every row, ``tot`` on every live row."""
-    rng = np.random.default_rng(C * 100 + max_run)
     P = 131072
-    key = np.repeat(np.arange(P), rng.integers(1, max_run + 1, P))[:P]
-    key[5000:5006] = key[11]
-    key[-P // 5:] = 1 << 30
-    live = torch.from_numpy(key < 1 << 30).to(device)
-    st = torch.from_numpy(np.concatenate([[True], key[1:] != key[:-1]]))
-    en = torch.from_numpy(np.concatenate([key[1:] != key[:-1], [True]])
-                          & (key < 1 << 30))
-    x = rng.uniform(0, 1, (C, P)).astype(np.float32)
-    x[:, ::101] = -0.0
-    cols = [torch.from_numpy(c).to(device) for c in x]
-    st, en = st.to(device), en.to(device)
+    live, st, en, cols = _segscan_inputs(P, C, max_run, device)
     n0 = kernels.LAUNCHES["seg_scans"]
     got = compact.seg_scans(cols, st, en, max_run, n_tot)
     want = compact.seg_scans_plain(cols, st, en, max_run, n_tot)
     assert kernels.LAUNCHES["seg_scans"] == n0 + 1
     assert len(got[0]) == C and len(got[1]) == n_tot
-    for g, w in zip(got[0], want[0]):
-        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
-    for g, w in zip(got[1], want[1]):
-        assert torch.equal(g[live].view(torch.int32), w[live].view(torch.int32))
+    _assert_segscan_equal(got, want, live)
+
+
+@pytest.mark.parametrize("P", [131072 - 1000 + 7, 33 * 1024 + 1, 20011, 6001])
+@pytest.mark.parametrize("C,n_tot,max_run", [(7, 2, 20), (2, 1, 10),
+                                             (2, 2, 50), (2, 1, 400),
+                                             (2, 2, 1), (3, 1, 3), (2, 2, 7)])
+def test_segscan_kernel_ragged_rows_and_typed_columns(device, P, C, n_tot,
+                                                      max_run):
+    """K4 at row counts that are no multiple of a window (32), a strip or a
+    tile (1024), in both forms, with a bool and an i32 column read where
+    they lie: ``hi`` and ``tot`` equal to the plain version on every row
+    (the dead tail included)."""
+    live, st, en, cols = _segscan_inputs(P, C, max_run, device, typed=True)
+    got = compact.seg_scans(cols, st, en, max_run, n_tot)
+    want = compact.seg_scans_plain(cols, st, en, max_run, n_tot)
+    _assert_segscan_equal(got, want, torch.ones_like(live))
+    assert all(h.dtype == torch.float32 and h.shape == (P,) for h in got[0])
 
 
 # ------------------------------------------- the static and multi presets

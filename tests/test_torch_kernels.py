@@ -285,7 +285,8 @@ def test_segscan_wrapper_takes_plain_on_cpu():
     before = dict(kernels.LAUNCHES)
     got = compact.seg_scans(cols, st, en, 4, 1)
     want = compact.seg_scans_plain(cols, st, en, 4, 1)
-    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+    assert got[0].shape == (2, 300) and got[1].shape == (1, 300)
+    for g, w in zip([*got[0], *got[1]], want[0] + want[1]):
         assert torch.equal(g, w)
     hi, tot = got[0][0], got[1][0]  # runs of three rows
     assert torch.equal(tot.view(100, 3), hi[2::3, None].expand(100, 3))
