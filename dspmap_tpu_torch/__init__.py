@@ -39,6 +39,7 @@ from .state import (  # noqa: F401
     EstimatorState,
     RuntimeParams,
     init_state,
+    add_random_particles,
     state_from_numpy,
     state_to_numpy,
 )

@@ -10,84 +10,54 @@
 // kernel): the matmul form |a|^2 + |b|^2 - 2ab, and the tensor cores with
 // it, loses |a|^2 * 2^-24 at world coordinates of several metres over sigma.
 //
-// Bound on the H100: the exponentials.  A pass is rows x S_t x CK pair terms
-// (8.3M at the flagship, 29M at the multi-neighbor preset) against 0.5 to
-// 30 MB of input.  Each term needs one ex2 on the special-function units
-// (16 a clock an SM, against 128 float operations), so the card's least
-// time for a pass is the pair count over 132 x 16 ex2 a clock, a little
-// under its bytes over the memory rate at the multi-neighbor shape and above
-// them at the others.
+// Bound on the H100: the exponentials and the instructions around them.  A
+// pass is rows x S_t x CK pair terms (8.3M at the flagship, 29M at the
+// multi-neighbor preset) against 0.5 to 30 MB of input.  Each term needs one
+// ex2 on the special-function units (16 a clock an SM, against 128 float
+// operations), so the card's least time for a pass is the pair count over
+// 132 x 16 ex2 a clock, above its bytes over the memory rate at the
+// flagship and static shapes and a little under them at the multi-neighbor
+// shape (30 MB, 9 us).
 //
-// Pass 1 (K3a): one block per pyramid row stages the row's S_t positions and
-// weights and its CK points in shared memory; each thread owns one point m
-// and loops over s in order.
+// Both passes share one term (pair_term): three subtractions, a multiply,
+// two fused multiply-adds, the scale by -log2(e)/2, one ex2.approx and the
+// accumulating multiply-add with a weight staged beside the coordinates;
+// its relative error (2^-22 from ex2, 2^-23 from the scaled exponent) is far
+// inside the bar of rtol 2e-5 against float64.  Neither pass uses atomics:
+// every sum runs in a fixed order and two calls give the same bits.
+//
+// Pass 1 (K3a): a thread holds T = 2 points of one pyramid row in
+// registers, loaded straight from device memory (consecutive threads take
+// consecutive points, so loads and stores coalesce), and walks the row's
+// S_t particles in order.  A block of 256 threads covers as many rows as
+// its threads reach, flat over (row, point group), and stages each of those
+// rows' particles once in shared memory as (x, y, z, c3 * w): one 16-byte
+// broadcast load a particle serves the thread's T points.  The points' loads
+// are issued before the staging barrier; the index math is 32-bit (64-bit
+// divisions cost 11-15% at the multi-neighbor shape, whose threads have 32
+// terms).  A row with few points (CK <= 10 at S_t = 64) would make a block
+// of 256 threads reach more rows than 48 KB of shared memory stage; such a
+// block covers whole rows, as many as fit, and its surplus threads leave
+// after the barrier.  T = 2 is the one value measured inside the aims at all
+// three path shapes.  Measured and dropped (PERF.md section 6): 1, 4 and 8
+// points a thread, and 2 or 4 lanes a point group joined by a shuffle tree.
 //
 // Pass 2 (K3b): one thread a particle would leave the card with 16 to 73
 // thousand threads of 288 to 400 dependent terms each.  So the point axis is
 // cut across lanes: a group of 16 lanes shares 4 particles of one row, lane
 // j sums the points j, j + 16, .. in order (4 independent chains a lane,
 // each point read from shared memory once for all 4), and the group's
-// partial sums meet in a fixed xor-shuffle tree: no atomics, the same bits
-// from run to run.  A block of 256 threads takes as many pyramid rows as
-// give every group its particles (one at S_t = 64 and 32, four at S_t = 16)
-// and stages their points once, laid out as (zx, zy, zz, c3 * cinv) a point:
-// one 16-byte shared load a point.  A term is three subtractions, a
-// multiply, two fused multiply-adds, the scale by -log2(e)/2, one
-// ex2.approx and the accumulating multiply-add; its relative error (2^-22
-// from ex2, 2^-23 from the scaled exponent) is far inside the bar of
-// rtol 2e-5 against float64.  Measured and dropped (PERF.md section 6):
-// 4, 8 and 32 lanes a particle, 1, 2 and 8 particles a lane, and staging
-// the points as flat 16-byte words.
+// partial sums meet in a fixed xor-shuffle tree.  A block of 256 threads
+// takes as many pyramid rows as give every group its particles (one at
+// S_t = 64 and 32, four at S_t = 16) and stages their points once, laid out
+// as (zx, zy, zz, c3 * cinv) a point: one 16-byte shared load a point.
+// Measured and dropped (PERF.md section 6): 4, 8 and 32 lanes a particle,
+// 1, 2 and 8 particles a lane, and staging the points as flat 16-byte words.
 #include "common.cuh"
 
 namespace {
 
 constexpr float kC3 = 0.17958712212516656f;  // (1/sqrt(pi))^3
-
-struct PairArgs {
-  const float* pos;  // [R, S_t, 3] scaled
-  const float* vec;  // w [R, S_t]
-  const float* pts;  // [R, CK, 3] scaled
-  float* out;        // [R, CK]
-  int st, ck;
-};
-
-__device__ __forceinline__ float pair_g(float ax, float ay, float az, float bx,
-                                        float by, float bz) {
-  const float dx = subf(ax, bx), dy = subf(ay, by), dz = subf(az, bz);
-  const float d2 = addf(addf(mulf(dx, dx), mulf(dy, dy)), mulf(dz, dz));
-  return mulf(kC3, expf(mulf(-0.5f, d2)));
-}
-
-// shared layout: pos[st*3] | w[st] | pts[ck*3]
-__global__ void pass1_kernel(PairArgs a) {
-  extern __shared__ float sm[];
-  const int r = blockIdx.x;
-  float* spos = sm;
-  float* sw = spos + a.st * 3;
-  float* spts = sw + a.st;
-  for (int i = threadIdx.x; i < a.st * 3; i += blockDim.x)
-    spos[i] = a.pos[(long long)r * a.st * 3 + i];
-  for (int i = threadIdx.x; i < a.st; i += blockDim.x)
-    sw[i] = a.vec[(long long)r * a.st + i];
-  for (int i = threadIdx.x; i < a.ck * 3; i += blockDim.x)
-    spts[i] = a.pts[(long long)r * a.ck * 3 + i];
-  __syncthreads();
-  for (int m = threadIdx.x; m < a.ck; m += blockDim.x) {
-    const float zx = spts[m * 3], zy = spts[m * 3 + 1], zz = spts[m * 3 + 2];
-    float acc = 0.0f;
-    for (int s = 0; s < a.st; ++s) {
-      const float g = pair_g(spos[s * 3], spos[s * 3 + 1], spos[s * 3 + 2],
-                             zx, zy, zz);
-      acc = addf(acc, mulf(sw[s], g));
-    }
-    a.out[(long long)r * a.ck + m] = acc;
-  }
-}
-
-// ---------------------------------------------------------------- pass 2
-
-constexpr int kPass2Threads = 256;
 // g = c3 * exp(-d2 / 2) = c3 * 2^(-d2 * log2(e) / 2): one ex2 on the
 // special-function unit
 constexpr float kNegHalfLog2e = -0.72134752044448170368f;
@@ -98,6 +68,123 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// acc + b.w * 2^(-log2(e)/2 * |a - b.xyz|^2): pass 1 passes a point as a and
+// a staged particle as b, pass 2 a particle and a staged point (a - b and
+// b - a round alike, so d2 has the same bits either way)
+__device__ __forceinline__ float pair_term(float ax, float ay, float az,
+                                           float4 b, float acc) {
+  const float dx = ax - b.x, dy = ay - b.y, dz = az - b.z;
+  const float d2 = fmaf(dz, dz, fmaf(dy, dy, dx * dx));
+  return fmaf(ex2(kNegHalfLog2e * d2), b.w, acc);
+}
+
+// ---------------------------------------------------------------- pass 1
+
+constexpr int kPass1Threads = 256;
+constexpr int kPass1Points = 2;  // points a thread (T)
+
+struct Pass1Args {
+  const float* pos;  // [R, S_t, 3] scaled
+  const float* w;    // [R, S_t]
+  const float* pts;  // [R, CK, 3] scaled
+  float* out;        // [R, CK]
+  int rows, st, ck;
+  unsigned groups;   // point groups a row: ceil(CK / T)
+  unsigned items;    // rows * groups, under 2^31
+  unsigned per_block;  // items a block, at most kPass1Threads
+  int span;          // rows a block stages at most
+};
+
+// Item i of the grid (row i / groups, group j = i % groups) owns the points
+// j, j + groups, .. (T of them, those under CK live) of its row; block b
+// takes the items [b * per_block, (b + 1) * per_block).
+__global__ void __launch_bounds__(kPass1Threads) pass1_kernel(Pass1Args a) {
+  constexpr int T = kPass1Points;
+  extern __shared__ float4 sp[];  // [rows of the block][S_t]: (x, y, z, c3 w)
+  const unsigned first = blockIdx.x * a.per_block;
+  const int r0 = (int)(first / a.groups);
+
+  // the thread's points first, so that their loads are in flight while the
+  // block stages its particles; a thread without an item loads the block's
+  // first item's points and leaves after the barrier
+  const unsigned i = first + threadIdx.x;
+  const bool live = threadIdx.x < a.per_block && i < a.items;
+  const unsigned item = live ? i : first;
+  const int row = (int)(item / a.groups);
+  const int j = (int)(item - (unsigned)row * a.groups);
+  const float* pts = a.pts + (long long)row * a.ck * 3;
+  float zx[T], zy[T], zz[T], acc[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int m = min(j + t * (int)a.groups, a.ck - 1);
+    zx[t] = pts[3 * m];
+    zy[t] = pts[3 * m + 1];
+    zz[t] = pts[3 * m + 2];
+    acc[t] = 0.0f;
+  }
+  {
+    const int n = min(a.span, a.rows - r0) * a.st;
+    const float* pos = a.pos + (long long)r0 * a.st * 3;
+    const float* w = a.w + (long long)r0 * a.st;
+    for (int k = threadIdx.x; k < n; k += kPass1Threads)
+      sp[k] = make_float4(pos[3 * k], pos[3 * k + 1], pos[3 * k + 2],
+                          mulf(kC3, w[k]));
+  }
+  __syncthreads();
+  if (!live) return;
+  const float4* prt = sp + (row - r0) * a.st;
+#pragma unroll 4
+  for (int s = 0; s < a.st; ++s) {
+    const float4 b = prt[s];
+#pragma unroll
+    for (int t = 0; t < T; ++t) acc[t] = pair_term(zx[t], zy[t], zz[t], b, acc[t]);
+  }
+  float* out = a.out + (long long)row * a.ck;
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int m = j + t * (int)a.groups;
+    if (m < a.ck) out[m] = acc[t];
+  }
+}
+
+// ptrs: pos w pts out;  iparams: rows S_t CK
+int launch_pass1(const uint64_t* p, const int* ip, void* stream) {
+  constexpr int T = kPass1Points;
+  Pass1Args a;
+  a.pos = dptr<const float>(p, 0);
+  a.w = dptr<const float>(p, 1);
+  a.pts = dptr<const float>(p, 2);
+  a.out = dptr<float>(p, 3);
+  a.rows = ip[0];
+  a.st = ip[1];
+  a.ck = ip[2];
+  if (a.rows == 0) return 0;
+  if (a.rows < 0 || a.st < 1 || a.ck < 1) return (int)cudaErrorInvalidValue;
+  a.groups = (unsigned)((a.ck + T - 1) / T);
+  const long long items = (long long)a.rows * a.groups;
+  if (items + kPass1Threads >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  a.items = (unsigned)items;
+  // rows whose particles fit in the 48 KB of shared memory a block has
+  // without asking
+  const int fit = (48 * 1024) / (a.st * (int)sizeof(float4));
+  // 256 items a block reach over at most this many rows
+  a.per_block = kPass1Threads;
+  a.span = min(a.rows, (kPass1Threads - 1) / (int)a.groups + 2);
+  if (a.span > fit) {  // few points a row: whole rows a block
+    const int whole = min(fit, kPass1Threads / (int)a.groups);
+    if (whole < 1) return (int)cudaErrorInvalidValue;
+    a.per_block = (unsigned)(whole * (int)a.groups);
+    a.span = whole;
+  }
+  const size_t smem = sizeof(float4) * (size_t)a.span * a.st;
+  const unsigned blocks = (a.items + a.per_block - 1) / a.per_block;
+  pass1_kernel<<<blocks, kPass1Threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- pass 2
+
+constexpr int kPass2Threads = 256;
 constexpr int kLanes = 16;     // lanes that share a particle's points (G)
 constexpr int kParticles = 4;  // particles a lane carries at once (T)
 
@@ -151,11 +238,7 @@ __global__ void __launch_bounds__(kPass2Threads) pass2_kernel(Pass2Args a) {
     for (int m = j; m < a.ck; m += G) {
       const float4 z = row[m];
 #pragma unroll
-      for (int t = 0; t < T; ++t) {
-        const float dx = px[t] - z.x, dy = py[t] - z.y, dz = pz[t] - z.z;
-        const float d2 = fmaf(dz, dz, fmaf(dy, dy, dx * dx));
-        acc[t] = fmaf(ex2(kNegHalfLog2e * d2), z.w, acc[t]);
-      }
+      for (int t = 0; t < T; ++t) acc[t] = pair_term(px[t], py[t], pz[t], z, acc[t]);
     }
 #pragma unroll
     for (int o = G / 2; o > 0; o /= 2) {
@@ -193,24 +276,6 @@ int launch_pass2(const uint64_t* p, const int* ip, void* stream) {
   const size_t smem = sizeof(float4) * (size_t)a.rb * a.ck;
   const int blocks = (a.rows + a.rb - 1) / a.rb;
   pass2_kernel<<<blocks, kPass2Threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-int launch_pass1(const uint64_t* p, const int* ip, void* stream) {
-  PairArgs a;
-  a.pos = dptr<const float>(p, 0);
-  a.vec = dptr<const float>(p, 1);
-  a.pts = dptr<const float>(p, 2);
-  a.out = dptr<float>(p, 3);
-  const int rows = ip[0];
-  a.st = ip[1];
-  a.ck = ip[2];
-  if (rows == 0) return 0;
-  const size_t smem = sizeof(float) * (size_t)(a.st * 3 + a.st + a.ck * 3);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  int threads = ((a.ck + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  pass1_kernel<<<rows, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

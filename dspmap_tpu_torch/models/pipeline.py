@@ -83,7 +83,8 @@ def make_draws(cfg: MapConfig, gen: torch.Generator, device):
     return fresh, noise_p, noise_v, noise_u
 
 
-def make_step(cfg: MapConfig):
+def make_step(cfg: MapConfig, with_metrics: bool = True,
+              admission_control: bool = True, shard=None):
     """Build ``step(state, frame, draws=None) -> (state, StepOutput)``.
 
     ``draws`` (see :func:`make_draws`) injects the step's random numbers;
@@ -91,8 +92,20 @@ def make_step(cfg: MapConfig):
     device and every tensor the step creates is created there.  The step
     does not modify its input state's tensors: the returned state holds
     new ones.
+
+    ``with_metrics=False`` returns the metrics ``{"alive": ...}`` only.
+    Unlike the JAX step, where it lets the compiler drop some twenty
+    reductions, it saves no work here: the stages still compute and launch
+    their counters every frame, and only the returned dict is trimmed.
+    ``admission_control=False`` runs the frame whatever its pose and time
+    step; ``StepOutput.accepted`` still says whether admission control
+    would have taken it.  ``shard`` (the JAX package's sharded fast path)
+    is not ported: anything but ``None`` raises.
     """
     cfg.validate()
+    if shard is not None:
+        raise NotImplementedError(
+            "the sharded step is not ported yet (ROADMAP.md, queue 1, item 19)")
     compact = cfg.layout == "compact"
     if not (cfg.limit_motion_to_xy_plane or cfg.motion_model == "static"):
         raise NotImplementedError(
@@ -107,11 +120,11 @@ def make_step(cfg: MapConfig):
         last_t = state.last_timestamp if state.initialized else ts
         dt = np.float32(ts - np.float32(last_t))
         delta = sensor_pos - np.asarray(last_pos, np.float32)
-        accepted = (geometry.quaternion_is_valid_np(quat)
-                    and bool(np.all(np.abs(delta) <= np.float32(10.0)))
-                    and dt >= 0.0 and dt <= 10.0)
-        if not accepted:
-            return state, _rejected(state, cfg)
+        accepted = bool(geometry.quaternion_is_valid_np(quat)
+                        and np.all(np.abs(delta) <= np.float32(10.0))
+                        and dt >= 0.0 and dt <= 10.0)
+        if admission_control and not accepted:
+            return state, _rejected(state, cfg, with_metrics)
 
         if draws is None:
             draws = make_draws(cfg, state.gen, dev)
@@ -206,21 +219,27 @@ def make_step(cfg: MapConfig):
             update_time=update_time, last_timestamp=ts,
             update_counter=state.update_counter + 1, initialized=True,
             estimator=est_state)
-        metrics = {"valid_points": obs.n_valid_points, **fov_stats,
-                   **upd_stats, **birth_stats, **occ_stats}
-        if compact:
-            metrics["pool_overflow"] = (birth_stats["pool_overflow"]
-                                        + occ_stats["pool_overflow"])
+        if with_metrics:
+            metrics = {"valid_points": obs.n_valid_points, **fov_stats,
+                       **upd_stats, **birth_stats, **occ_stats}
+            if compact:
+                metrics["pool_overflow"] = (birth_stats["pool_overflow"]
+                                            + occ_stats["pool_overflow"])
+        else:
+            metrics = {"alive": occ_stats["alive"]}
         cloud = (est_out.points, est_out.vel, est_out.dynamic, est_out.valid)
-        return new_state, StepOutput(True, weight_sum, metrics, cloud)
+        return new_state, StepOutput(accepted, weight_sum, metrics, cloud)
 
     return step
 
 
-def _rejected(state: MapState, cfg: MapConfig) -> StepOutput:
+def _rejected(state: MapState, cfg: MapConfig,
+              with_metrics: bool) -> StepOutput:
     dev = state.device
     P = cfg.max_input_points
     names = COMPACT_METRIC_NAMES if cfg.layout == "compact" else METRIC_NAMES
+    if not with_metrics:
+        names = ("alive",)
     metrics = {k: torch.zeros((), device=dev,
                               dtype=torch.float32 if k == "newborn_weight"
                               else torch.int64)

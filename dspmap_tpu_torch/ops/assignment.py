@@ -17,6 +17,8 @@ import itertools
 import numpy as np
 import torch
 
+from .common import full_f32_matmul
+
 INF = 1.0e12
 _BRUTE_N = 8
 
@@ -102,10 +104,10 @@ def _jv(a: torch.Tensor, n_rows: torch.Tensor, R: int) -> torch.Tensor:
     return p
 
 
+@full_f32_matmul()
 def solve_assignment(cost: torch.Tensor, row_valid: torch.Tensor,
                      col_valid: torch.Tensor) -> torch.Tensor:
     """Min-cost one-to-one assignment; returns ``col_of_row[R]`` (-1 = none)."""
-    torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls stay f32
     R, C = cost.shape
     N = max(R, C, _BRUTE_N)
     dev = cost.device

@@ -11,13 +11,15 @@ from __future__ import annotations
 
 import torch
 
+from .common import full_f32_matmul
 
+
+@full_f32_matmul()
 def euclidean_cluster(points: torch.Tensor, valid: torch.Tensor,
                       tolerance: float, iters: int = 16) -> torch.Tensor:
     """Connected components under ``dist <= tolerance``: each point's label
     is the smallest member index of its component; invalid points get the
     sentinel ``P``."""
-    torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls stay f32
     n = points.shape[0]
     dev = points.device
     sq = (points * points).sum(-1)

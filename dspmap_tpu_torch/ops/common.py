@@ -18,6 +18,8 @@ of a padded buffer that the step owns, into which :func:`pool_put` and
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -32,6 +34,19 @@ def to_device(x, dtype, device) -> torch.Tensor:
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Within the block, float32 matrix products on the card run in full
+    float32 (``torch.backends.cuda.matmul.allow_tf32 = False``); on exit
+    the caller's setting is restored."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _vals(vals, target: torch.Tensor) -> torch.Tensor:

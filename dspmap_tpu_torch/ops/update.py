@@ -6,10 +6,13 @@ reference's ``standardNormalPDF`` quirk, ``dsp_dynamic.h:1282-1301``).
 
 The dense x dense block of each pass -- the pair sums over ``[n_pyr, S_t]``
 particles x ``[n_pyr, CK]`` neighbourhood points -- is kernel K3
-(``csrc/update.cu``) on CUDA tensors; its plain version
+(``csrc/update.cu``: both passes share one pair term and sum in a fixed
+order without atomics, so a call gives the same bits every time) on CUDA
+tensors; its plain version
 (:func:`update_pass1_plain` / :func:`update_pass2_plain`) is the JAX
 package's XLA formulation (``|a|^2 + |b|^2 - 2ab`` with a clamp).  The
-spill blocks and the one-hot reductions are plain PyTorch on every device.
+spill blocks and the one-hot reductions are plain PyTorch on every device;
+the float32 matmuls run in full float32 (``ops.common.full_f32_matmul``).
 The dense tile is evaluated unchunked (the JAX package's ``lax.map``
 chunking bounds TPU memory; at the flagship size one chunk is all it
 uses).
@@ -25,7 +28,7 @@ import torch
 
 from ..config import MapConfig
 from .. import kernels
-from .common import pool_put, to_device
+from .common import full_f32_matmul, pool_put, to_device
 
 REF_PDF_CONST = 1.0 / math.sqrt(math.pi)
 
@@ -146,11 +149,11 @@ def update_pass2(pos, cinv, nbr_pts, sigma: float, scaled=None):
 # ------------------------------------------------------ the update stage
 
 
+@full_f32_matmul()
 def measurement_update(particles, fovbin, obs, cfg: MapConfig,
                        expected_newborn: torch.Tensor, update_time, rt):
     """Returns ``(new_particles, norm_coeff, stats)``; ``rt`` is the
     state's :class:`~dspmap_tpu_torch.state.RuntimeParams`."""
-    torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls stay f32
     dev = particles.flags.device
     total = particles.flags.numel()
     n_pyr, S_t = cfg.n_pyramids, cfg.dense_slots

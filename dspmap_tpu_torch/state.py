@@ -270,10 +270,13 @@ def init_estimator_state(cfg: MapConfig, device=None) -> EstimatorState:
 
 
 def init_state(cfg: MapConfig, seed: int = 0, sensor_pos=(0.0, 0.0, 0.0),
+               init_particle_num: int = 0, init_weight: float = 0.01,
                device=None) -> MapState:
-    """Fresh, empty map centered at ``sensor_pos`` on ``device`` (``None``:
-    the CUDA card; raises without one): particle planes ``[S, V]`` in the
-    pool layout, ``[P]`` in the compact layout.
+    """Fresh map centered at ``sensor_pos`` on ``device`` (``None``: the
+    CUDA card; raises without one): particle planes ``[S, V]`` in the pool
+    layout, ``[P]`` in the compact layout, empty unless
+    ``init_particle_num`` uniform particles of weight ``init_weight`` are
+    scattered over the window (:func:`add_random_particles`).
 
     ``seed`` seeds the step's ``torch.Generator``."""
     device = resolve_device(device)
@@ -295,7 +298,7 @@ def init_state(cfg: MapConfig, seed: int = 0, sensor_pos=(0.0, 0.0, 0.0),
     )
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    return MapState(
+    state = MapState(
         particles=particles,
         weight_sum=torch.zeros((v,), dtype=torch.float32, device=device),
         vel_avg=torch.zeros((v, 3), dtype=torch.float32, device=device),
@@ -312,6 +315,65 @@ def init_state(cfg: MapConfig, seed: int = 0, sensor_pos=(0.0, 0.0, 0.0),
         estimator=init_estimator_state(cfg, device),
         params=RuntimeParams.from_config(cfg),
     )
+    if init_particle_num > 0:
+        state = add_random_particles(state, cfg, init_particle_num,
+                                     init_weight)
+    return state
+
+
+def add_random_particles(state: MapState, cfg: MapConfig, num: int,
+                         avg_weight: float, draws=None) -> MapState:
+    """Scatter ``num`` particles of weight ``avg_weight`` uniformly over the
+    window around ``state.sensor_pos`` (``addRandomParticles``,
+    ``dsp_dynamic.h:594-624``); a voxel keeps those that fit its free slots
+    in arrival order and drops the rest.
+
+    ``draws = (pos [num, 3], vel [num, 3])``, uniform on [-1, 1), injects
+    the random numbers (positions in units of the window's half extent);
+    ``None`` draws them from ``state.gen``.  Velocities obey the
+    configuration's clamp (v = 0 in the static model, vz = 0 under
+    limit-xy), the one write site where an unclamped velocity could enter
+    the pool."""
+    from .ops.common import to_device
+    from .ops.compact import _scatter_add_cols, insert_compact
+    from .ops.insert import insert_particles
+
+    dev = state.device
+    if draws is None:
+        kw = dict(generator=state.gen, device=dev, dtype=torch.float32)
+        draws = (torch.rand((num, 3), **kw) * 2.0 - 1.0,
+                 torch.rand((num, 3), **kw) * 2.0 - 1.0)
+    u_pos, vel = (d.to(dev) if isinstance(d, torch.Tensor)
+                  else to_device(d, torch.float32, dev) for d in draws)
+    half = to_device(np.asarray(cfg.half_extent, np.float32), torch.float32,
+                     dev)
+    pos = to_device(state.sensor_pos, torch.float32, dev) + u_pos * half
+    if cfg.motion_model == "static":
+        vel = torch.zeros_like(vel)
+    elif cfg.limit_motion_to_xy_plane:
+        vel = torch.cat([vel[:, :2], torch.zeros_like(vel[:, 2:])], dim=1)
+    weight = torch.full((num,), float(avg_weight), dtype=torch.float32,
+                        device=dev)
+    valid = torch.ones((num,), dtype=torch.bool, device=dev)
+    p = state.particles
+    if cfg.layout == "compact":
+        from . import geometry
+
+        cell = geometry.storage_index_planar(
+            *geometry.world_voxel_planar(p.px, p.py, p.pz, cfg), cfg)
+        alive = p.flags != FLAG_DEAD
+        (count_v,) = _scatter_add_cols(cell, alive, (alive,),
+                                       cfg.storage_voxels)
+        p, _, _ = insert_compact(
+            p, cfg, pos=pos, vel=vel, weight=weight, valid=valid,
+            origin=state.origin, flag=FLAG_VALID,
+            t=state.update_time if cfg.record_particle_time else None,
+            count_v=count_v)
+    else:
+        p = insert_particles(p, cfg, pos=pos, vel=vel, weight=weight,
+                             valid=valid, origin=state.origin,
+                             flag=FLAG_VALID, t=state.update_time)
+    return dataclasses.replace(state, particles=p)
 
 
 # -------------------------------------------------- cross-framework carriers

@@ -24,7 +24,9 @@ Prints the card's name and power limit, then one JSON line a measurement:
   preset's pool (18 x 175,104, 50 x 75,776, 60 x 75,776;
   :func:`populated_pool`);
 * ``K3a`` and ``K3b`` at the three paths' shapes ``(rows, S_t, CK)``, called
-  as the step calls them, with the operands scaled once for both passes;
+  as the step calls them, with the operands scaled once for both passes,
+  and ``bits``, a SHA-256 of the output's bytes (two checkouts whose pass
+  gives the same bits print the same digest);
 * ``K4`` at large_urban's 131,072 rows for the four calls of a compact
   frame, each with the column types the step passes (a checkout whose
   wrapper casts and stacks the columns first pays for that in ``ms``, as
@@ -43,6 +45,7 @@ Prints the card's name and power limit, then one JSON line a measurement:
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -252,8 +255,10 @@ def main(argv) -> int:
                 ("K3a", update.update_pass1, w, PASS1_NAMES),
                 ("K3b", update.update_pass2, cinv, PASS2_NAMES)):
             run = lambda: fn(pos, vec, pts, sigma, scaled)  # noqa: E731
+            bits = hashlib.sha256(run().cpu().numpy().tobytes()).hexdigest()
             say(kernel=kernel, path=name, rows=rows, S_t=st, CK=ck,
-                ms=median_ms(run), device_ms=device_ms(run, names=names))
+                ms=median_ms(run), device_ms=device_ms(run, names=names),
+                bits=bits)
 
     P = dm.large_urban().compact_capacity
     for n_tot, max_run, types in SEGSCAN_CALLS:
