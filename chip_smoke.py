@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's four paths on one CUDA card and check them.
+"""Drive the PyTorch port's eight paths on one CUDA card and check them.
 
 Run from the root of a checkout on a machine with an H100::
 
@@ -24,20 +24,30 @@ Phases (each prints one line; any failure raises and exits nonzero):
    P = 131072 rows for the four calls of a compact frame, then at reach 64
    and 512, at reach 1 to 8 and at ragged row counts; K5a/K5b (relayout) at (60, 75776):
    the seven planes of a frame in one launch beside seven ``clone()``
-   calls, one plane beside one;
-4. the four paths at full width through ``make_step`` on the synthetic
-   street sequence -- ``flagship`` (``example_node_settings(
+   calls, one plane beside one; K1's ``with_moving`` arm (the moving
+   mask of the noisy and multi-sensor paths) at S = 18 with three
+   velocity planes and with two;
+4. the eight paths at full width on the synthetic street sequence --
+   through ``make_step``: ``flagship`` (``example_node_settings(
    dsp_dynamic())``, pool layout), ``large_urban`` (compact layout),
-   ``static`` (``example_node_settings(dsp_static())``) and ``multi``
+   ``static`` (``example_node_settings(dsp_static())``), ``multi``
    (``example_node_settings(dsp_dynamic_multi_neighbors())``, whose
    planes of 17.3 MiB take the flat working phase through K5: one launch
-   in and one out a frame) -- each with
+   in and one out a frame), ``noisy`` (the flagship with
+   ``limit_motion_to_xy_plane=False``: propagate, rebin and register_fov
+   on [S, V] planes, K1 with its moving mask) and ``noisy_compact``
+   (``large_urban(limit_motion_to_xy_plane=False)``); through
+   ``make_multisensor_step`` with two cameras that share each frame's
+   cloud and pose (the rule of ``bench.py``'s two-camera cell):
+   ``multisensor_2cam`` (the flagship's configuration) and
+   ``multisensor_compact`` (``large_urban()``) -- each with
    the kernels' launch counts set to 0 before and pinned after, one warm
    frame under PyTorch's sync debug mode (it must not synchronize the host
    with the card), finite state and occupied voxels;
 5. card against CPU for each path: the state after a kept frame is copied
    to the CPU and the next frame is stepped on both with the same random
-   draws (see :func:`card_vs_cpu` for the bars);
+   draws (see :func:`card_vs_cpu` for the bars; on the multi-sensor paths
+   every sensor's birth is pinned to the card's ``norm_coeff`` in turn);
 6. the caller's TF32 matmul setting, True through phases 4 and 5, is
    still True after them.
 
@@ -285,6 +295,52 @@ def check_kernels(label, cfg, device):
     return rows
 
 
+def check_moving_mask(label, cfg, device):
+    """Phase 3, K1's ``with_moving`` arm at ``cfg``'s pool shape: every
+    output of the kernel, the ``[S, V]`` moving mask included, bit-equal
+    to the plain version's.  With three velocity planes the pool's moving
+    particles move in z too.  Returns ``{kernel name: measurements}``."""
+    import torch
+    from dspmap_tpu_torch import kernels
+    from dspmap_tpu_torch.ops import occupancy
+    from dspmap_tpu_torch.utils.kernel_times import populated_pool
+
+    rng = np.random.default_rng(3)
+    pool = populated_pool(cfg, rng, device)
+    S, V = cfg.slots_per_voxel, cfg.storage_voxels
+    n_vel = occupancy._n_vel(cfg)
+    if n_vel == 3:
+        vz = np.where(pool.vx.cpu().numpy() != 0, rng.normal(0, 0.5, (S, V)),
+                      0).astype(np.float32)
+        pool.vz = torch.from_numpy(vz).to(device)
+    got = occupancy.pool_pass_cuda(pool, cfg, with_moving=True)
+    ref = occupancy.pool_pass_plain(pool, cfg, with_moving=True)
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    for name in ("flags", "weight", "px", "py", "pz", "vx", "vy", "vz"):
+        _require(torch.equal(bits(got[0][name]), bits(ref[0][name])),
+                 f"K1 {label} {name} differs")
+    for i, what in ((1, "weight_sum"), (2, "n_old"), (4, "static")):
+        _require(torch.equal(bits(got[i]), bits(ref[i])), f"K1 {label} {what}")
+    _require(all(torch.equal(bits(a), bits(b)) for a, b in zip(got[3], ref[3])),
+             f"K1 {label} velocity sums")
+    _require(torch.equal(got[5], ref[5]), f"K1 {label} moving mask differs")
+    _require(all(torch.equal(a, b) for a, b in zip(got[6], ref[6])),
+             f"K1 {label} counters differ")
+    n_moving = int(ref[5].sum())
+    _require(n_moving > 0 and float(ref[6][4].sum()) > 0,
+             f"K1 {label}: no moving particle or nothing resampled")
+    # as check_kernels' K1, plus the one-byte mask written once
+    n_bytes = 2 * 4 * (5 + n_vel) * S * V + 4 * (8 + n_vel) * V + S * V
+    row = _row(0.0, lambda: occupancy.pool_pass_cuda(pool, cfg, True),
+               lambda: occupancy.pool_pass_plain(pool, cfg, True), n_bytes,
+               K1_FLOPS_PER_SLOT * S * V,
+               shape=f"S={S} V={V} n_vel={n_vel} with_moving", moving=n_moving)
+    _say(f"K1_moving_{label}", bit_equal=True, **row)
+    kernels.reset_launch_counts()
+    return {"occupancy_pool_pass": row}
+
+
 def check_cuda_cost(device) -> None:
     """Phase 2's second line: host microseconds of ``kernels.check_cuda`` on
     one tensor with its per-device answer kept, and with the card asked for
@@ -489,9 +545,11 @@ def _agreement(card, cpu) -> dict:
         future_close=close(g_state.future, c_state.future, 1e-6))
 
 
-def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu") -> None:
+def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu",
+                n_sensors=None) -> None:
     """Phase 5: one frame from the same state with the same draws on the
-    card and through the CPU's plain path.
+    card and through the CPU's plain path (``n_sensors``: the step is
+    :func:`make_multisensor_step`'s, whose births are pinned one by one).
 
     The two newborn weights ``w_b * sum 1/C(z)`` differ in their last bit:
     the CPU's pair passes use the ``|a|^2 + |b|^2 - 2ab`` form, the
@@ -511,28 +569,37 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu") -> None:
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch.models import pipeline
 
-    draws = dm.make_draws(cfg, state.gen, device)
-    cpu_draws = tuple(d.cpu() for d in draws)
+    if n_sensors is None:
+        draws = dm.make_draws(cfg, state.gen, device)
+        cpu_draws = tuple(d.cpu() for d in draws)
+    else:
+        draws = dm.make_multisensor_draws(cfg, n_sensors, state.gen, device)
+        prop, sensors = draws
+        cpu_draws = (None if prop is None else prop.cpu(),
+                     tuple(tuple(d.cpu() for d in s) for s in sensors))
     cpu_state = state.to("cpu")
     t0 = time.perf_counter()
     name = ("particle_birth_compact" if cfg.layout == "compact"
             else "particle_birth")
     birth = getattr(pipeline, name)
-    seen = {}
+    seen = []
 
     def card_birth(*a, **kw):
-        seen["norm_coeff"] = kw["norm_coeff"]
+        seen.append(kw["norm_coeff"])
         return birth(*a, **kw)
 
     def pinned_birth(*a, **kw):
-        kw["norm_coeff"] = seen["norm_coeff"].cpu()
+        kw["norm_coeff"] = pending.pop(0).cpu()
         return birth(*a, **kw)
 
     try:
         setattr(pipeline, name, card_birth)
         card = step(state, frame, draws)
         setattr(pipeline, name, pinned_birth)
+        pending = list(seen)
         pinned = _agreement(card, step(cpu_state, frame, cpu_draws))
+        _require(not pending and len(seen) == (n_sensors or 1),
+                 f"{label}: {len(seen)} births pinned")
     finally:
         setattr(pipeline, name, birth)
     free = _agreement(card, step(cpu_state, frame, cpu_draws))
@@ -552,18 +619,32 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu") -> None:
 
 _POOL_FRAME = {"occupancy_pool_pass": 1, "sweep": 1, "update_pass1": 1,
                "update_pass2": 1, "seg_scans": 0, "to_flat": 0, "from_flat": 0}
+_COMPACT_FRAME = {**_POOL_FRAME, "occupancy_pool_pass": 0, "sweep": 0,
+                  "seg_scans": 4}
+#: two cameras: the pair passes run once a sensor
+_TWO_CAMERAS = {"update_pass1": 2, "update_pass2": 2}
 #: per path: (warm-up frames, timed frames, the watched warm frame, the
-#: kernels' launches per frame).  The multi-neighbor planes (17.3 MiB) take
-#: the flat working phase: flags, px, py, pz, vx, vy and weight are copied
-#: in by one K5a launch (vz is made anew as zeros, t is not touched); K1
-#: reads the seven working planes where they lie, and one K5b launch copies
-#: out vz, which K1 hands through.
+#: kernels' launches per frame, sensors: None for ``make_step``).  The
+#: multi-neighbor planes (17.3 MiB) take the flat working phase: flags, px,
+#: py, pz, vx, vy and weight are copied in by one K5a launch (vz is made
+#: anew as zeros, t is not touched); K1 reads the seven working planes
+#: where they lie, and one K5b launch copies out vz, which K1 hands
+#: through.  The noisy arm and the multi-sensor steps never call the sweep
+#: (K2) and keep [S, V] planes (no K5).  A compact frame launches K4 four
+#: times (rebin_compact's segment table, birth's table, occupancy's two
+#: scan sets); the two-camera compact frame five, birth's table once a
+#: sensor.
 PATHS = {
-    "flagship": (5, 10, 4, _POOL_FRAME),
-    "large_urban": (3, 6, 2, {**_POOL_FRAME, "occupancy_pool_pass": 0,
-                              "sweep": 0, "seg_scans": 4}),
-    "static": (3, 8, 2, _POOL_FRAME),
-    "multi": (3, 8, 2, {**_POOL_FRAME, "to_flat": 1, "from_flat": 1}),
+    "flagship": (5, 10, 4, _POOL_FRAME, None),
+    "large_urban": (3, 6, 2, _COMPACT_FRAME, None),
+    "static": (3, 8, 2, _POOL_FRAME, None),
+    "multi": (3, 8, 2, {**_POOL_FRAME, "to_flat": 1, "from_flat": 1}, None),
+    "noisy": (5, 10, 4, {**_POOL_FRAME, "sweep": 0}, None),
+    "noisy_compact": (3, 6, 2, _COMPACT_FRAME, None),
+    "multisensor_2cam": (3, 8, 2, {**_POOL_FRAME, "sweep": 0,
+                                   **_TWO_CAMERAS}, 2),
+    "multisensor_compact": (3, 4, 2, {**_COMPACT_FRAME, "seg_scans": 5,
+                                      **_TWO_CAMERAS}, 2),
 }
 
 
@@ -577,22 +658,27 @@ def run_path(name, cfg, device):
     from dspmap_tpu_torch import kernels
     from dspmap_tpu_torch.utils import sim
 
-    warm, timed, watched, per_frame = PATHS[name]
+    warm, timed, watched, per_frame, n_sensors = PATHS[name]
     n = warm + timed
     kept_at = min(10, n - 2)  # the frame whose state phase 5 starts from
-    step = dm.make_step(cfg)
-    state = dm.init_state(cfg, seed=0, device=device)
-    frames = list(sim.generate_sequence(n, cfg, seed=0))
+    frames = [dm.Frame(*f) for f in sim.generate_sequence(n, cfg, seed=0)]
+    if n_sensors is None:
+        step = dm.make_step(cfg)
+        state = dm.init_state(cfg, seed=0, device=device)
+    else:  # every camera sees the frame's cloud from its pose
+        step = dm.make_multisensor_step(cfg, n_sensors)
+        state = dm.init_multisensor_state(cfg, n_sensors, seed=0,
+                                          device=device)
+        frames = [dm.stack_frames([f] * n_sensors) for f in frames]
     alive, ms = [], []
     kept = None
     kernels.reset_launch_counts()
-    for i, (pts, n_pts, pos, quat, t) in enumerate(frames):
+    for i, frame in enumerate(frames):
         t0 = time.perf_counter()
         if i == watched:  # a warm frame, watched for host syncs
-            (state, out), syncs = _watch_syncs(
-                lambda: step(state, dm.Frame(pts, n_pts, pos, quat, t)))
+            (state, out), syncs = _watch_syncs(lambda: step(state, frame))
         else:
-            state, out = step(state, dm.Frame(pts, n_pts, pos, quat, t))
+            state, out = step(state, frame)
         torch.cuda.synchronize()
         dt_ms = (time.perf_counter() - t0) * 1e3
         _require(out.accepted, f"{name} frame {i} rejected")
@@ -616,8 +702,8 @@ def run_path(name, cfg, device):
          alive_last=alive[-1], occupied=n_occ, launches=json.dumps(launches),
          host_syncs_in_watched_frame=len(syncs))
 
-    card_vs_cpu(cfg, step, kept, dm.Frame(*frames[kept_at + 1]), device,
-                label=f"{name}_card_vs_cpu")
+    card_vs_cpu(cfg, step, kept, frames[kept_at + 1], device,
+                label=f"{name}_card_vs_cpu", n_sensors=n_sensors)
     return launches, statistics.median(ms), alive[-1]
 
 
@@ -644,7 +730,7 @@ KERNELS = {
 
 def kernel_row(name, by_shape, by_path) -> dict:
     """One kernel's entry of the ``kernels`` line: its launches over the
-    four paths, its measurements at the shape of its first path, and under
+    eight paths, its measurements at the shape of its first path, and under
     ``by_shape`` the same measurements at every shape it was checked at."""
     source, replaces, own = KERNELS[name]
     shapes = {label: rows[name] for label, rows in by_shape.items()
@@ -661,6 +747,7 @@ def kernel_row(name, by_shape, by_path) -> dict:
 def main() -> int:
     import torch
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -688,10 +775,18 @@ def main() -> int:
         "large_urban": dm.large_urban(),
         "static": dm.example_node_settings(dm.dsp_static()),
         "multi": dm.example_node_settings(dm.dsp_dynamic_multi_neighbors()),
+        "noisy": dm.example_node_settings(
+            dm.dsp_dynamic(limit_motion_to_xy_plane=False)),
+        "noisy_compact": dm.large_urban(limit_motion_to_xy_plane=False),
+        "multisensor_2cam": dm.example_node_settings(dm.dsp_dynamic()),
+        "multisensor_compact": dm.large_urban(),
     }
     _require(list(configs) == list(PATHS), "a path without a configuration")
     by_shape = {label: check_kernels(label, configs[label], device)
                 for label in ("flagship", "static", "multi")}
+    # K1's moving mask, as the noisy and the two-camera pool paths take it
+    for label in ("noisy", "multisensor_2cam"):
+        by_shape[label] = check_moving_mask(label, configs[label], device)
     # K3 at a shape that is no multiple of pass 2's lane groups, its
     # particles a lane or its rows a block
     check_pairs("ragged", 37, 13, 101, 0.1, np.random.default_rng(1), device,
@@ -720,6 +815,7 @@ def main() -> int:
     finally:
         flag.allow_tf32 = saved
 
+    _say("total", seconds=time.perf_counter() - started)
     print(smi)
     print(json.dumps({"kernels": [kernel_row(name, by_shape, by_path)
                                   for name in KERNELS]}))

@@ -3,7 +3,8 @@ for NVIDIA Hopper (sm_90a).
 
 A port of ``dspmap_tpu`` (which stays the reference): the same
 ``MapConfig`` presets, the same per-frame step on the pool and the compact
-layout, the same readouts and live setters.  Tensors on the CPU run every
+layout on both prediction arms (deterministic and noisy), the same
+multi-sensor step, the same readouts and live setters.  Tensors on the CPU run every
 stage in plain PyTorch; tensors on a CUDA card run the occupancy pool
 pass, the fused sweep, the measurement-update pair passes, the compact
 layout's segmented scans and the relayout copies of large pool planes as
@@ -48,6 +49,10 @@ from .models.pipeline import (  # noqa: F401
     StepOutput,
     make_step,
     make_draws,
+    make_multisensor_step,
+    make_multisensor_draws,
+    init_multisensor_state,
+    stack_frames,
     get_occupancy_map,
     read_occupancy,
     clear_future_prediction,

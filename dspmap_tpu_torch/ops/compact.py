@@ -17,8 +17,9 @@ Left out, each exact either way: the ``lax.switch`` bucket ladders of
 ``segment_table`` / ``_ends_table`` (the port compacts run ends at full
 width; their ``direct`` branch is taken only when run ends outnumber the
 largest bucket) and the prefix-bucket ladder of ``insert_compact``.  The
-noisy-prediction arms raise; the sharded and multi-sensor functions are
-not ported.
+noisy-prediction arms take their standard-normal draws as arguments
+(``noise [3, P]`` for the advance, ``[2, P]`` for the in-FOV jitter); the
+sharded exchange ``rebin_exchange_compact`` is not ported.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ from .. import geometry, kernels
 from ..state import FLAG_NEWBORN, FLAG_VALID
 from .common import (I32_MAX, compact_and_group, compact_mask, scatter_add,
                      scatter_max, scatter_set, sort_by_destination, to_device)
-from .fov import _bin_candidates
+from .fov import _bin_candidates, fov_jitter
+from .propagate import propagate
 
 #: the largest reach (power of two >= max_run) the K4 kernel takes
 KERNEL_MAX_REACH = 512
@@ -56,13 +58,6 @@ class CompactSweep(NamedTuple):
     moving: torch.Tensor  # bool [P]: alive & nonzero velocity
     pyr: torch.Tensor  # i32 [P] pyramid cell (garbage where ~fov)
     moved_out: torch.Tensor  # bool [P]: left the window (killed)
-
-
-def _require_deterministic(cfg: MapConfig) -> None:
-    if not (cfg.limit_motion_to_xy_plane or cfg.motion_model == "static"):
-        raise NotImplementedError(
-            "the compact port runs the deterministic-prediction (limit-xy or "
-            "static) arms only")
 
 
 def _table(cell, valid, upd: torch.Tensor, n_cells: int) -> torch.Tensor:
@@ -227,20 +222,25 @@ def segment_table(cell, valid, cols, n_cells, max_run: int = 64):
     return list(_ends_table(hi, key, is_end, n_cells).unbind(0))
 
 
-def sweep_compact(particles, cfg: MapConfig, dt, origin, sensor_pos, quat):
+def sweep_compact(particles, cfg: MapConfig, dt, origin, sensor_pos, quat,
+                  noise=None, rt=None):
     """Prediction advance + window test + cell/pyramid geometry, one [P]
-    pass.  Returns ``(new_particles, CompactSweep)``.  Deterministic arms
-    only (limit-xy: no velocity noise; static: no advance)."""
-    _require_deterministic(cfg)
+    pass.  Returns ``(new_particles, CompactSweep)``.  The velocity noise
+    follows ``ops/propagate.py`` (``noise [3, P]`` on the noisy arm, none
+    under limit-xy; the static model does not advance)."""
     valid = particles.valid
     vx, vy, vz = particles.vx, particles.vy, particles.vz
     dt = float(np.float32(dt))
     if cfg.motion_model == "static":
         px, py, pz = particles.px, particles.py, particles.pz
-    else:
+    elif cfg.limit_motion_to_xy_plane:
         px = torch.where(valid, particles.px + vx * dt, particles.px)
         py = torch.where(valid, particles.py + vy * dt, particles.py)
         pz = torch.where(valid, particles.pz + vz * dt, particles.pz)
+    else:
+        adv = propagate(particles, cfg, noise, dt, rt)
+        px, py, pz, vx, vy, vz = (adv.px, adv.py, adv.pz, adv.vx, adv.vy,
+                                  adv.vz)
 
     wx, wy, wz = geometry.world_voxel_planar(px, py, pz, cfg)
     inside = geometry.in_window_planar(wx, wy, wz, origin, cfg)
@@ -262,7 +262,7 @@ def sweep_compact(particles, cfg: MapConfig, dt, origin, sensor_pos, quat):
     moving = alive & ((vx != 0.0) | (vy != 0.0) | (vz != 0.0))
 
     new_particles = dataclasses.replace(particles, px=px, py=py, pz=pz,
-                                        flags=flags)
+                                        vx=vx, vy=vy, vz=vz, flags=flags)
     sw = CompactSweep(
         cell=torch.where(alive, new_cell, cfg.storage_voxels).to(torch.int32),
         mover=mover, fov=fov, moving=moving, pyr=pyr.to(torch.int32),
@@ -307,14 +307,27 @@ def rebin_compact(particles, sw: CompactSweep, cfg: MapConfig):
     return dataclasses.replace(particles, flags=flags), stay_count, stats
 
 
+def fov_geometry_compact(particles, cfg: MapConfig, sensor_pos, quat):
+    """``(pyramid cell [P], in-FOV mask [P])`` of the compact set for one
+    sensor pose (host arrays): the per-sensor half of
+    :func:`sweep_compact`'s geometry, for the multi-sensor step."""
+    R = geometry.rotation_matrix_np(geometry.quaternion_conjugate_np(quat))
+    s = [float(x) for x in np.asarray(sensor_pos, np.float32)]
+    sx, sy, sz = geometry.rotate_planar(R, particles.px - s[0],
+                                        particles.py - s[1],
+                                        particles.pz - s[2])
+    pyr, in_fov = geometry.pyramid_index_planar(sx, sy, sz, cfg)
+    return pyr.to(torch.int32), particles.valid & in_fov
+
+
 def register_fov_compact(particles, cfg: MapConfig, pyr, fov_mask,
-                         sensor_pos):
+                         sensor_pos, noise=None, rt=None):
     """FOV registration over the compact set: compaction + pyramid grouping,
     the rank kill beyond the per-cell capacity and the dense + spill
-    binning (``FovBinning.slot`` holds compact rows, sentinel ``P``).
-    Returns ``(new_particles, fovbin, stats)``.  The in-FOV velocity
-    perturbation of the noisy arm is not ported (raises)."""
-    _require_deterministic(cfg)
+    binning (``FovBinning.slot`` holds compact rows, sentinel ``P``), then
+    the in-FOV velocity jitter of the noisy arm (``noise [2, P]``; see
+    ``ops/fov.py::fov_jitter``).  Returns ``(new_particles, fovbin,
+    stats)``."""
     P = particles.flags.shape[0]
     fov_alive = fov_mask & (particles.flags != 0)
     idx, cand_pyr, ranks, sel_valid, _ = compact_and_group(
@@ -326,7 +339,10 @@ def register_fov_compact(particles, cfg: MapConfig, pyr, fov_mask,
         cfg, P, sensor_pos, idx, cand_pyr, ranks, sel_valid, fov_alive.sum(),
         cols)
     flags = scatter_set(particles.flags, torch.where(kill, idx, P), 0)
-    return dataclasses.replace(particles, flags=flags), fovbin, stats
+    vx, vy, vz = fov_jitter(particles, cfg, fov_alive & (flags != 0), noise,
+                            rt)
+    return (dataclasses.replace(particles, flags=flags, vx=vx, vy=vy, vz=vz),
+            fovbin, stats)
 
 
 def insert_compact(particles, cfg: MapConfig, *, pos, vel, weight, valid,

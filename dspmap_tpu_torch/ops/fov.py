@@ -1,6 +1,8 @@
-"""Mover relocation + FOV registration for the fused-sweep path (mirrors
-``dspmap_tpu/ops/fov.py::rebin_and_register`` with ``_rebin_chain_body``
-and ``_bin_candidates``).
+"""FOV registration (mirrors ``dspmap_tpu/ops/fov.py``):
+:func:`register_fov` for the noisy-prediction and multi-sensor paths, and
+the mover relocation + FOV registration of the fused-sweep path,
+:func:`rebin_and_register` (``_rebin_chain_body`` there), both on the
+shared two-tier binning ``_bin_candidates``.
 
 One compaction over ``mover | fov | moving`` feeds three consumers: the
 movers are re-inserted at their new cells with drop-on-full arrival ranks;
@@ -9,6 +11,11 @@ reference's per-cell capacity killed (``dsp_dynamic.h:1256-1259``) and the
 rest binned into the dense tier ``[n_pyr, S_t]`` and a compacted spill
 tier; nonzero-velocity candidates form the ``future_movers`` set that the
 occupancy stage scatters.
+
+:func:`register_fov` compacts and ranks the FOV slots of the pool itself
+and, on the noisy arm, jitters the surviving in-FOV particles' velocities
+(``dsp_dynamic.h:1261-1269``: vx and vy get noise, vz is set to 0, under
+the keep-still test of ``ops/propagate.py``).
 
 Only the full-width, single-device, immediate-payload path is ported (the
 JAX package's prefix-bucket ladder over candidate counts and its deferred
@@ -24,9 +31,12 @@ import numpy as np
 import torch
 
 from ..config import MapConfig
-from .common import (compact_mask, group_ranks, inverse_ranks, pool_fill,
-                     pool_sv, pool_take, scatter_set, sort_by_destination)
+from .. import geometry
+from .common import (compact_and_group, compact_mask, group_ranks,
+                     inverse_ranks, pool_fill, pool_put, pool_sv, pool_take,
+                     scatter_set, sort_by_destination)
 from .insert import allocate_slots, scatter_candidates
+from .propagate import jitter_mask
 
 
 class FovBinning(NamedTuple):
@@ -106,6 +116,55 @@ def _bin_candidates(cfg: MapConfig, total: int, sensor_pos, idx, cand_pyr,
         "update_spill_overflow": sp_over,
     }
     return fovbin, kill, stats
+
+
+def fov_jitter(particles, cfg: MapConfig, alive_fov, noise, rt=None):
+    """The in-FOV velocity perturbation of the noisy arm
+    (``dsp_dynamic.h:1261-1269``): ``(vx, vy, vz)`` with ``noise [2, ...]``
+    (standard normal) times ``velocity_noise_std`` added to vx and vy and
+    vz set to 0 where ``alive_fov`` and not keep-still.  Under limit-xy and
+    the static model the planes pass through (the branch is dead there)."""
+    vx, vy, vz = particles.vx, particles.vy, particles.vz
+    if cfg.limit_motion_to_xy_plane or cfg.motion_model == "static":
+        return vx, vy, vz
+    if noise is None:
+        raise ValueError("the noisy arm of FOV registration takes a [2, ...] "
+                         "standard-normal draw")
+    sigma = cfg.velocity_noise_std if rt is None else rt.velocity_noise_std
+    n = noise * float(np.float32(sigma))
+    jitter = jitter_mask(vx, vy, vz, alive_fov)
+    return (torch.where(jitter, vx + n[0], vx),
+            torch.where(jitter, vy + n[1], vy),
+            torch.where(jitter, 0.0, vz))
+
+
+def register_fov(particles, cfg: MapConfig, sensor_pos, quat, noise=None,
+                 rt=None):
+    """FOV registration of ``[S, V]`` planes for one sensor pose (host
+    arrays): every slot rotated into the sensor frame, in-FOV valid slots
+    compacted and grouped by pyramid cell, ranks beyond the per-cell
+    capacity killed, the rest binned; then the in-FOV velocity jitter
+    (:func:`fov_jitter`; ``noise [2, S, V]`` on the noisy arm).  Returns
+    ``(new_particles, FovBinning, stats)``; the binning indexes into
+    ``new_particles``."""
+    S, V = particles.flags.shape
+    R = geometry.rotation_matrix_np(geometry.quaternion_conjugate_np(quat))
+    s = [float(x) for x in np.asarray(sensor_pos, np.float32)]
+    sx, sy, sz = geometry.rotate_planar(R, particles.px - s[0],
+                                        particles.py - s[1],
+                                        particles.pz - s[2])
+    pyr, in_fov = geometry.pyramid_index_planar(sx, sy, sz, cfg)
+    fov_mask = particles.valid & in_fov
+    idx, cand_pyr, ranks, sel_valid, n_fov = compact_and_group(
+        fov_mask, pyr, cfg.fov_buffer_capacity, cfg.n_pyramids)
+    cols = tuple(pool_take(getattr(particles, n), idx)
+                 for n in ("px", "py", "pz", "weight"))
+    fovbin, kill, stats = _bin_candidates(
+        cfg, S * V, sensor_pos, idx, cand_pyr, ranks, sel_valid, n_fov, cols)
+    flags = pool_put(particles.flags, torch.where(kill, idx, S * V), 0)
+    vx, vy, vz = fov_jitter(particles, cfg, fov_mask & (flags != 0), noise, rt)
+    return (dataclasses.replace(particles, flags=flags, vx=vx, vy=vy, vz=vz),
+            fovbin, stats)
 
 
 def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,

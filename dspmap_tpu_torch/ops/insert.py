@@ -69,6 +69,18 @@ def scatter_candidates(particles, flat, payload_cols, flag, t,
     return dataclasses.replace(p, flags=pool_put(p.flags, s_flat, vals), **new)
 
 
+def insert_sorted(particles, cfg: MapConfig, *, cell, ranks, payload, valid,
+                  flag, t):
+    """Insert destination-sorted candidates: ``cell [M]`` (``>= V``
+    invalid), ``ranks [M]`` their arrival ranks within the destination,
+    ``payload [M, 7]`` = px, py, pz, vx, vy, vz, weight.  Returns
+    ``(new_pool, flat, keep)``: each candidate's flat pool position
+    (``S*V`` when dropped) and the insertion mask."""
+    flat, keep = allocate_slots(particles, cfg, cell, ranks, valid)
+    new = scatter_candidates(particles, flat, payload.unbind(1), flag, t)
+    return new, flat, keep
+
+
 def insert_particles(particles, cfg: MapConfig, *, pos, vel, weight, valid,
                      origin, flag, t):
     """Insert unsorted candidates; arrival ranks come from a stable

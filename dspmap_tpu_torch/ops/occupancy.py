@@ -31,7 +31,7 @@ import torch
 from ..config import MapConfig
 from .. import geometry, kernels
 from ..state import unflatten_pool
-from .common import pool_take, scatter_add, to_device
+from .common import compact_mask, pool_take, scatter_add, to_device
 
 #: slot depths the CUDA kernel is instantiated for: the flagship's, the
 #: static preset's and the multi-neighbor preset's
@@ -233,7 +233,10 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
     """Returns ``(new_particles, weight_sum[V], vel_avg[V, 3], future[T, V],
     stats)``.  ``future_movers = (flat, valid, n_dropped)`` is the
     pre-compacted nonzero-velocity candidate set from
-    :func:`~.fov.rebin_and_register`.
+    :func:`~.fov.rebin_and_register`; ``None`` (the noisy-prediction and
+    multi-sensor paths) asks the pool pass for its ``[S, V]`` moving mask
+    (kernel K1's ``with_moving`` arm on the card) and compacts it to
+    ``cfg.mover_capacity`` movers.
 
     Ends the step's flat mid-frame phase.  The pool pass reads each plane
     it rewrites once and returns a fresh plane of the exact size, so those
@@ -247,8 +250,9 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
     T = cfg.n_horizons
     dev = particles.flags.device
 
-    (fields, weight_sum, n_old, vel_sums, static_contrib, _,
-     counters) = occupancy_pool_pass(particles, cfg, with_moving=False)
+    (fields, weight_sum, n_old, vel_sums, static_contrib, moving,
+     counters) = occupancy_pool_pass(particles, cfg,
+                                     with_moving=future_movers is None)
     new_particles = dataclasses.replace(particles, **fields)
 
     denom = n_old.clamp(min=1.0)
@@ -257,13 +261,19 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
 
     # ---- future-status prediction (dsp_dynamic.h:950-964) --------------
     future = future_in + static_contrib[None, :]
-    fm_flat, fm_ok, fm_dropped = future_movers
-    idx = fm_flat.clamp(max=S * V - 1)
     src = particles  # pre-resample planes, as in the JAX package
-    fl = pool_take(src.flags, idx)
-    wgt = pool_take(src.weight, idx)
-    sel = fm_ok & (fl != 0) & (fl != 3) & (wgt >= cfg.weight_cull_threshold)
-    n_moving = sel.sum()
+    if future_movers is not None:
+        fm_flat, fm_ok, fm_dropped = future_movers
+        idx = fm_flat.clamp(max=S * V - 1)
+        fl = pool_take(src.flags, idx)
+        wgt = pool_take(src.weight, idx)
+        sel = (fm_ok & (fl != 0) & (fl != 3)
+               & (wgt >= cfg.weight_cull_threshold))
+        n_moving = sel.sum()
+    else:
+        idx, sel, n_moving, fm_dropped = compact_mask(moving,
+                                                      cfg.mover_capacity)
+        wgt = pool_take(src.weight, idx)
     m = [pool_take(getattr(src, n), idx)
          for n in ("px", "py", "pz", "vx", "vy", "vz")]
     m_w = torch.where(sel, wgt, 0.0)

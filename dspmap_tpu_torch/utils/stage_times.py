@@ -2,16 +2,19 @@
 
 Run on a machine with a CUDA card, from the root of a checkout::
 
-    python3 -m dspmap_tpu_torch.utils.stage_times [flagship large_urban static multi]
+    python3 -m dspmap_tpu_torch.utils.stage_times [flagship large_urban static multi noisy multisensor_2cam]
 
-For each named path (default: all four, at full width, on the synthetic
-street sequence, seed 0) it prints one JSON line with
+For each named path (default: all six, at full width, on the synthetic
+street sequence, seed 0; ``multisensor_2cam`` runs ``make_multisensor_step``
+with two cameras that share each frame's cloud and pose, as ``bench.py``'s
+two-camera cell does) it prints one JSON line with
 
 * ``frame_ms``: median frame time of the step as users run it (host clock
   around a step that ends in one ``torch.cuda.synchronize()``), over two
   blocks of 8 frames that alternate with the synced blocks below;
 * ``stage_ms``: median time of each stage of ``models/pipeline.py`` with a
-  synchronize before and after it, and ``synced_frame_ms``, the frame time
+  synchronize before and after it (a stage that runs once a sensor also
+  under ``name[i]`` for sensor i), and ``synced_frame_ms``, the frame time
   of those frames;
 * ``device_busy_ms``: the summed duration of every kernel and copy the card
   ran in one frame (``torch.profiler``, device-side events only), and
@@ -37,16 +40,20 @@ import time
 import torch
 
 from .. import (Frame, dsp_dynamic, dsp_dynamic_multi_neighbors, dsp_static,
-                example_node_settings, init_state, large_urban, make_step)
+                example_node_settings, init_multisensor_state, init_state,
+                large_urban, make_multisensor_step, make_step, stack_frames)
 from ..models import pipeline
 from . import sim
 
 #: the stage functions as ``models/pipeline.py`` names them
 STAGES = ("project_points", "estimate_velocities", "sweep", "sweep_compact",
-          "flatten_pool", "rebin_and_register", "rebin_compact",
+          "flatten_pool", "rebin_and_register", "propagate", "rebin",
+          "register_fov", "rebin_compact", "fov_geometry_compact",
           "register_fov_compact", "measurement_update", "particle_birth",
           "particle_birth_compact", "occupancy_and_resample",
           "occupancy_compact")
+#: the cameras of the multi-sensor path
+SENSORS = 2
 WARMUP, TIMED = 5, 8
 #: the ``__global__`` functions of ``csrc/*.cu``
 OWN_KERNELS = ("occupancy_tile_kernel", "sweep_kernel", "pass1_kernel",
@@ -60,6 +67,9 @@ def configs() -> dict:
         "large_urban": large_urban(),
         "static": example_node_settings(dsp_static()),
         "multi": example_node_settings(dsp_dynamic_multi_neighbors()),
+        "noisy": example_node_settings(
+            dsp_dynamic(limit_motion_to_xy_plane=False)),
+        "multisensor_2cam": example_node_settings(dsp_dynamic()),
     }
 
 
@@ -74,12 +84,19 @@ def _timed(fn, sink: list):
     return wrapper
 
 
-def measure(cfg) -> dict:
-    """The measurements of the module docstring for one configuration."""
-    step = make_step(cfg)
+def measure(cfg, n_sensors=None) -> dict:
+    """The measurements of the module docstring for one configuration;
+    ``n_sensors`` cameras through the multi-sensor step, or ``None`` for
+    ``make_step``."""
     frames = [Frame(*f) for f in sim.generate_sequence(
         WARMUP + 4 * TIMED + 2, cfg, seed=0)]
-    state = init_state(cfg, seed=0)
+    if n_sensors is None:
+        step = make_step(cfg)
+        state = init_state(cfg, seed=0)
+    else:
+        step = make_multisensor_step(cfg, n_sensors)
+        state = init_multisensor_state(cfg, n_sensors, seed=0)
+        frames = [stack_frames([f] * n_sensors) for f in frames]
 
     def run(frame):
         nonlocal state
@@ -109,8 +126,14 @@ def measure(cfg) -> dict:
                 setattr(pipeline, name, fn)
     frame_ms = frame_blocks[0] + frame_blocks[1]
     synced_ms = synced_blocks[0] + synced_blocks[1]
-    stage_ms = {name: statistics.median(sink)
-                for name, sink in sinks.items() if sink}
+    stage_ms = {}
+    for name, sink in sinks.items():
+        if not sink:
+            continue
+        stage_ms[name] = statistics.median(sink)
+        per_frame = len(sink) // len(synced_ms)
+        for i in range(per_frame if per_frame > 1 else 0):
+            stage_ms[f"{name}[{i}]"] = statistics.median(sink[i::per_frame])
 
     run(next(it))
     with torch.profiler.profile(activities=[
@@ -150,7 +173,9 @@ def main(argv) -> int:
         capture_output=True, text=True, check=True).stdout.strip())
     all_configs = configs()
     for name in argv or list(all_configs):
-        print(json.dumps({"path": name, **measure(all_configs[name])}),
+        n_sensors = SENSORS if name.startswith("multisensor") else None
+        print(json.dumps({"path": name,
+                          **measure(all_configs[name], n_sensors)}),
               flush=True)
     return 0
 

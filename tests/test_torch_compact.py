@@ -47,6 +47,7 @@ from dspmap_tpu_torch.ops.birth import particle_birth_compact
 from dspmap_tpu_torch.ops.fov import FovBinning
 from dspmap_tpu_torch.ops.project import Observation
 from dspmap_tpu_torch.ops.update import measurement_update
+from dspmap_tpu_torch.utils import sim
 from torch_parity import (KW, N_FRAMES, check_frame, check_setters,
                           pin_newborn_weight, record)
 
@@ -486,8 +487,9 @@ def test_compact_live_setters_match_jax(jax_run, monkeypatch):
 
 def test_compact_rejected_frame_and_noisy_arm():
     """A rejected frame returns the state unchanged with every compact
-    metric (``pool_overflow`` included) zero; the noisy-prediction arm is
-    not ported and raises."""
+    metric (``pool_overflow`` included) zero; the noisy-prediction arm
+    runs a frame (``tests/test_torch_noisy_compact.py`` holds it against
+    JAX), and its sweep refuses to run without its normal draw."""
     tcfg = _tcfg()
     state = T.init_state(tcfg, seed=0, device="cpu")
     step = T.make_step(tcfg)
@@ -500,9 +502,12 @@ def test_compact_rejected_frame_and_noisy_arm():
     assert all(int(v) == 0 for v in out.metrics.values())
     noisy = T.example_node_settings(T.dsp_dynamic(
         layout="compact", limit_motion_to_xy_plane=False, **KW))
-    with pytest.raises(NotImplementedError):
-        T.make_step(noisy)
-    with pytest.raises(NotImplementedError):
+    pts, n, pos, quat, t = next(iter(sim.generate_sequence(1, noisy, seed=7)))
+    new, out = T.make_step(noisy)(T.init_state(noisy, seed=0, device="cpu"),
+                                  T.Frame(pts, n, pos, quat, t))
+    assert out.accepted and int(out.metrics["alive"]) > 0
+    assert set(out.metrics) == set(T.models.pipeline.COMPACT_METRIC_NAMES)
+    with pytest.raises(ValueError):
         tc.sweep_compact(state.particles, noisy, 0.1, np.zeros(3, np.int32),
                          np.zeros(3, np.float32),
                          np.asarray([1, 0, 0, 0], np.float32))

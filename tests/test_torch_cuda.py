@@ -552,3 +552,99 @@ def test_preset_frames_on_the_card(device, preset):
         assert bool(torch.isfinite(getattr(state, name)).all()), name
     if preset == "static":
         assert not state.particles.vx.any() and not state.particles.vy.any()
+
+
+def test_occupancy_kernel_moving_mask_at_full_width(device):
+    """K1's ``with_moving`` arm as the noisy flagship path takes it: S = 18,
+    V = 175,104, three velocity planes; every output, the moving mask
+    included, bit-equal to the plain version's."""
+    from dspmap_tpu_torch.utils.kernel_times import populated_pool
+
+    cfg = T.example_node_settings(T.dsp_dynamic(limit_motion_to_xy_plane=False))
+    assert (cfg.slots_per_voxel, cfg.storage_voxels) == (18, 175104)
+    assert occupancy._n_vel(cfg) == 3
+    rng = np.random.default_rng(3)
+    p = populated_pool(cfg, rng, device)
+    p.vz = torch.where(p.vx != 0, torch.from_numpy(rng.normal(
+        0, 0.5, p.vx.shape).astype(np.float32)).to(device), 0.0)
+    got = occupancy.pool_pass_cuda(p, cfg, with_moving=True)
+    want = occupancy.pool_pass_plain(p, cfg, with_moving=True)
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    for name in ("flags", "weight", "px", "py", "pz", "vx", "vy", "vz", "t"):
+        assert torch.equal(bits(got[0][name]), bits(want[0][name])), name
+    for a, b in zip((got[1], got[2], got[4]) + got[3] + got[6],
+                    (want[1], want[2], want[4]) + want[3] + want[6]):
+        assert torch.equal(bits(a), bits(b))
+    assert torch.equal(got[5], want[5]) and int(want[5].sum()) > 0
+    assert float(want[6][4].sum()) > 0
+
+
+#: the noisy single-sensor step and the two-camera step, on both layouts
+STEP_CASES = {
+    "noisy_pool": (dict(limit_motion_to_xy_plane=False), None),
+    "noisy_compact": (dict(limit_motion_to_xy_plane=False, layout="compact"),
+                      None),
+    "multisensor_pool": ({}, 2),
+    "multisensor_compact": (dict(layout="compact"), 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_new_steps_on_the_card_match_the_cpu(device, case, monkeypatch):
+    """Three frames on the card at a small map, then one frame from the
+    same state with the same draws on the card and on the CPU, each birth
+    given the card's ``norm_coeff`` (the bars of ``chip_smoke.py``'s card
+    against CPU: flags >= 99.9%, alive within 0.5%, weight_sum within rtol
+    1e-4 on >= 99.9%)."""
+    from dspmap_tpu_torch.models import pipeline
+
+    kw, n_sensors = STEP_CASES[case]
+    cfg = _cfg(**kw)
+    frames = [T.Frame(*f) for f in sim.generate_sequence(4, cfg, seed=0)]
+    if n_sensors:
+        step = T.make_multisensor_step(cfg, n_sensors)
+        state = T.init_multisensor_state(cfg, n_sensors)
+        frames = [T.stack_frames([f] * n_sensors) for f in frames]
+    else:
+        step = T.make_step(cfg)
+        state = T.init_state(cfg)
+    assert state.device.type == "cuda"
+    for f in frames[:3]:
+        state, out = step(state, f)
+        assert out.accepted
+    if n_sensors:
+        prop, sensors = T.make_multisensor_draws(cfg, n_sensors, state.gen,
+                                                 device)
+        draws = (prop, sensors)
+        cpu_draws = (None if prop is None else prop.cpu(),
+                     tuple(tuple(d.cpu() for d in s) for s in sensors))
+    else:
+        draws = T.make_draws(cfg, state.gen, device)
+        cpu_draws = tuple(d.cpu() for d in draws)
+    name = ("particle_birth_compact" if cfg.layout == "compact"
+            else "particle_birth")
+    birth = getattr(pipeline, name)
+    seen = []
+
+    def card_birth(*a, **kw):
+        seen.append(kw["norm_coeff"])
+        return birth(*a, **kw)
+
+    def cpu_birth(*a, **kw):
+        kw["norm_coeff"] = seen.pop(0).cpu()
+        return birth(*a, **kw)
+
+    cpu_state = state.to("cpu")
+    monkeypatch.setattr(pipeline, name, card_birth)
+    card, card_out = step(state, frames[3], draws)
+    assert len(seen) == (n_sensors or 1)
+    monkeypatch.setattr(pipeline, name, cpu_birth)
+    cpu, cpu_out = step(cpu_state, frames[3], cpu_draws)
+    assert not seen
+    flags = (card.particles.flags.cpu() == cpu.particles.flags).float().mean()
+    assert float(flags) >= 0.999
+    a_g, a_c = int(card_out.metrics["alive"]), int(cpu_out.metrics["alive"])
+    assert a_c > 0 and abs(a_g - a_c) <= 0.005 * a_c
+    close = torch.isclose(card.weight_sum.cpu(), cpu.weight_sum, rtol=1e-4,
+                          atol=1e-7).float().mean()
+    assert float(close) >= 0.999

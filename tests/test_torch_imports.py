@@ -76,7 +76,8 @@ assert not (here / "dspmap_tpu").exists()
 names = [m.name for m in pkgutil.walk_packages(dm.__path__, "dspmap_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "dspmap_tpu_torch.ops.relayout" in names
+assert {"dspmap_tpu_torch.ops.relayout", "dspmap_tpu_torch.ops.propagate",
+        "dspmap_tpu_torch.ops.rebin"} <= set(names)
 assert not [m for m in sys.modules if m == "dspmap_tpu" or m.startswith("dspmap_tpu.")]
 cut = dict(nx=24, ny=24, nz=12, voxel_resolution=0.25, max_input_points=1024,
            mover_capacity=1024, max_clusters=4)
@@ -93,6 +94,19 @@ for preset, kw in (("dsp_dynamic", {}), ("dsp_static", {}),
         assert out.accepted, preset
     assert int(out.metrics["alive"]) > 0, preset
 assert shapes == [(18, 7168), (50, 7168), (60, 7168), (4096,)], shapes
+for layout in ("pool", "compact"):  # noisy prediction, then two cameras
+    cfg = dm.example_node_settings(dm.dsp_dynamic(
+        **cut, layout=layout, limit_motion_to_xy_plane=False,
+        particle_capacity=4096))
+    step = dm.make_step(cfg)
+    ms_step = dm.make_multisensor_step(cfg, 2)
+    state = dm.init_state(cfg, seed=0, device="cpu")
+    ms_state = dm.init_multisensor_state(cfg, 2, seed=0, device="cpu")
+    for f in sim.generate_sequence(2, cfg, seed=7):
+        state, out = step(state, dm.Frame(*f))
+        ms_state, ms_out = ms_step(ms_state, dm.stack_frames([dm.Frame(*f)] * 2))
+        assert out.accepted and ms_out.accepted, layout
+    assert int(out.metrics["alive"]) > 0 and int(ms_out.metrics["alive"]) > 0
 print("OK", shapes)
 """
 
@@ -101,7 +115,8 @@ def test_port_copied_alone_runs_every_preset(tmp_path):
     """The package copied into an empty directory -- no ``dspmap_tpu/``
     beside it, ``jax`` blocked -- imports every module, builds a state for
     the flagship, static, multi-neighbor and compact presets and steps two
-    frames of each on the CPU."""
+    frames of each on the CPU, then two frames of the noisy prediction
+    path and of the two-camera step on both layouts."""
     shutil.copytree(REPO / "dspmap_tpu_torch", tmp_path / "dspmap_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     env = dict(os.environ, PYTHONPATH=str(tmp_path))

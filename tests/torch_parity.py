@@ -18,19 +18,62 @@ N_FRAMES = 12
 RESAMPLE_COUNTERS = ("alive", "resample_dropped", "resample_copies")
 
 
-def jax_draws(rng, cfg):
-    """The JAX step's draws for key ``rng``, as numpy: ``keys =
-    split(rng, 6)``; the estimator's uniform from ``split(keys[0])[1]``,
-    the birth table's normal/normal/uniform from ``split(keys[3], 3)``."""
-    keys = jax.random.split(rng, 6)
-    _, sub = jax.random.split(keys[0])
+def _sensor_draws(k_est, k_birth, cfg):
+    """The estimator's uniform from ``split(k_est)[1]``, the birth table's
+    normal/normal/uniform from ``split(k_birth, 3)``."""
+    _, sub = jax.random.split(k_est)
     fresh = jax.random.uniform(sub, (cfg.max_clusters,), jnp.float32, 0.1, 1.0)
-    kp, kv, ku = jax.random.split(keys[3], 3)
+    kp, kv, ku = jax.random.split(k_birth, 3)
     shape = (cfg.max_input_points, cfg.newborn_particles_per_point, 3)
     return tuple(np.array(x) for x in (
         fresh, jax.random.normal(kp, shape, jnp.float32),
         jax.random.normal(kv, shape, jnp.float32),
         jax.random.uniform(ku, shape, jnp.float32, -1.0, 1.0)))
+
+
+def noisy(cfg):
+    return not (cfg.limit_motion_to_xy_plane or cfg.motion_model == "static")
+
+
+def particle_shape(cfg):
+    if cfg.layout == "compact":
+        return (cfg.compact_capacity,)
+    return (cfg.slots_per_voxel, cfg.storage_voxels)
+
+
+def _normal(key, n, cfg):
+    return np.array(jax.random.normal(key, (n,) + particle_shape(cfg),
+                                      jnp.float32))
+
+
+def jax_draws(rng, cfg):
+    """The JAX step's draws for key ``rng``, as numpy: ``keys =
+    split(rng, 6)``; the estimator's draw from ``keys[0]`` and birth's from
+    ``keys[3]`` (``_sensor_draws``); on a noisy configuration also the
+    propagation noise ``normal(keys[1], (3, S, V))`` and the FOV noise
+    ``normal(keys[2], (2, S, V))`` (``[P]``-shaped in the compact
+    layout)."""
+    keys = jax.random.split(rng, 6)
+    draws = _sensor_draws(keys[0], keys[3], cfg)
+    if noisy(cfg):
+        draws += (_normal(keys[1], 3, cfg), _normal(keys[2], 2, cfg))
+    return draws
+
+
+def jax_multisensor_draws(rng, cfg, n_sensors):
+    """The JAX multi-sensor step's draws for key ``rng``, in the port's
+    form ``(prop_noise | None, per-sensor tuples)``: ``keys = split(rng,
+    4)``, the propagation noise ``normal(keys[0], (3, ...))``; the scan key
+    ``keys[1]`` split per sensor as ``key, k_est, k_fov, k_birth =
+    split(key, 4)``, the FOV noise ``normal(k_fov, (2, ...))``."""
+    keys = jax.random.split(rng, 4)
+    prop = _normal(keys[0], 3, cfg) if noisy(cfg) else None
+    key, sensors = keys[1], []
+    for _ in range(n_sensors):
+        key, k_est, k_fov, k_birth = jax.random.split(key, 4)
+        d = _sensor_draws(k_est, k_birth, cfg)
+        sensors.append(d + (_normal(k_fov, 2, cfg),) if noisy(cfg) else d)
+    return prop, tuple(sensors)
 
 
 def record(jcfg, step, state, n_frames=N_FRAMES):
@@ -56,14 +99,17 @@ def record(jcfg, step, state, n_frames=N_FRAMES):
 def pin_newborn_weight(monkeypatch, birth_name, jax_weight):
     """Make the port's birth stage (``pipeline.<birth_name>``) use the JAX
     newborn weight's exact bits: ``norm_coeff`` is replaced by the f32
-    value ``c`` with ``w_b * c == jax_weight["value"]``."""
+    value ``c`` with ``w_b * c == jax_weight["value"]``; a list there
+    gives one value a call, consumed in order (one a sensor)."""
     import dspmap_tpu_torch.models.pipeline as pipeline
 
     orig = getattr(pipeline, birth_name)
 
     def birth(p, cfg, draws, **kw):
         w_b = np.float32(kw["rt"].newborn_particle_weight)
-        target = np.float32(jax_weight["value"])
+        value = jax_weight["value"]
+        target = np.float32(value.pop(0) if isinstance(value, list)
+                            else value)
         c = np.float32(target / w_b)
         for _ in range(8):
             if np.float32(w_b * c) == target:
@@ -163,6 +209,44 @@ def both(arrays):
     return jp, tp
 
 
+def tparts(p):
+    """Port Particles (CPU tensors, copies) of a numpy Particles."""
+    return T.Particles(**{k: torch.from_numpy(np.array(getattr(p, k)))
+                          for k in PLANES})
+
+
+def jparts(p):
+    """JAX Particles of a numpy Particles."""
+    return J.Particles(**{k: jnp.asarray(getattr(p, k)) for k in PLANES})
+
+
+def bits(x):
+    """float32 arrays as their int32 bit patterns (others as they are)."""
+    a = np.asarray(x)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def assert_bits_equal(got, want, name=""):
+    np.testing.assert_array_equal(bits(got), bits(want), err_msg=name)
+
+
+def ulps(got, want):
+    """Largest distance of two float32 arrays in units in the last place."""
+    return int(np.abs(bits(got).astype(np.int64)
+                      - bits(want).astype(np.int64)).max())
+
+
+def given_normals(monkeypatch, *arrays):
+    """Make ``jax.random.normal`` return the array of the asked shape among
+    ``arrays``: a normal drawn inside a fused program differs in the last
+    bits of a few elements from the same key's normal drawn alone, so a
+    stage test hands both sides the same array."""
+    by_shape = {a.shape: jnp.asarray(a) for a in arrays}
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape, dtype=jnp.float32:
+                        by_shape[tuple(shape)])
+
+
 def empty_planes(cfg):
     S, V = cfg.slots_per_voxel, cfg.storage_voxels
     a = {k: np.zeros((S, V), np.float32) for k in PLANES}
@@ -222,3 +306,133 @@ def teacher_forced(frames, tcfg, monkeypatch, pinned, birth_name="particle_birth
         new, out = step(state, T.Frame(*f["frame"]), f["draws"])
         fracs.append(check_frame(i, new, out, f, pinned))
     return fracs
+
+
+# --- shared by the multi-sensor tests (tests/test_torch_multisensor*.py) ---
+
+#: the map of ``tests/test_multisensor.py::_small_cfg``: fewer points and
+#: clusters than ``KW`` keep two cameras a frame inside the time budget
+MS_KW = dict(KW, max_input_points=512, mover_capacity=4096,
+             pyramid_slot_capacity=64, max_clusters=8)
+
+
+def two_camera_frames(cfg, n_frames, seed=7, offset=(0.3, -0.2, 0.0)):
+    """Two-sensor frames of the street sequence: sensor 0 as generated,
+    sensor 1 at a pose shifted by ``offset`` (world frame, same attitude)
+    seeing the same world points, so the two overlap without being equal.
+    Each item is ``(points [2, P, 3], n [2], pos [2, 3], quat [2, 4],
+    t [2])`` in numpy."""
+    from dspmap_tpu_torch.geometry import rotation_matrix_np
+
+    out = []
+    for pts, n, pos, quat, t in sim.generate_sequence(n_frames, cfg,
+                                                      seed=seed):
+        shift = np.asarray(offset, np.float32)
+        body = (rotation_matrix_np(quat).T @ shift).astype(np.float32)
+        pts_b = np.where(np.arange(pts.shape[0])[:, None] < n, pts - body,
+                         pts).astype(np.float32)
+        out.append((np.stack([pts, pts_b]), np.asarray([n, n], np.int32),
+                    np.stack([pos, pos + shift]), np.stack([quat, quat]),
+                    np.asarray([t, t], np.float32)))
+    return out
+
+
+def capture_newborn_weights(monkeypatch, sink):
+    """Patch the JAX package's birth stages so that each call appends its
+    newborn weight to ``sink`` (a host callback inside the jitted step;
+    patch before the step is traced)."""
+    import dspmap_tpu.models.pipeline as jpipe
+    import dspmap_tpu.ops.birth as jbirth
+
+    def wrap(orig):
+        def birth(*a, **kw):
+            p, stats = orig(*a, **kw)
+            jax.debug.callback(lambda v: sink.append(np.float32(v)),
+                               stats["newborn_weight"], ordered=True)
+            return p, stats
+        return birth
+
+    monkeypatch.setattr(jpipe, "particle_birth", wrap(jpipe.particle_birth))
+    monkeypatch.setattr(jbirth, "particle_birth_compact",
+                        wrap(jbirth.particle_birth_compact))
+
+
+def record_multi(jcfg, step, state, frames, sink):
+    """Run the jitted JAX multi-sensor ``step`` over ``frames`` (items of
+    :func:`two_camera_frames`) from ``state``; per frame the state before,
+    the draws in the port's form, the frame, the state after, the metrics
+    and the newborn weights of its birth calls (from ``sink``, see
+    :func:`capture_newborn_weights`)."""
+    out = []
+    for fr in frames:
+        before = jax.device_get(state)
+        draws = jax_multisensor_draws(state.rng, jcfg, fr[0].shape[0])
+        del sink[:]
+        state, res = step(state, J.Frame(*(jnp.asarray(x) for x in fr)))
+        jax.block_until_ready(state)
+        jax.effects_barrier()
+        out.append(dict(
+            before=before, draws=draws, frame=fr, after=jax.device_get(state),
+            live=state, accepted=bool(res.accepted), newborn=list(sink),
+            metrics={k: np.asarray(v) for k, v in res.metrics.items()}))
+    return out
+
+
+def record_multisensor(jcfg, n_sensors, n_frames):
+    """The jitted JAX multi-sensor step of ``jcfg`` over ``n_frames`` of
+    :func:`two_camera_frames` from ``init_multisensor_state(key 0)``, with
+    each frame's newborn weights captured (:func:`record_multi`)."""
+    import pytest
+    from dspmap_tpu.models.pipeline import (init_multisensor_state,
+                                            make_multisensor_step)
+
+    sink = []
+    with pytest.MonkeyPatch.context() as mp:
+        capture_newborn_weights(mp, sink)
+        step = jax.jit(make_multisensor_step(jcfg, n_sensors))
+        frames = record_multi(
+            jcfg, step, init_multisensor_state(jcfg, n_sensors,
+                                               jax.random.key(0)),
+            two_camera_frames(jcfg, n_frames), sink)
+    assert all(len(f["newborn"]) == n_sensors for f in frames)
+    return frames
+
+
+def run_multi(frames, tcfg, monkeypatch, pinned, teacher_forced):
+    """The port's multi-sensor step over recorded frames, from each frame's
+    JAX state (``teacher_forced``) or carrying its own state, with the JAX
+    newborn weights pinned one a sensor (``pinned``); yields ``(i, new
+    state, output, recorded frame)``."""
+    birth = ("particle_birth_compact" if tcfg.layout == "compact"
+             else "particle_birth")
+    jax_weight = {}
+    if pinned:
+        pin_newborn_weight(monkeypatch, birth, jax_weight)
+    n_sensors = frames[0]["frame"][0].shape[0]
+    step = T.make_multisensor_step(tcfg, n_sensors)
+    state = T.state_from_numpy(frames[0]["before"], tcfg, device="cpu")
+    for i, f in enumerate(frames):
+        jax_weight["value"] = list(f["newborn"])
+        if teacher_forced:
+            state = T.state_from_numpy(f["before"], tcfg, device="cpu")
+        state, out = step(state, T.Frame(*f["frame"]), f["draws"])
+        if pinned:
+            assert jax_weight["value"] == []  # one pinned birth a sensor
+        yield i, state, out, f
+
+
+def check_multi_free_run(frames, tcfg, monkeypatch, pinned):
+    """Free-running bars: with the newborn weights pinned flags >= 99.9%
+    and alive within 0.5% in every frame; free, alive within 2% (and the
+    compact layout's flags >= 99.5%); alive within 2 particles passes
+    either way, as ``check_frame``'s counters do (the first frames hold
+    some 40)."""
+    for i, state, out, f in run_multi(frames, tcfg, monkeypatch, pinned,
+                                      False):
+        a_t, a_j = int(out.metrics["alive"]), int(f["metrics"]["alive"])
+        assert abs(a_t - a_j) <= max(2, (0.005 if pinned else 0.02) * a_j), (
+            i, a_t, a_j)
+        frac = np.mean(state.particles.flags.numpy()
+                       == np.asarray(f["after"].particles.flags))
+        bar = 0.999 if pinned else (0.995 if tcfg.layout == "compact" else 0)
+        assert frac >= bar, (i, frac)
