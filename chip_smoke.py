@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's eight paths on one CUDA card and check them.
+"""Drive the PyTorch port's eight paths and its IO on one CUDA card and
+check them.
 
 Run from the root of a checkout on a machine with an H100::
 
@@ -49,7 +50,14 @@ Phases (each prints one line; any failure raises and exits nonzero):
    draws (see :func:`card_vs_cpu` for the bars; on the multi-sensor paths
    every sensor's birth is pinned to the card's ``norm_coeff`` in turn);
 6. the caller's TF32 matmul setting, True through phases 4 and 5, is
-   still True after them.
+   still True after them;
+7. ``io``, in a temporary directory (see :func:`check_io`): the replay
+   entry point as a user runs it (``dspmap_tpu_torch.io.replay.main``) on
+   the flagship and the multi-neighbor preset; checkpoints saved and loaded
+   on the card for the flagship and large_urban, resumed, and loaded on the
+   CPU; the particle CSV of a card state against the CPU's; a
+   ``torch.profiler`` trace of two flagship frames and its summary.  Each
+   sub-path pins its kernel launches as phase 4 does.
 
 The second-to-last line is a JSON object with every kernel's measurements,
 the last ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -688,8 +696,7 @@ def run_path(name, cfg, device):
         if i == kept_at:
             kept = state
     launches = dict(kernels.LAUNCHES)
-    want = {k: v * n for k, v in per_frame.items()}
-    _require(launches == want, f"{name} launch counts {launches} != {want}")
+    _pinned(name, launches, {k: v * n for k, v in per_frame.items()})
     _require(not syncs, f"{name}: host syncs in the step: {syncs}")
     _require(alive[0] > 0 and alive[-1] > alive[0], f"{name} alive {alive}")
     _require(bool(torch.isfinite(state.weight_sum).all()), "weight_sum")
@@ -705,6 +712,231 @@ def run_path(name, cfg, device):
     card_vs_cpu(cfg, step, kept, frames[kept_at + 1], device,
                 label=f"{name}_card_vs_cpu", n_sensors=n_sensors)
     return launches, statistics.median(ms), alive[-1]
+
+
+def _leaves(state) -> dict:
+    """Every leaf of a state as numpy, by its path in the JAX state."""
+    from dspmap_tpu_torch import state_to_numpy
+
+    out = {}
+    for key, value in state_to_numpy(state).items():
+        if isinstance(value, dict):
+            out.update({f"{key}.{k}": np.asarray(v) for k, v in value.items()})
+        else:
+            out[key] = np.asarray(value)
+    return out
+
+
+def _differing(a, b) -> list:
+    """The leaves in which two states differ, by bits, shape or dtype."""
+    x, y = _leaves(a), _leaves(b)
+    _require(x.keys() == y.keys(), "states of different structure")
+    return [k for k in x if x[k].dtype != y[k].dtype
+            or x[k].shape != y[k].shape or x[k].tobytes() != y[k].tobytes()]
+
+
+def _pinned(name, launches, want) -> None:
+    _require(launches == want, f"{name} launch counts {launches} != {want}")
+
+
+def _replay(name, args, frames, per_frame):
+    """Phase 7: ``replay.main(args)`` as a user calls it, its standard output
+    captured, the launch counts set to 0 before and pinned after.  Returns
+    ``(the JSON summary, the launches)``."""
+    import contextlib
+    import io
+
+    from dspmap_tpu_torch import kernels
+    from dspmap_tpu_torch.io import replay
+
+    said = io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(said):
+        replay.main(args)
+    launches = dict(kernels.LAUNCHES)
+    _pinned(name, launches, {k: v * frames for k, v in per_frame.items()})
+    lines = said.getvalue().splitlines()
+    _require(sum(line.startswith("frame ") for line in lines) == frames,
+             f"{name}: {len(lines)} lines")
+    summary = json.loads(next(line for line in lines if line.startswith("{")))
+    _require(set(summary) == {"mean_ms", "p50_ms", "updates_per_sec"},
+             f"{name} summary {summary}")
+    return summary, launches
+
+
+def check_checkpoint(label, cfg, device, tmp):
+    """Phase 7 for one configuration: four frames on the card, a save, a
+    load into a card template of another seed (every leaf and the
+    generator's state bit-equal), two more frames of both the restored and
+    the uninterrupted state with their generators' own draws (held to the
+    bars of phase 5's comparison with the births pinned; whether they are
+    bit-equal is printed: scatters of plain torch ops need not be
+    deterministic on the card, so the same two frames are also stepped once
+    more from the saved state without the checkpoint, and whether that
+    repeat is bit-equal is printed beside), the same file loaded into a CPU
+    template (bit-equal), and the particle CSV of the card state against
+    the same state's on the CPU (the same bytes).  Returns the launches of
+    its ten card frames."""
+    import dataclasses
+
+    import torch
+    import dspmap_tpu_torch as dm
+    from dspmap_tpu_torch import kernels
+    from dspmap_tpu_torch.io import export_particles_csv, load_state, save_state
+    from dspmap_tpu_torch.utils import sim
+
+    name = f"io_checkpoint_{label}"
+    step = dm.make_step(cfg)
+    frames = [dm.Frame(*f) for f in sim.generate_sequence(6, cfg, seed=0)]
+    kernels.reset_launch_counts()
+    state = dm.init_state(cfg, seed=0, device=device)
+    for f in frames[:4]:
+        state, out = step(state, f)
+        _require(out.accepted, f"{name}: frame rejected")
+    path = os.path.join(tmp, f"{label}.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_state(state, path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    template = dm.init_state(cfg, seed=1, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = load_state(template, path)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    _require(restored.device == state.device, f"{name}: restored off the card")
+    differ = _differing(restored, state)
+    _require(not differ, f"{name}: restored leaves differ: {differ}")
+    _require(torch.equal(restored.gen.get_state(), state.gen.get_state()),
+             f"{name}: generator differs")
+    t0 = time.perf_counter()
+    on_cpu = load_state(dm.init_state(cfg, seed=1, device="cpu"), path)
+    cpu_load_ms = (time.perf_counter() - t0) * 1e3
+    _require(on_cpu.device.type == "cpu" and not _differing(on_cpu, state),
+             f"{name}: loaded on the CPU, leaves differ")
+    gen = torch.Generator(device=device)
+    gen.set_state(state.gen.get_state())
+    straight, repeat = state, dataclasses.replace(state, gen=gen)
+    for f in frames[4:]:
+        straight, out_s = step(straight, f)
+        restored, out_r = step(restored, f)
+        repeat, _ = step(repeat, f)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    _pinned(name, launches, {k: v * 10 for k, v in PATHS[label][3].items()})
+    resumed_differ = _differing(restored, straight)
+    repeat_differ = _differing(repeat, straight)
+    straight_cpu = straight.to("cpu")
+    m = _agreement((restored, out_r), (straight_cpu, out_s))
+    csv = [os.path.join(tmp, f"{label}_{d}.csv") for d in ("card", "cpu")]
+    n_csv = export_particles_csv(straight, cfg, csv[0])
+    _require(export_particles_csv(straight_cpu, cfg, csv[1]) == n_csv > 0,
+             f"{name}: CSV rows")
+    with open(csv[0], "rb") as a, open(csv[1], "rb") as b:
+        _require(a.read() == b.read(), f"{name}: card and CPU CSV differ")
+    _say(name, save_ms=save_ms, load_ms=load_ms, cpu_load_ms=cpu_load_ms,
+         file_mb=os.path.getsize(path) / 2**20, restored="bit-equal",
+         cpu_load="bit-equal", resumed_bit_equal=not resumed_differ,
+         resumed_leaves_differing=json.dumps(resumed_differ),
+         repeat_bit_equal=not repeat_differ,
+         repeat_leaves_differing=json.dumps(repeat_differ),
+         csv_rows=n_csv, csv_card_vs_cpu="same bytes", **m)
+    _require(m["flags_equal"] >= 0.999, f"{name} resumed flags")
+    _require(m["weight_sum_close"] >= 0.999, f"{name} resumed weight_sum")
+    _require(m["future_close"] >= 0.999, f"{name} resumed future grid")
+    _require(m["alive_rel"] <= 0.005, f"{name} resumed alive")
+    return launches
+
+
+#: the ``__global__`` names of K1, K2, K3a and K3b, which a flagship
+#: frame's trace must show (a bare "sweep" would also match the radix
+#: sort's upsweep kernel)
+TRACED = ("occupancy_tile_kernel", "sweep_kernel", "pass1_kernel",
+          "pass2_kernel")
+
+
+def check_trace(cfg, device, tmp):
+    """Phase 7: ``profiling.trace`` around two flagship frames after three
+    warm ones, then ``summarize_device_trace``: its rows must name K1, K2,
+    K3a and K3b.  The profiler now and then loses device events, so a trace
+    that misses one is taken once more.  Returns the launches."""
+    import dspmap_tpu_torch as dm
+    from dspmap_tpu_torch import kernels
+    from dspmap_tpu_torch.utils import profiling, sim
+
+    step = dm.make_step(cfg)
+    frames = [dm.Frame(*f) for f in sim.generate_sequence(7, cfg, seed=0)]
+    kernels.reset_launch_counts()
+    state = dm.init_state(cfg, seed=0, device=device)
+    for f in frames[:3]:
+        state, out = step(state, f)
+    profiling.force_sync(out.weight_sum)
+    n = 3
+    for attempt in range(2):
+        log_dir = os.path.join(tmp, f"trace_{attempt}")
+        with profiling.trace(log_dir):
+            for f in frames[n:n + 2]:
+                state, out = step(state, f)
+                profiling.force_sync(out.weight_sum)
+        n += 2
+        rows = profiling.summarize_device_trace(log_dir, top=None)
+        missing = [k for k in TRACED if not any(k in r[2] for r in rows)]
+        if not missing:
+            break
+        _say("io_trace_retaken", missing=json.dumps(missing), rows=len(rows))
+    _require(not missing, f"io_trace: no {missing} kernel in two traces")
+    launches = dict(kernels.LAUNCHES)
+    _pinned("io_trace", launches,
+            {k: v * n for k, v in PATHS["flagship"][3].items()})
+    own = {k: [(op, ms) for ms, op, kernel in rows if k in kernel]
+           for k in TRACED}
+    _say("io_trace", frames=2, device_ms=sum(r[0] for r in rows),
+         rows=len(rows), own_kernels=json.dumps(own))
+    for rank, (ms, op, kernel) in enumerate(rows[:5]):
+        _say("io_trace_top", rank=rank, ms=ms, op=json.dumps(op),
+             kernel=json.dumps(kernel[:80]))
+    return launches
+
+
+def check_io(configs, device, smi) -> dict:
+    """Phase 7 in a temporary directory: the replay entry point on the
+    flagship (8 frames, with ``--out``, ``--csv`` and ``--checkpoint``) and
+    on the multi-neighbor preset (4 frames: K5 takes its launches there),
+    then :func:`check_checkpoint` for the flagship and large_urban (the
+    compact layout: K4), then :func:`check_trace`.  Returns the launches of
+    each sub-path."""
+    import tempfile
+
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out, csv, ckpt = (os.path.join(tmp, n)
+                          for n in ("out.npz", "p.csv", "c.npz"))
+        summary, by_path["io_replay_dynamic"] = _replay(
+            "io_replay_dynamic", ["--variant", "dynamic", "--frames", "8",
+                                  "--out", out, "--csv", csv,
+                                  "--checkpoint", ckpt],
+            8, PATHS["flagship"][3])
+        with np.load(out) as data:
+            n_occupied = data["n_occupied"].tolist()
+        _require(len(n_occupied) == 8 and min(n_occupied[3:]) > 0,
+                 f"io_replay_dynamic occupied {n_occupied}")
+        with np.load(ckpt) as data:
+            n_valid = int((data["leaf_0"] != 0).sum())
+        with open(csv) as f:
+            rows = sum(1 for _ in f)
+        _require(rows == n_valid > 0, f"io_replay_dynamic CSV {rows} rows, "
+                 f"{n_valid} valid slots")
+        _say("io_replay_dynamic", frames=8, **summary,
+             n_occupied=json.dumps(n_occupied), csv_rows=rows, card=smi)
+        summary, by_path["io_replay_multi"] = _replay(
+            "io_replay_multi", ["--variant", "multi", "--frames", "4"], 4,
+            PATHS["multi"][3])
+        _say("io_replay_multi", frames=4, **summary, card=smi)
+        for label in ("flagship", "large_urban"):
+            by_path[f"io_checkpoint_{label}"] = check_checkpoint(
+                label, configs[label], device, tmp)
+        by_path["io_trace"] = check_trace(configs["flagship"], device, tmp)
+    return by_path
 
 
 #: kernel -> (source, the TPU kernel it replaces, the configuration whose
@@ -730,7 +962,7 @@ KERNELS = {
 
 def kernel_row(name, by_shape, by_path) -> dict:
     """One kernel's entry of the ``kernels`` line: its launches over the
-    eight paths, its measurements at the shape of its first path, and under
+    eight paths and the ``io`` phase's, its measurements at the shape of its first path, and under
     ``by_shape`` the same measurements at every shape it was checked at."""
     source, replaces, own = KERNELS[name]
     shapes = {label: rows[name] for label, rows in by_shape.items()
@@ -814,6 +1046,7 @@ def main() -> int:
         _require(flag.allow_tf32 is True, "the paths changed the TF32 flag")
     finally:
         flag.allow_tf32 = saved
+    by_path.update(check_io(configs, device, smi))
 
     _say("total", seconds=time.perf_counter() - started)
     print(smi)

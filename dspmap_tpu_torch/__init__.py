@@ -10,7 +10,11 @@ pass, the fused sweep, the measurement-update pair passes, the compact
 layout's segmented scans and the relayout copies of large pool planes as
 CUDA kernels (``csrc/``, built by ``nvcc`` at first use).  This package
 never imports jax or ``dspmap_tpu``; a state is built on the CUDA card
-unless the caller names another device.
+unless the caller names another device.  ``io`` holds the replay entry
+point (``python -m dspmap_tpu_torch.io.replay``), checkpoints in the JAX
+package's file format (they load in either package), the particle CSV, bag
+and native ingestion and the ROS bridges; ``utils`` the markers, PLY
+exports and ``torch.profiler`` tracing.
 
 Quick start::
 

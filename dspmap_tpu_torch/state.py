@@ -425,12 +425,15 @@ def state_from_numpy(tree, cfg: MapConfig, device=None, seed: int = 0):
     )
 
 
+def to_numpy(x):
+    """A tensor (on any device) as a numpy array; anything else as it is."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
 def state_to_numpy(state: MapState) -> dict:
     """Every array of ``state`` as numpy, in the JAX ``MapState``'s field
     names (nested dicts for ``particles``, ``estimator`` and ``params``)."""
-    def n(x):
-        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
-
+    n = to_numpy
     return {
         "particles": {k: n(getattr(state.particles, k)) for k in _PLANES},
         "weight_sum": n(state.weight_sum),

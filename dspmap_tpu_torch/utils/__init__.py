@@ -1,1 +1,2 @@
-"""Host-side utilities."""
+"""Host-side utilities: synthetic scene simulation, markers and PLY
+exports, profiling, and the stage and kernel timers of the card."""

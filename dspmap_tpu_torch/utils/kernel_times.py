@@ -72,6 +72,8 @@ SEGSCAN_CALLS = (
 )
 #: matches every kernel and copy the card ran
 ANY_KERNEL = ("",)
+#: traces :func:`device_ms` takes before it gives up on a call
+DEVICE_MS_TRACES = 6
 
 
 def median_ms(fn, n: int = 20) -> float:
@@ -98,15 +100,15 @@ def device_ms(fn, n: int = 20, names=KERNEL_NAMES) -> float:
     one call, in kernels whose name holds one of ``names``
     (``torch.profiler``, device-side events).  The profiler now and then
     loses events (on an H100, of some 400 traces one came back without any
-    device event and one with 139 kernels for 20 calls of 7): a trace that
-    does not hold the same whole number of such kernels for each call is
-    reported on the standard error and taken again; the third such trace
-    raises."""
+    device event and one with 139 kernels for 20 calls of 7; once three
+    traces in a row lost some): a trace that does not hold the same whole
+    number of such kernels for each call is reported on the standard error
+    and taken again, up to :data:`DEVICE_MS_TRACES` traces in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    for attempt in range(3):
+    for attempt in range(DEVICE_MS_TRACES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -123,7 +125,8 @@ def device_ms(fn, n: int = 20, names=KERNEL_NAMES) -> float:
               f"of {len(device)} device events for {n} calls",
               file=sys.stderr, flush=True)
     else:
-        raise RuntimeError(f"{len(own)} kernel events in {n} calls, 3 traces")
+        raise RuntimeError(f"{len(own)} kernel events in {n} calls, "
+                           f"{DEVICE_MS_TRACES} traces")
     k = len(own) // n
     return statistics.median(
         sum(e.device_time_total for e in own[i * k:(i + 1) * k]) / 1e3

@@ -648,3 +648,77 @@ def test_new_steps_on_the_card_match_the_cpu(device, case, monkeypatch):
     close = torch.isclose(card.weight_sum.cpu(), cpu.weight_sum, rtol=1e-4,
                           atol=1e-7).float().mean()
     assert float(close) >= 0.999
+
+
+def _bit_equal_states(a, b):
+    """Every leaf of two states' ``state_to_numpy`` trees bit for bit."""
+    def leaves(state):
+        tree = T.state_to_numpy(state)
+        out = {}
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                out.update({f"{key}.{k}": v for k, v in value.items()})
+            else:
+                out[key] = value
+        return out
+
+    x, y = leaves(a), leaves(b)
+    assert x.keys() == y.keys()
+    for k in x:
+        u, v = np.asarray(x[k]), np.asarray(y[k])
+        assert u.dtype == v.dtype and u.shape == v.shape, k
+        assert u.tobytes() == v.tobytes(), k
+
+
+@pytest.mark.parametrize("layout", ["pool", "compact"])
+def test_checkpoint_round_trip_on_the_card(device, layout, tmp_path):
+    """A card state saved after three frames and loaded into a card
+    template of another seed: every leaf and the generator bit-equal;
+    both stepped two more frames with their generators' own draws agree
+    within the card-against-CPU bars of ``chip_smoke.py`` (flags >= 99.9%,
+    alive within 0.5%, weight_sum within rtol 1e-4 on >= 99.9%); loaded into
+    a CPU template, every leaf bit-equal."""
+    from dspmap_tpu_torch.io import load_state, save_state
+
+    cfg = _cfg(layout=layout)
+    frames = [T.Frame(*f) for f in sim.generate_sequence(5, cfg, seed=0)]
+    step = T.make_step(cfg)
+    state = T.init_state(cfg, seed=0)
+    for f in frames[:3]:
+        state, _ = step(state, f)
+    path = tmp_path / "card.npz"
+    save_state(state, path)
+    restored = load_state(T.init_state(cfg, seed=1), path)
+    assert restored.device.type == "cuda"
+    _bit_equal_states(restored, state)
+    assert torch.equal(restored.gen.get_state(), state.gen.get_state())
+    _bit_equal_states(load_state(T.init_state(cfg, seed=1, device="cpu"),
+                                 path), state)
+    for f in frames[3:]:
+        state, out_a = step(state, f)
+        restored, out_b = step(restored, f)
+    flags = float((state.particles.flags == restored.particles.flags)
+                  .float().mean())
+    ws = float(torch.isclose(state.weight_sum, restored.weight_sum, rtol=1e-4,
+                             atol=1e-7).float().mean())
+    a, b = int(out_a.metrics["alive"]), int(out_b.metrics["alive"])
+    assert flags >= 0.999 and ws >= 0.999 and a > 0
+    assert abs(a - b) <= 0.005 * a
+
+
+@pytest.mark.parametrize("layout", ["pool", "compact"])
+def test_particle_csv_from_the_card_equals_the_cpus(device, layout, tmp_path):
+    """``export_particles_csv`` of a card state and of the same state moved
+    to the CPU: the same bytes."""
+    from dspmap_tpu_torch.io import export_particles_csv
+
+    cfg = _cfg(layout=layout)
+    step = T.make_step(cfg)
+    state = T.init_state(cfg, seed=0, init_particle_num=2000)
+    for f in sim.generate_sequence(3, cfg, seed=0):
+        state, _ = step(state, T.Frame(*f))
+    n = export_particles_csv(state, cfg, tmp_path / "card.csv")
+    assert n == export_particles_csv(state.to("cpu"), cfg,
+                                     tmp_path / "cpu.csv") > 0
+    assert ((tmp_path / "card.csv").read_bytes()
+            == (tmp_path / "cpu.csv").read_bytes())

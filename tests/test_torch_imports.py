@@ -77,7 +77,10 @@ names = [m.name for m in pkgutil.walk_packages(dm.__path__, "dspmap_tpu_torch.")
 for name in names:
     importlib.import_module(name)
 assert {"dspmap_tpu_torch.ops.relayout", "dspmap_tpu_torch.ops.propagate",
-        "dspmap_tpu_torch.ops.rebin"} <= set(names)
+        "dspmap_tpu_torch.ops.rebin", "dspmap_tpu_torch.io.replay",
+        "dspmap_tpu_torch.io.checkpoint", "dspmap_tpu_torch.io.ros_bridge",
+        "dspmap_tpu_torch.io.ros2_bridge", "dspmap_tpu_torch.utils.profiling",
+        "dspmap_tpu_torch.utils.markers", "dspmap_tpu_torch.utils.viz"} <= set(names)
 assert not [m for m in sys.modules if m == "dspmap_tpu" or m.startswith("dspmap_tpu.")]
 cut = dict(nx=24, ny=24, nz=12, voxel_resolution=0.25, max_input_points=1024,
            mover_capacity=1024, max_clusters=4)
@@ -107,6 +110,16 @@ for layout in ("pool", "compact"):  # noisy prediction, then two cameras
         ms_state, ms_out = ms_step(ms_state, dm.stack_frames([dm.Frame(*f)] * 2))
         assert out.accepted and ms_out.accepted, layout
     assert int(out.metrics["alive"]) > 0 and int(ms_out.metrics["alive"]) > 0
+import contextlib, io
+from dspmap_tpu_torch.io import load_state, replay
+with contextlib.redirect_stdout(io.StringIO()) as said:
+    replay.main(["--cpu", "--tiny", "--frames", "2", "--csv", "p.csv",
+                 "--checkpoint", "c.npz"])
+assert "updates_per_sec" in said.getvalue()
+cfg = dm.example_node_settings(dm.dsp_dynamic(**replay.TINY))
+state = load_state(dm.init_state(cfg, seed=1, device="cpu"), "c.npz")
+assert state.update_counter == 2
+assert len(open("p.csv").read().splitlines()) == int(state.particles.valid.sum())
 print("OK", shapes)
 """
 
@@ -116,7 +129,8 @@ def test_port_copied_alone_runs_every_preset(tmp_path):
     beside it, ``jax`` blocked -- imports every module, builds a state for
     the flagship, static, multi-neighbor and compact presets and steps two
     frames of each on the CPU, then two frames of the noisy prediction
-    path and of the two-camera step on both layouts."""
+    path and of the two-camera step on both layouts, then two frames of the
+    replay CLI on the CPU with its CSV and its checkpoint, loaded back."""
     shutil.copytree(REPO / "dspmap_tpu_torch", tmp_path / "dspmap_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     env = dict(os.environ, PYTHONPATH=str(tmp_path))
