@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's eight paths and its IO on one CUDA card and
-check them.
+"""Drive the PyTorch port's eight paths, its IO and its sharded step on one
+CUDA card and check them.
 
 Run from the root of a checkout on a machine with an H100::
 
@@ -11,7 +11,9 @@ Phases (each prints one line; any failure raises and exits nonzero):
 1. the card: CUDA present, compute capability 9.x, name and power limit;
 2. build the port's CUDA kernels from ``dspmap_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes its paths give it, with inputs made from a numpy seed, plus the
+   shapes its paths give it (K2 also on the upper half of the flagship
+   pool, a slab of the sharded step, with ``cell_base = V/2``), with
+   inputs made from a numpy seed, plus the
    median time of each over 20 runs (``ms``: CUDA events around the
    wrapper; ``device_ms``: the kernel's own duration from the profiler's
    device-side events), the least time the card could take for the same
@@ -57,7 +59,18 @@ Phases (each prints one line; any failure raises and exits nonzero):
    on the card for the flagship and large_urban, resumed, and loaded on the
    CPU; the particle CSV of a card state against the CPU's; a
    ``torch.profiler`` trace of two flagship frames and its summary.  Each
-   sub-path pins its kernel launches as phase 4 does.
+   sub-path pins its kernel launches as phase 4 does;
+8. ``sharded`` (see :func:`check_sharded`): the sharded step of
+   ``dspmap_tpu_torch.parallel`` in two ranks that share the card (gloo:
+   NCCL takes one rank a card) on the flagship with the ``all_gather``
+   mover exchange and on large_urban with the ``ring`` exchange, six
+   frames each at full width, large_urban once more with update budgets
+   that neither step overflows, then the flagship for three frames in a
+   one-rank NCCL group; each rank's launches pinned, one frame of rank 0
+   watched for host syncs, the gathered state held to the unsharded card
+   step on the same frames and draws by phase 5's bars (large_urban at its
+   own budgets, which the whole map overflows, by what per-rank budgets
+   imply: see :data:`SHARDED`).
 
 The second-to-last line is a JSON object with every kernel's measurements,
 the last ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -66,11 +79,14 @@ JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -301,6 +317,51 @@ def check_kernels(label, cfg, device):
         rng, device))
     kernels.reset_launch_counts()
     return rows
+
+
+def check_sweep_slab(cfg, device):
+    """Phase 3, K2 on a slab of the sharded step: the upper half of
+    ``cfg``'s pool (``[S, V/2]``, ``cell_base = V/2``) against the plain
+    version at the same ``cell_base`` by :func:`check_kernels`' bars, and
+    every output bit-equal to the whole-pool launch's in the same columns.
+    Returns ``{kernel name: measurements}``."""
+    import torch
+    import dspmap_tpu_torch as dm
+    from dspmap_tpu_torch import geometry, kernels
+    from dspmap_tpu_torch.ops import sweep
+    from dspmap_tpu_torch.utils.kernel_times import populated_pool
+
+    pool = populated_pool(cfg, np.random.default_rng(0), device)
+    S, V = cfg.slots_per_voxel, cfg.storage_voxels
+    base = V // 2
+    slab = dm.Particles(**{f.name: getattr(pool, f.name)[:, base:].contiguous()
+                           for f in dataclasses.fields(dm.Particles)})
+    sensor = np.asarray([0.35, -0.2, 1.0], np.float32)
+    quat = np.asarray([np.cos(0.15), 0, 0, np.sin(0.15)], np.float32)
+    args = (cfg, np.float32(0.1), geometry.window_origin_np(sensor, cfg),
+            sensor, quat)
+    got = sweep.sweep_cuda(slab, *args, cell_base=base)
+    ref = sweep.sweep_reference(slab, *args, cell_base=base)
+    whole = sweep.sweep_cuda(pool, *args)
+    torch.cuda.synchronize()
+    err = max(float((got.px - ref.px).abs().max()),
+              float((got.py - ref.py).abs().max()))
+    _require(err <= 1e-5, f"K2 slab positions differ by {err}")
+    flips = {n: float((getattr(got, n) != getattr(ref, n)).float().mean())
+             for n in ("flags", "new_cell", "tags")}
+    _require(all(f < 1e-3 for f in flips.values()), f"K2 slab flips {flips}")
+    for n in ("px", "py", "flags", "new_cell", "tags"):
+        _require(torch.equal(getattr(got, n), getattr(whole, n)[:, base:]),
+                 f"K2 slab {n} differs from the whole pool's columns")
+    _require(float(got.mover.float().mean()) > 0.01, "K2 slab: no movers")
+    n = S * (V - base)
+    row = _row(err, lambda: sweep.sweep_cuda(slab, *args, cell_base=base),
+               lambda: sweep.sweep_reference(slab, *args, cell_base=base),
+               4 * 11 * n, K2_FLOPS_PER_SLOT * n,
+               shape=f"S={S} V={V - base} cell_base={base}", flips=flips)
+    _say("K2_slab_flagship", whole_pool_columns="bit-equal", **row)
+    kernels.reset_launch_counts()
+    return {"sweep": row}
 
 
 def check_moving_mask(label, cfg, device):
@@ -939,6 +1000,247 @@ def check_io(configs, device, smi) -> dict:
     return by_path
 
 
+#: the sharded phase's paths: (label, configuration, its overrides, mover
+#: exchange, ranks, backend, frames, bars).  Two ranks share the card over
+#: gloo; the one-rank group runs NCCL.  A slab's planes (the flagship's 18 x
+#: 87552 x 4 B = 6.3 MB) stay under the relayout's 16 MiB line, so no K5
+#: launch.  Bars "phase5" are :func:`card_vs_cpu`'s pinned ones.  The
+#: update's budgets (spill tier, pyramid cell) are each rank's, the JAX
+#: package's documented deviation, and large_urban's overflow them: the
+#: unsharded step leaves some 12,000 particles a frame out of the update and
+#: kills 215 in full pyramid cells, two ranks 9,600 and 35, and the
+#: particles they update besides lose weight (2.4% fewer alive, 8.7% less
+#: weight after 6 frames).  So "capacity" holds that path to what the
+#: deviation implies -- the ranks overflow no more than the one step, and
+#: alive within the JAX package's band for this comparison
+#: (tests/test_compact_shard.py: max(10, 5%)) -- and the "uncontested" path
+#: raises the update's budgets on both sides until neither overflows, where
+#: the phase-5 bars hold the sharded code itself.
+UNCONTESTED = dict(particle_spill_capacity=1 << 15, pyramid_slot_capacity=2048)
+SHARDED = (
+    ("sharded_flagship", "flagship", {}, "all_gather", 2, "gloo", 6,
+     "phase5"),
+    ("sharded_large_urban", "large_urban", {}, "ring", 2, "gloo", 6,
+     "capacity"),
+    ("sharded_large_urban_uncontested", "large_urban", UNCONTESTED, "ring", 2,
+     "gloo", 6, "phase5"),
+    ("sharded_flagship_nccl", "flagship", {}, "all_gather", 1, "nccl", 3,
+     "phase5"),
+)
+#: the frame of rank 0 watched for host syncs; the frames from it on are
+#: timed
+SHARDED_WATCHED = 1
+
+
+def path_configs():
+    """The paths' configurations, by label (phases 4, 5, 7 and 8)."""
+    import dspmap_tpu_torch as dm
+
+    return {
+        "flagship": dm.example_node_settings(dm.dsp_dynamic()),
+        "large_urban": dm.large_urban(),
+        "static": dm.example_node_settings(dm.dsp_static()),
+        "multi": dm.example_node_settings(dm.dsp_dynamic_multi_neighbors()),
+        "noisy": dm.example_node_settings(
+            dm.dsp_dynamic(limit_motion_to_xy_plane=False)),
+        "noisy_compact": dm.large_urban(limit_motion_to_xy_plane=False),
+        "multisensor_2cam": dm.example_node_settings(dm.dsp_dynamic()),
+        "multisensor_compact": dm.large_urban(),
+    }
+
+
+def _sharded_agreement(cfg, whole, out, ref, ref_out) -> dict:
+    """Phase 8's measures of the gathered sharded state against the
+    unsharded step's, as phase 5's :func:`_agreement` takes them -- except
+    the compact layout's ``flags_equal``: its rows are arranged by slab
+    in the one and by cell in the other, so it is the share of the
+    unsharded population that the sharded one places in the same voxels
+    (one minus the summed per-voxel count differences over the unsharded
+    alive count)."""
+    import torch
+    from dspmap_tpu_torch import geometry
+
+    ref = ref.to("cpu")  # _agreement's second state lies on the CPU
+    m = _agreement((whole, out), (ref, ref_out))
+    if cfg.layout == "compact":
+        def counts(p):
+            cell = geometry.storage_index_planar(*geometry.world_voxel_planar(
+                p.px, p.py, p.pz, cfg), cfg)
+            return torch.bincount(cell[p.flags != 0].long(),
+                                  minlength=cfg.storage_voxels).cpu()
+        diff = int((counts(whole.particles)
+                    - counts(ref.particles)).abs().sum())
+        m["flags_equal"] = 1.0 - diff / max(m["alive_cpu"], 1)
+    m["alive_unsharded"] = m.pop("alive_cpu")
+    m["alive_sharded"] = m.pop("alive_card")
+    return m
+
+
+def _sharded_path(label, cfg, mesh, n_frames, per_frame, bars, device):
+    """One path of phase 8 in this rank: the sharded step from a fresh
+    state over ``n_frames`` frames with the launch counts set to 0 before
+    and pinned after, rank 0's watched frame, and on rank 0 the gathered
+    state against the unsharded step's by ``bars`` (see :data:`SHARDED`).
+    Returns this rank's record."""
+    import torch
+    import dspmap_tpu_torch as dm
+    from dspmap_tpu_torch import kernels
+    from dspmap_tpu_torch.utils import sim
+
+    step = dm.make_shardmap_step(cfg, mesh, device=device)
+    state = dm.shard_state(dm.init_state(cfg, seed=0, device=device), mesh)
+    _require(state.device.type == "cuda" and all(
+        getattr(state.particles, f.name).is_cuda
+        for f in dataclasses.fields(dm.Particles)),
+        f"{label}: a slab off the card")
+    frames = [dm.Frame(*f) for f in sim.generate_sequence(n_frames, cfg,
+                                                           seed=0)]
+    syncs, ms = [], []
+    kernels.reset_launch_counts()
+    for i, frame in enumerate(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == SHARDED_WATCHED and mesh.rank == 0:
+            (state, out), syncs = _watch_syncs(lambda: step(state, frame))
+        else:
+            state, out = step(state, frame)
+        torch.cuda.synchronize()
+        if i >= SHARDED_WATCHED:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        _require(out.accepted, f"{label} frame {i} rejected")
+    launches = dict(kernels.LAUNCHES)
+    _pinned(f"{label} rank {mesh.rank}", launches,
+            {k: v * n_frames for k, v in per_frame.items()})
+    # gloo stages a CUDA collective through the host on threads of its own,
+    # which print their syncs and are not flagged here
+    _require(not syncs, f"{label}: host syncs in rank 0's step: {syncs}")
+    whole = dm.gather_state(state, mesh)
+    rec = dict(launches=launches, median_frame_ms=statistics.median(ms),
+               alive=int(out.metrics["alive"]))
+    if mesh.rank == 0:
+        _require(bool(torch.isfinite(whole.weight_sum).all()
+                      and torch.isfinite(whole.future).all()),
+                 f"{label}: not finite")
+        ustep = dm.make_step(cfg)
+        ref = dm.init_state(cfg, seed=0, device=device)
+        for frame in frames:
+            ref, ref_out = ustep(ref, frame)
+        m = _sharded_agreement(cfg, whole, out, ref, ref_out)
+        w0, w1 = float(ref.weight_sum.sum()), float(whole.weight_sum.sum())
+        m.update(weight_total_unsharded=w0, weight_total_sharded=w1,
+                 **{f"{k}_sharded_unsharded": [int(out.metrics[k]),
+                                               int(ref_out.metrics[k])]
+                    for k in ("update_spill_overflow", "pyramid_full_killed",
+                              "mover_overflow_killed")})
+        if bars == "capacity":
+            a0, a1 = m["alive_unsharded"], m["alive_sharded"]
+            _require(abs(a0 - a1) <= max(10, 0.05 * a0), f"{label} alive {m}")
+            for k in ("update_spill_overflow", "pyramid_full_killed"):
+                got, want = m[f"{k}_sharded_unsharded"]
+                _require(got <= want, f"{label} {k} {m}")
+        else:
+            flag_bar = 0.995 if cfg.layout == "compact" else 0.999
+            _require(m["flags_equal"] >= flag_bar, f"{label} flags {m}")
+            _require(m["alive_rel"] <= 0.005, f"{label} alive {m}")
+            _require(m["weight_sum_close"] >= 0.999,
+                     f"{label} weight_sum {m}")
+            _require(m["future_close"] >= 0.999, f"{label} future grid {m}")
+        rec.update(agreement=m, host_syncs_in_watched_frame=len(syncs))
+    return rec
+
+
+def _sharded_rank(rank, n, port, out_dir):
+    """Phase 8 in rank ``rank`` of ``n`` (started by
+    ``torch.multiprocessing.spawn``): a gloo group of the ``n`` ranks on
+    ``cuda:0``, a one-rank NCCL group of rank 0 inside it, every path of
+    :data:`SHARDED` this rank takes part in; its records go to
+    ``out_dir/rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from dspmap_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=n, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        nccl = dist.new_group([0], backend="nccl")  # every rank makes it
+        configs, records = path_configs(), {}
+        for (label, base, overrides, exchange, ranks, backend, frames,
+             bars) in SHARDED:
+            if rank >= ranks:
+                continue
+            cfg = dataclasses.replace(configs[base], mover_exchange=exchange,
+                                      **overrides)
+            mesh = make_mesh(ranks, group=nccl if backend == "nccl" else None)
+            per_frame = PATHS[base][3]
+            records[label] = _sharded_path(label, cfg, mesh, frames,
+                                           per_frame, bars, device)
+        dist.barrier()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(records, f)
+    except BaseException:
+        # the other rank then fails in its next collective, and spawn may
+        # report that one: keep this rank's own account for check_sharded
+        import traceback
+
+        with open(os.path.join(out_dir, f"error{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def check_sharded(smi) -> dict:
+    """Phase 8: two ranks on the card run :data:`SHARDED`
+    (:func:`_sharded_rank`); a rank that fails fails the phase.  Prints a
+    line a path with each rank's launches, rank 0's frame median and its
+    agreement with the unsharded step.  Returns the launches by path and
+    rank."""
+    import torch.multiprocessing as mp
+
+    n = max(path[4] for path in SHARDED)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            mp.spawn(_sharded_rank, args=(n, port, tmp), nprocs=n, join=True)
+        except Exception:
+            for r in range(n):
+                path = os.path.join(tmp, f"error{r}.txt")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        print(f"[sharded_rank{r}_error]\n{f.read()}",
+                              file=sys.stderr, flush=True)
+            raise
+        seconds = time.perf_counter() - t0
+        records = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                records.append(json.load(f))
+    for (label, base, overrides, exchange, ranks, backend, frames,
+         bars) in SHARDED:
+        recs = [records[r][label] for r in range(ranks)]
+        for r, rec in enumerate(recs):
+            by_path[f"{label}_rank{r}"] = rec["launches"]
+        _say(label, config=base, overrides=json.dumps(overrides),
+             exchange=exchange, ranks=ranks, backend=backend, frames=frames,
+             bars=bars,
+             median_frame_ms=recs[0]["median_frame_ms"],
+             launches=json.dumps([rec["launches"] for rec in recs]),
+             host_syncs_in_watched_frame=recs[0]["host_syncs_in_watched_frame"],
+             alive=json.dumps([rec["alive"] for rec in recs]),
+             **recs[0]["agreement"], card=json.dumps(smi))
+    _say("sharded", seconds_with_spawn=seconds)
+    return by_path
+
+
 #: kernel -> (source, the TPU kernel it replaces, the configuration whose
 #: shape the row's own numbers are taken at)
 KERNELS = {
@@ -984,7 +1286,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import dspmap_tpu_torch as dm
     from dspmap_tpu_torch import kernels
 
     major, minor = torch.cuda.get_device_capability(0)
@@ -1002,20 +1303,11 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     check_cuda_cost(device)
-    configs = {
-        "flagship": dm.example_node_settings(dm.dsp_dynamic()),
-        "large_urban": dm.large_urban(),
-        "static": dm.example_node_settings(dm.dsp_static()),
-        "multi": dm.example_node_settings(dm.dsp_dynamic_multi_neighbors()),
-        "noisy": dm.example_node_settings(
-            dm.dsp_dynamic(limit_motion_to_xy_plane=False)),
-        "noisy_compact": dm.large_urban(limit_motion_to_xy_plane=False),
-        "multisensor_2cam": dm.example_node_settings(dm.dsp_dynamic()),
-        "multisensor_compact": dm.large_urban(),
-    }
+    configs = path_configs()
     _require(list(configs) == list(PATHS), "a path without a configuration")
     by_shape = {label: check_kernels(label, configs[label], device)
                 for label in ("flagship", "static", "multi")}
+    by_shape["flagship_slab"] = check_sweep_slab(configs["flagship"], device)
     # K1's moving mask, as the noisy and the two-camera pool paths take it
     for label in ("noisy", "multisensor_2cam"):
         by_shape[label] = check_moving_mask(label, configs[label], device)
@@ -1047,6 +1339,7 @@ def main() -> int:
     finally:
         flag.allow_tf32 = saved
     by_path.update(check_io(configs, device, smi))
+    by_path.update(check_sharded(smi))
 
     _say("total", seconds=time.perf_counter() - started)
     print(smi)

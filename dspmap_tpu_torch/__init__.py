@@ -14,7 +14,9 @@ unless the caller names another device.  ``io`` holds the replay entry
 point (``python -m dspmap_tpu_torch.io.replay``), checkpoints in the JAX
 package's file format (they load in either package), the particle CSV, bag
 and native ingestion and the ROS bridges; ``utils`` the markers, PLY
-exports and ``torch.profiler`` tracing.
+exports and ``torch.profiler`` tracing.  ``parallel`` splits the map over
+processes, a slab of the voxel grid each, on ``torch.distributed``
+(``make_shardmap_step``, ``shard_state``, ``gather_state``).
 
 Quick start::
 
@@ -65,4 +67,12 @@ from .models.pipeline import (  # noqa: F401
     set_newborn_particle_weight,
     set_detection_probability,
     set_clutter_intensity,
+)
+from .parallel import (  # noqa: F401
+    make_mesh,
+    state_shardings,
+    shard_state,
+    gather_state,
+    make_sharded_step,
+    make_shardmap_step,
 )

@@ -1,5 +1,8 @@
 // Fused per-slot sweep (replaces dspmap_tpu/ops/pallas/sweep.py::sweep_pallas;
-// spec: dspmap_tpu_torch/ops/sweep.py::sweep_reference at cell_base = 0).
+// spec: dspmap_tpu_torch/ops/sweep.py::sweep_reference).  `cell_base` is the
+// global storage cell of column 0: 0 on the whole pool, the slab's first cell
+// on a slab of the sharded step, where a slot is a mover when its new cell
+// differs from cell_base + column (new_cell stays global).
 //
 // Per [S, V] slot: constant-velocity advance, world voxel, window test and
 // moved-out kill, toroidal storage cell, mover mask, rotation into the sensor
@@ -28,6 +31,7 @@ struct SweepArgs {
   float dt, sx0, sy0, sz0, inv_res, half_h, half_v, res;
   float R[9];
   int ox, oy, oz, sox, soy, soz, nx, ny, nz, nph, npv, advance;
+  int cell_base;
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -64,7 +68,7 @@ __global__ void sweep_kernel(SweepArgs a) {
   if (cy >= a.ny) cy -= a.ny;
   if (cz >= a.nz) cz -= a.nz;
   const int cell = (cz * a.ny + cy) * a.nx + cx;
-  const bool mover = valid && inside && cell != col;
+  const bool mover = valid && inside && cell != a.cell_base + col;
 
   const float ex = subf(px, a.sx0), ey = subf(py, a.sy0), ez = subf(pz, a.sz0);
   const float fx = addf(addf(mulf(a.R[0], ex), mulf(a.R[1], ey)), mulf(a.R[2], ez));
@@ -92,7 +96,7 @@ __global__ void sweep_kernel(SweepArgs a) {
 
 // ptrs: flags px py pz vx vy | opx opy oflags ocell otags
 // fparams: dt sx0 sy0 sz0 inv_res half_h half_v res R[9]
-// iparams: S V ox oy oz sox soy soz nx ny nz nph npv advance
+// iparams: S V ox oy oz sox soy soz nx ny nz nph npv advance cell_base
 DSPMAP_API int dspmap_sweep(const uint64_t* ptrs, const float* f,
                             const int* ip, void* stream) {
   SweepArgs a;
@@ -116,6 +120,7 @@ DSPMAP_API int dspmap_sweep(const uint64_t* ptrs, const float* f,
   a.sox = ip[5]; a.soy = ip[6]; a.soz = ip[7];
   a.nx = ip[8]; a.ny = ip[9]; a.nz = ip[10];
   a.nph = ip[11]; a.npv = ip[12]; a.advance = ip[13];
+  a.cell_base = ip[14];
   a.n = (long long)S * a.V;
   if (a.n == 0) return 0;
   const int threads = 256;

@@ -21,11 +21,17 @@ Admission control (``dsp_dynamic.h:193-208``) is decided on the host from
 the frame's numpy inputs and the state's host copy of the last pose and
 timestamp; a rejected frame returns the state unchanged.  Nothing else in
 the step reads a device value on the host.
+
+``make_step(cfg, shard=ShardCtx(...))`` builds the step of one rank of the
+sharded step (``parallel/``): the state is the rank's slab, the frame, the
+estimator and the replicated draws are the same on every rank, and the
+cross-slab work runs as collectives.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import NamedTuple
 
 import numpy as np
@@ -42,9 +48,10 @@ from ..ops.sweep import sweep
 from ..ops.fov import rebin_and_register, register_fov
 from ..ops.update import measurement_update
 from ..ops.birth import particle_birth, particle_birth_compact
-from ..ops.common import padded_buffer, to_device
+from ..ops.common import ShardCtx, padded_buffer, to_device
 from ..ops.compact import (fov_geometry_compact, occupancy_compact,
-                           rebin_compact, register_fov_compact, sweep_compact)
+                           rebin_compact, rebin_exchange_compact,
+                           register_fov_compact, sweep_compact)
 from ..ops.occupancy import occupancy_and_resample
 from ..ops.relayout import zeros_flat
 
@@ -84,6 +91,11 @@ COMPACT_METRIC_NAMES = METRIC_NAMES + ("pool_overflow",)
 MULTISENSOR_METRIC_NAMES = ("alive", "culled", "resampled_voxels",
                             "resample_dropped", "resample_copies",
                             "future_moving", "future_overflow")
+#: metrics that the sharded step computes from replicated inputs: the same
+#: on every rank, so they are not summed over the ranks (every other
+#: counter is the rank's part of the sum)
+REPLICATED_METRICS = frozenset({"valid_points", "newborn_weight",
+                                "birth_candidates", "obs_spill_overflow"})
 
 
 def is_noisy(cfg: MapConfig) -> bool:
@@ -92,10 +104,24 @@ def is_noisy(cfg: MapConfig) -> bool:
     return not (cfg.limit_motion_to_xy_plane or cfg.motion_model == "static")
 
 
-def _particle_shape(cfg: MapConfig) -> tuple:
+def _particle_shape(cfg: MapConfig, n_shards: int = 1) -> tuple:
+    """The shape of a particle plane, or of a slab's of ``n_shards``."""
     if cfg.layout == "compact":
-        return (cfg.compact_capacity,)
-    return (cfg.slots_per_voxel, cfg.storage_voxels)
+        return (cfg.compact_capacity // n_shards,)
+    return (cfg.slots_per_voxel, cfg.storage_voxels // n_shards)
+
+
+def rank_generator(gen: torch.Generator, rank: int) -> torch.Generator:
+    """A generator of ``rank``'s own draws, on ``gen``'s device, seeded from
+    ``gen``'s state and ``rank`` (the counterpart of the JAX package's
+    ``fold_in(key, axis_index)``): the same for the same state and rank,
+    different across ranks and, as ``gen`` advances, across frames.
+    Reading the state of a CUDA generator does not wait for the card."""
+    h = hashlib.blake2b(gen.get_state().numpy().tobytes(), digest_size=8)
+    h.update(int(rank).to_bytes(4, "little"))
+    out = torch.Generator(device=gen.device)
+    out.manual_seed(int.from_bytes(h.digest(), "little") >> 1)
+    return out
 
 
 def _sensor_draws(cfg: MapConfig, gen: torch.Generator, device,
@@ -112,19 +138,27 @@ def _sensor_draws(cfg: MapConfig, gen: torch.Generator, device,
             torch.randn((2,) + _particle_shape(cfg), **kw))
 
 
-def make_draws(cfg: MapConfig, gen: torch.Generator, device):
+def make_draws(cfg: MapConfig, gen: torch.Generator, device, shard=None):
     """The step's random draws from ``gen``: ``(fresh_intensity [C] on
     [0.1, 1), noise_p, noise_v [P, n_b, 3] standard normal, noise_u
     [P, n_b, 3] on [-1, 1))``; a noisy-prediction configuration
     (:func:`is_noisy`) appends the standard normals ``prop_noise`` ``[3,
     S, V]`` and ``fov_noise`` ``[2, S, V]`` (``[3, P]`` and ``[2, P]`` in
-    the compact layout), drawn after the other four."""
+    the compact layout), drawn after the other four.
+
+    With ``shard`` (a :class:`~..ops.common.ShardCtx`) the first four are
+    replicated -- drawn from ``gen``, which is the same on every rank --
+    and the two pool-shaped ones are the rank's own, at the slab's shape
+    (``[3, S, V/n]``, ``[2, S, V/n]``; ``[3, P/n]``, ``[2, P/n]``), drawn
+    from :func:`rank_generator`."""
     draws = _sensor_draws(cfg, gen, device, fov=False)
     if not is_noisy(cfg):
         return draws
-    kw = dict(generator=gen, device=device, dtype=torch.float32)
-    prop = torch.randn((3,) + _particle_shape(cfg), **kw)
-    return draws + (prop, torch.randn((2,) + _particle_shape(cfg), **kw))
+    n = 1 if shard is None else shard.n_shards
+    own = gen if shard is None else rank_generator(gen, shard.rank)
+    kw = dict(generator=own, device=device, dtype=torch.float32)
+    prop = torch.randn((3,) + _particle_shape(cfg, n), **kw)
+    return draws + (prop, torch.randn((2,) + _particle_shape(cfg, n), **kw))
 
 
 def make_multisensor_draws(cfg: MapConfig, n_sensors: int,
@@ -204,14 +238,24 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
     their counters every frame, and only the returned dict is trimmed.
     ``admission_control=False`` runs the frame whatever its pose and time
     step; ``StepOutput.accepted`` still says whether admission control
-    would have taken it.  ``shard`` (the JAX package's sharded fast path)
-    is not ported: anything but ``None`` raises.
+    would have taken it.
+
+    ``shard`` (a :class:`~..ops.common.ShardCtx`) builds one rank's step of
+    the sharded step (``parallel.make_shardmap_step`` builds it for a
+    mesh): the state is the rank's slab (``parallel.shard_state``), the
+    frame is the same on every rank, and the cross-slab work runs as
+    collectives over the ranks -- the sum of the C(z) partials, the mover
+    and future-mover exchanges, the sum of birth's classification, and one
+    sum of the counters (all but :data:`REPLICATED_METRICS`).  On a noisy
+    configuration each rank draws its own pool-shaped noise
+    (:func:`make_draws`).
     """
     cfg.validate()
-    if shard is not None:
-        raise NotImplementedError(
-            "the sharded step is not ported yet (ROADMAP.md, queue 1, item 19)")
+    if shard is not None and not isinstance(shard, ShardCtx):
+        raise TypeError(
+            f"shard must be a ShardCtx, got {type(shard).__name__}")
     compact = cfg.layout == "compact"
+    lo = 0 if shard is None else shard.lo
     noisy = is_noisy(cfg)
 
     def step(state: MapState, frame: Frame, draws=None):
@@ -225,7 +269,7 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
             return state, _rejected(state, cfg, with_metrics)
 
         if draws is None:
-            draws = make_draws(cfg, state.gen, dev)
+            draws = make_draws(cfg, state.gen, dev, shard)
         fresh, noise_p, noise_v, noise_u, *noise = _on_device(draws, dev)
         prop_noise, fov_noise = noise if noisy else (None, None)
         origin = geometry.window_origin_np(sensor_pos, cfg)
@@ -246,20 +290,27 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
         if compact:
             p, sw = sweep_compact(p, cfg, dt, origin, sensor_pos, quat,
                                   prop_noise, rt)
-            p, _, rebin_stats = rebin_compact(p, sw, cfg)
+            if shard is None:
+                p, _, rebin_stats = rebin_compact(p, sw, cfg)
+                pyr, fov_mask = sw.pyr, sw.fov
+            else:
+                # arrivals changed the slab's rows: the FOV geometry is
+                # taken anew
+                p, rebin_stats = rebin_exchange_compact(p, sw, cfg, shard)
+                pyr, fov_mask = fov_geometry_compact(p, cfg, sensor_pos, quat)
             p, fovbin, fov_stats = register_fov_compact(
-                p, cfg, sw.pyr, sw.fov, sensor_pos, fov_noise, rt)
+                p, cfg, pyr, fov_mask, sensor_pos, fov_noise, rt)
             fov_stats.update(rebin_stats)
         elif noisy:
             # no flat mid-frame phase here, as in the JAX package: the
             # planes stay [S, V] through birth
             p = propagate(p, cfg, prop_noise, dt, rt)
-            p, rebin_stats = rebin(p, cfg, origin, update_time)
+            p, rebin_stats = rebin(p, cfg, origin, update_time, shard)
             p, fovbin, fov_stats = register_fov(p, cfg, sensor_pos, quat,
                                                 fov_noise, rt)
             fov_stats.update(rebin_stats)
         else:
-            sw = sweep(p, cfg, dt, origin, sensor_pos, quat)
+            sw = sweep(p, cfg, dt, origin, sensor_pos, quat, cell_base=lo)
             p = dataclasses.replace(p, px=sw.px, py=sw.py, pz=sw.pz,
                                     flags=sw.flags)
             # -- flat mid-frame phase (state.flatten_pool): from here
@@ -284,11 +335,11 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
             sw = sw._replace(tags=sw.tags.view(-1),
                              new_cell=sw.new_cell.view(-1))
             p, fovbin, future_movers, fov_stats = rebin_and_register(
-                p, cfg, sw, sensor_pos, update_time)
+                p, cfg, sw, sensor_pos, update_time, shard)
 
         # -- measurement update (dsp_dynamic.h:304,704-793) -------------
         p, norm_coeff, upd_stats = measurement_update(
-            p, fovbin, obs, cfg, expected_newborn, update_time, rt)
+            p, fovbin, obs, cfg, expected_newborn, update_time, rt, shard)
 
         # -- particle birth (dsp_dynamic.h:315,796-921) -----------------
         birth = particle_birth_compact if compact else particle_birth
@@ -297,15 +348,15 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
             est_points=est_out.points, est_vel=est_out.vel,
             est_dynamic=est_out.dynamic, est_valid=est_out.valid,
             norm_coeff=norm_coeff, origin=origin, update_time=update_time,
-            rt=rt)
+            rt=rt, shard=shard)
 
         # -- occupancy + future + resample (dsp_dynamic.h:322,924) ------
         if compact:
             p, weight_sum, vel_avg, future, occ_stats = occupancy_compact(
-                p, cfg, origin, state.future)
+                p, cfg, origin, state.future, shard)
         else:
             p, weight_sum, vel_avg, future, occ_stats = occupancy_and_resample(
-                p, cfg, origin, state.future, future_movers)
+                p, cfg, origin, state.future, future_movers, shard)
 
         new_state = dataclasses.replace(
             state, particles=p, weight_sum=weight_sum, vel_avg=vel_avg,
@@ -322,10 +373,22 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
                                             + occ_stats["pool_overflow"])
         else:
             metrics = {"alive": occ_stats["alive"]}
+        if shard is not None:
+            metrics = _sum_counters(metrics, shard)
         cloud = (est_out.points, est_out.vel, est_out.dynamic, est_out.valid)
         return new_state, StepOutput(accepted, weight_sum, metrics, cloud)
 
     return step
+
+
+def _sum_counters(metrics: dict, shard: ShardCtx) -> dict:
+    """Every counter but :data:`REPLICATED_METRICS` summed over the ranks,
+    in one collective (the counters ride one int64 vector)."""
+    names = [k for k in metrics if k not in REPLICATED_METRICS]
+    total = shard.psum(torch.stack([metrics[k].to(torch.int64)
+                                    for k in names]))
+    return {**metrics, **{k: v.to(metrics[k].dtype)
+                          for k, v in zip(names, total.unbind(0))}}
 
 
 def stack_frames(frames) -> Frame:

@@ -2,7 +2,13 @@
 arbitration (mirrors ``dspmap_tpu/ops/birth.py``; see its docstring for the
 reference semantics).  The random draws are arguments: ``noise_p`` and
 ``noise_v`` standard normal and ``noise_u`` uniform on [-1, 1), each
-``[P, n_b, 3]``."""
+``[P, n_b, 3]``.
+
+On a slab of the sharded step (``shard``, a :class:`~.common.ShardCtx`)
+the per-point DS classification sums are taken over the rank's own voxels
+and summed over the ranks (``all_reduce``); the estimator points and the
+draws are the same on every rank, so every rank derives the same newborn
+table, and each inserts only the newborns whose voxel it owns."""
 
 from __future__ import annotations
 
@@ -52,8 +58,28 @@ def birth_table(cfg: MapConfig, est_points, est_vel, est_dynamic, w_static,
     return pos, vel
 
 
+def _owned_cells(point_valid, cell_g, n_cells: int, shard):
+    """``(owned, cell)``: the points whose voxel this rank owns and their
+    local cell (clipped into the slab)."""
+    if shard is None:
+        return point_valid, cell_g.to(torch.int64)
+    owned = point_valid & shard.owns(cell_g, n_cells)
+    return owned, (cell_g - shard.lo).clamp(0, n_cells - 1).to(torch.int64)
+
+
+def _point_sums(tables, owned, cell, shard):
+    """Each per-voxel table read at the points' cells (0 where not owned),
+    summed over the ranks on a slab."""
+    zero = torch.zeros((), dtype=torch.float32, device=cell.device)
+    sums = torch.stack([torch.where(owned, t[cell], zero) for t in tables])
+    if shard is not None:
+        sums = shard.psum(sums)
+    return sums.unbind(0)
+
+
 def particle_birth(particles, cfg: MapConfig, draws, *, est_points, est_vel,
-                   est_dynamic, est_valid, norm_coeff, origin, update_time, rt):
+                   est_dynamic, est_valid, norm_coeff, origin, update_time, rt,
+                   shard=None):
     """Returns ``(new_particles, stats)``; ``draws = (noise_p, noise_v,
     noise_u)``.  The pool planes are ``[S, V]`` or flat ``[S*V]``; a flat
     working plane is written in place."""
@@ -63,10 +89,11 @@ def particle_birth(particles, cfg: MapConfig, draws, *, est_points, est_vel,
 
     wv = geometry.world_voxel(est_points, cfg)
     point_valid = est_valid & geometry.in_window(wv, origin, cfg)
-    cell = torch.where(point_valid, geometry.storage_index(wv, cfg), 0)
+    cell_g = torch.where(point_valid, geometry.storage_index(wv, cfg), 0)
 
     # per-voxel class-weight tables, summed over slots in slot order
     S, V = pool_sv(particles.flags, cfg)
+    owned, cell = _owned_cells(point_valid, cell_g, V, shard)
     if cfg.motion_model == "static":
         v_planes = ()
     elif cfg.limit_motion_to_xy_plane:
@@ -88,10 +115,8 @@ def particle_birth(particles, cfg: MapConfig, draws, *, est_points, est_vel,
         w_static_v = w_static_v + torch.where(l1 < 0.1, w_c, zero)
         w_mid_v = w_mid_v + torch.where((l1 >= 0.1) & (l1 < 0.5), w_c, zero)
         w_dyn_v = w_dyn_v + torch.where(l1 >= 0.5, w_c, zero)
-    c64 = cell.to(torch.int64)
-    w_static = torch.where(point_valid, w_static_v[c64], zero)
-    w_mid = torch.where(point_valid, w_mid_v[c64], zero)
-    w_dyn = torch.where(point_valid, w_dyn_v[c64], zero)
+    w_static, w_mid, w_dyn = _point_sums((w_static_v, w_mid_v, w_dyn_v),
+                                         owned, cell, shard)
 
     pos, vel = birth_table(cfg, est_points, est_vel, est_dynamic, w_static,
                            w_mid, w_dyn, rt, *draws)
@@ -102,6 +127,7 @@ def particle_birth(particles, cfg: MapConfig, draws, *, est_points, est_vel,
         weight=w_new.expand(births), valid=valid, origin=origin,
         flag=FLAG_NEWBORN,
         t=update_time if cfg.record_particle_time else None,
+        cell_base=0 if shard is None else shard.lo,
     )
     stats = {
         "birth_candidates": valid.sum(),
@@ -113,7 +139,7 @@ def particle_birth(particles, cfg: MapConfig, draws, *, est_points, est_vel,
 
 def particle_birth_compact(particles, cfg: MapConfig, draws, *, est_points,
                            est_vel, est_dynamic, est_valid, norm_coeff, origin,
-                           update_time, rt):
+                           update_time, rt, shard=None):
     """:func:`particle_birth` over the compact layout: the per-voxel class
     tables come from one O(alive) segment table and the newborns land in
     free rows (per-voxel capacity exact, the global row budget counted in
@@ -138,7 +164,10 @@ def particle_birth_compact(particles, cfg: MapConfig, draws, *, est_points,
     w_c = torch.where(considered, particles.weight, zero)
     wx, wy, wz = geometry.world_voxel_planar(particles.px, particles.py,
                                              particles.pz, cfg)
-    cell_p = geometry.storage_index_planar(wx, wy, wz, cfg)
+    n_cells = (cfg.storage_voxels if shard is None
+               else cfg.storage_voxels // shard.n_shards)
+    cell_p = geometry.storage_index_planar(wx, wy, wz, cfg) - (
+        0 if shard is None else shard.lo)
     alive = particles.flags != 0
     w_static_v, w_mid_v, w_dyn_v, count_v = segment_table(
         cell_p, alive,
@@ -146,15 +175,15 @@ def particle_birth_compact(particles, cfg: MapConfig, draws, *, est_points,
          torch.where(considered & (l1 >= 0.1) & (l1 < 0.5), w_c, zero),
          torch.where(considered & (l1 >= 0.5), w_c, zero),
          alive),  # current occupancy: the capacity baseline
-        cfg.storage_voxels, max_run=cfg.slots_per_voxel)
+        n_cells, max_run=cfg.slots_per_voxel)
 
     wv = geometry.world_voxel(est_points, cfg)
     point_valid = est_valid & geometry.in_window(wv, origin, cfg)
-    cell = torch.where(point_valid, geometry.storage_index(wv, cfg),
-                       0).to(torch.int64)
-    w_static = torch.where(point_valid, w_static_v[cell], zero)
-    w_mid = torch.where(point_valid, w_mid_v[cell], zero)
-    w_dyn = torch.where(point_valid, w_dyn_v[cell], zero)
+    owned, cell = _owned_cells(
+        point_valid, torch.where(point_valid, geometry.storage_index(wv, cfg),
+                                 0), n_cells, shard)
+    w_static, w_mid, w_dyn = _point_sums((w_static_v, w_mid_v, w_dyn_v),
+                                         owned, cell, shard)
 
     pos, vel = birth_table(cfg, est_points, est_vel, est_dynamic, w_static,
                            w_mid, w_dyn, rt, *draws)
@@ -165,7 +194,7 @@ def particle_birth_compact(particles, cfg: MapConfig, draws, *, est_points,
         weight=w_new.expand(births), valid=valid, origin=origin,
         flag=FLAG_NEWBORN,
         t=update_time if cfg.record_particle_time else None,
-        count_v=count_v)
+        count_v=count_v, shard=shard)
     stats = {
         "birth_candidates": valid.sum(),
         "born": born,

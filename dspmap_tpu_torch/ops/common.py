@@ -14,14 +14,21 @@ Pool planes come in two forms (:func:`pool_sv`): ``[S, V]`` and the flat
 flat plane may be a *working plane* (:func:`working_plane`): the prefix view
 of a padded buffer that the step owns, into which :func:`pool_put` and
 :func:`pool_fill` write in place.
+
+:class:`ShardCtx` is the map-parallel context of the sharded step: one
+process per shard, each holding a contiguous slab of the voxel grid, with
+the JAX package's ``psum`` / ``all_gather`` / ``ppermute`` as
+``torch.distributed`` collectives.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 I32_MAX = 2**31 - 1
 
@@ -232,3 +239,137 @@ def select_rows(table: torch.Tensor, row_idx: torch.Tensor, n_rows: int):
     for j in range(1, n_rows):
         out = torch.where(row_idx == j, table[j], out)
     return out
+
+
+#: the transports of :meth:`ShardCtx.gather_ring`
+RING_TRANSPORTS = ("p2p", "all_gather")
+
+
+def ring_transport(group, device) -> str:
+    """The transport :meth:`ShardCtx.gather_ring` takes for ``group``'s
+    backend and tensors on ``device``: point-to-point sends
+    (``batch_isend_irecv``), except where the backend cannot send CUDA
+    tensors point to point (gloo), where it is an ``all_gather`` from which
+    each rank takes its ring neighbours.  Both deliver the same tensor."""
+    if not dist.is_initialized():
+        return "p2p"  # a mesh of one process: no transport is used
+    if (torch.device(device).type == "cuda"
+            and dist.get_backend(group) == "gloo"):
+        return "all_gather"
+    return "p2p"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Map-axis context of the sharded step (the JAX package's ``ShardCtx``
+    of its ``shard_map`` fast path).  Every ``[S, V]`` / ``[V, ...]`` /
+    ``[P]`` operand is this rank's contiguous slab; ``lo`` is the slab's
+    first global storage cell, so ``global_cell - lo`` is the local column
+    and ownership is ``0 <= global_cell - lo < V_local``.
+
+    ``group`` is the process group (``None``: the default group; with
+    ``n_shards == 1`` and no process group initialized, every collective is
+    the identity).  ``transport`` is :meth:`gather_ring`'s, chosen once by
+    the caller (:func:`ring_transport`); it never changes the result."""
+
+    n_shards: int
+    rank: int
+    lo: int
+    group: object = None
+    transport: str = "p2p"
+
+    def __post_init__(self):
+        if self.transport not in RING_TRANSPORTS:
+            raise ValueError(f"transport {self.transport!r} not in "
+                             f"{RING_TRANSPORTS}")
+        if not 0 <= self.rank < self.n_shards:
+            raise ValueError(f"rank {self.rank} outside [0, {self.n_shards})")
+
+    @property
+    def _alone(self) -> bool:
+        return self.n_shards == 1 and not dist.is_initialized()
+
+    def owns(self, cell: torch.Tensor, v_local: int) -> torch.Tensor:
+        local = cell - self.lo
+        return (local >= 0) & (local < v_local)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the ranks (a new tensor; ``x`` is kept)."""
+        y = x.clone()
+        if not self._alone:
+            dist.all_reduce(y, group=self.group)
+        return y
+
+    def _all_gather(self, x: torch.Tensor) -> list:
+        if self._alone:
+            return [x]
+        x = x.contiguous()
+        out = [torch.empty_like(x) for _ in range(self.n_shards)]
+        dist.all_gather(out, x, group=self.group)
+        return out
+
+    def gather_flat(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along dim 0 in rank order
+        (shard-major: the cross-shard arrival order)."""
+        return torch.cat(self._all_gather(x))
+
+    def _ring_peers(self, hops: int) -> list:
+        """``(h, sign)`` in the order of the parts after this rank's own:
+        the buffer of rank ``rank - sign*h`` for ``h = 1..min(hops,
+        (n-1)//2)`` and ``sign = +1, -1``."""
+        reach = min(hops, (self.n_shards - 1) // 2)
+        return [(h, sign) for h in range(1, reach + 1) for sign in (1, -1)]
+
+    def _global(self, rank: int) -> int:
+        return (rank if self.group is None
+                else dist.get_global_rank(self.group, rank))
+
+    def gather_ring(self, x: torch.Tensor, hops: int = 1) -> torch.Tensor:
+        """This rank's ``x`` followed by its ``hops`` nearest neighbours'
+        in each direction (``ppermute`` in the JAX package): the buffers of
+        ranks ``r-1, r+1, r-2, r+2, ...`` with ``hops`` clamped to
+        ``(n-1)//2``.  Movers bound further away are not delivered; the
+        caller counts them (:meth:`ring_reachable`)."""
+        n, r = self.n_shards, self.rank
+        peers = self._ring_peers(hops)
+        if not peers:
+            return x
+        if self.transport == "all_gather":
+            parts = self._all_gather(x)
+            return torch.cat([x] + [parts[(r - sign * h) % n]
+                                    for h, sign in peers])
+        x = x.contiguous()
+        bufs = [torch.empty_like(x) for _ in peers]
+        ops = []
+        for (h, sign), buf in zip(peers, bufs):
+            to, frm = (self._global((r + d) % n) for d in (sign * h,
+                                                            -sign * h))
+            ops.append(dist.P2POp(dist.isend, x, to, self.group))
+            ops.append(dist.P2POp(dist.irecv, buf, frm, self.group))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return torch.cat([x] + bufs)
+
+    def ring_reachable(self, cell: torch.Tensor, v_local: int,
+                       hops: int) -> torch.Tensor:
+        """True where a global destination ``cell`` lies within ``hops``
+        slabs of this rank's slab on the ring."""
+        n = self.n_shards
+        d = torch.remainder(cell // v_local - self.lo // v_local, n)
+        return torch.minimum(d, n - d) <= min(hops, (n - 1) // 2)
+
+    def exchange(self, cols, ring_hops=None) -> list:
+        """Exchange the columns ``cols`` (``[m]`` tensors of f32, i32 or
+        bool) in one collective: :meth:`gather_flat` or, with
+        ``ring_hops``, :meth:`gather_ring`.  The columns ride one i32
+        ``[m, C]`` block (f32 as its bits); each comes back in its dtype."""
+        block = torch.stack([c.view(torch.int32) if c.dtype == torch.float32
+                             else c.to(torch.int32) for c in cols], dim=1)
+        got = (self.gather_flat(block) if ring_hops is None
+               else self.gather_ring(block, ring_hops))
+        out = []
+        for k, c in enumerate(cols):
+            col = got[:, k].contiguous()
+            out.append(col.view(torch.float32) if c.dtype == torch.float32
+                       else col.to(c.dtype))
+        return out

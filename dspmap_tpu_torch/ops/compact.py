@@ -18,8 +18,12 @@ Left out, each exact either way: the ``lax.switch`` bucket ladders of
 width; their ``direct`` branch is taken only when run ends outnumber the
 largest bucket) and the prefix-bucket ladder of ``insert_compact``.  The
 noisy-prediction arms take their standard-normal draws as arguments
-(``noise [3, P]`` for the advance, ``[2, P]`` for the in-FOV jitter); the
-sharded exchange ``rebin_exchange_compact`` is not ported.
+(``noise [3, P]`` for the advance, ``[2, P]`` for the in-FOV jitter).
+
+On a slab of the sharded step each rank's ``[P/n]`` rows hold the particles
+of its slab of the grid: :func:`rebin_exchange_compact` keeps that so by
+sending the movers that leave the slab to their owner, and the per-voxel
+tables of birth and occupancy are slab-local.
 """
 
 from __future__ import annotations
@@ -307,6 +311,104 @@ def rebin_compact(particles, sw: CompactSweep, cfg: MapConfig):
     return dataclasses.replace(particles, flags=flags), stay_count, stats
 
 
+def rebin_exchange_compact(particles, sw: CompactSweep, cfg: MapConfig,
+                           shard):
+    """The sharded relocation of the compact layout: movers within the slab
+    are capacity-checked in place (:func:`rebin_compact`'s rule); movers
+    that leave it vacate their row and ride an exchange of the compacted
+    mover payload (``all_gather``, or the ring of ``cfg.ring_hops``
+    neighbours), and the owning rank lands them in free rows behind its
+    stayers' and surviving within-movers' claims, in shard-major order.
+
+    As in the JAX package (``ops/compact.py``), the payload leaves the
+    ``t`` plane out: under ``record_particle_time`` an arrival keeps the
+    ``t`` its free row held (a defect of the reference kept here).
+    Returns ``(new_particles, stats)``."""
+    P = particles.flags.shape[0]
+    S, m_cap = cfg.slots_per_voxel, cfg.mover_capacity
+    Vs = cfg.storage_voxels
+    v_local = Vs // shard.n_shards
+    alive = particles.flags != 0
+    own = shard.owns(sw.cell, v_local)
+
+    mover = sw.mover & alive
+    within = mover & own
+    cross = mover & ~own & (sw.cell < Vs)
+
+    stayer = alive & ~sw.mover
+    (stay_count,) = segment_table(sw.cell - shard.lo, stayer, (stayer,),
+                                  v_local, max_run=S)
+
+    # within-slab capacity check (strict, as in rebin_compact)
+    w_rank = torch.cumsum(within, 0, dtype=torch.int32) - 1
+    w_overkill = within & (w_rank >= m_cap)
+    within = within & ~w_overkill
+    w_i, w_ok, n_w, _ = compact_mask(within, m_cap)
+    w_i = w_i.to(torch.int64)
+    w_cell = torch.where(w_ok, sw.cell[w_i] - shard.lo, v_local)
+    order_w, sc_w, ranks_w = sort_by_destination(w_cell, w_ok)
+    sc_safe = sc_w.clamp(max=v_local - 1).to(torch.int64)
+    kill_w = (sc_w < v_local) & (
+        stay_count[sc_safe].to(torch.int32) + ranks_w >= S)
+    kill_rows = torch.where(kill_w, w_i[order_w.to(torch.int64)], P)
+
+    # cross-slab movers: vacate and exchange the payload
+    c_rank = torch.cumsum(cross, 0, dtype=torch.int32) - 1
+    c_overkill = cross & (c_rank >= m_cap)
+    cross = cross & ~c_overkill
+    c_i, c_ok, n_c, _ = compact_mask(cross, m_cap)
+    c_i = c_i.to(torch.int64)
+    zero = torch.zeros((), dtype=torch.float32, device=c_i.device)
+    exp = [torch.where(c_ok, sw.cell[c_i], Vs)]
+    exp += [getattr(particles, n)[c_i]
+            for n in ("px", "py", "pz", "vx", "vy", "vz")]
+    exp += [torch.where(c_ok, particles.weight[c_i], zero), c_ok]
+    flags = torch.where(cross | c_overkill | w_overkill, 0,
+                        particles.flags).to(torch.int32)
+    flags = scatter_set(flags, kill_rows, 0)
+
+    hops, ring_undelivered = None, 0
+    if cfg.mover_exchange == "ring":
+        hops = cfg.ring_hops
+        reach = shard.ring_reachable(exp[0].clamp(min=0), v_local, hops)
+        ring_undelivered = (c_ok & ~reach).sum()
+    a_cell, *a_pay, a_ok = shard.exchange(exp, hops)
+    own_arr = a_ok & shard.owns(a_cell, v_local)
+
+    # land arrivals behind stayers + surviving within-movers
+    w_keep = (sc_w < v_local) & ~kill_w
+    count_after = scatter_add(stay_count.to(torch.int32),
+                              torch.where(w_keep, sc_w, v_local), 1)
+    o_i, o_ok, n_own, o_over = compact_mask(own_arr, m_cap)
+    o_i = o_i.to(torch.int64)
+    cell_l = torch.where(o_ok, a_cell[o_i] - shard.lo, v_local)
+    order_a, sc_a, r_a = sort_by_destination(cell_l, o_ok)
+    room = (S - count_after[sc_a.clamp(max=v_local - 1).to(torch.int64)]
+            ).clamp(min=0)
+    eligible = (sc_a < v_local) & (r_a < room)
+    free_rows, _, n_free, _ = compact_mask(flags == 0, m_cap)
+    elig_rank = torch.cumsum(eligible, 0, dtype=torch.int32) - 1
+    land = eligible & (elig_rank < n_free)
+    row = torch.where(land, free_rows[elig_rank.clamp(0, m_cap - 1).to(
+        torch.int64)], P)
+    src = o_i[order_a.to(torch.int64)]
+
+    new = {n: scatter_set(getattr(particles, n), row, c[src])
+           for n, c in zip(("px", "py", "pz", "vx", "vy", "vz", "weight"),
+                           a_pay)}
+    new["flags"] = scatter_set(
+        flags, row, torch.where(land, FLAG_VALID, 0).to(torch.int32))
+    n_landed = land.sum()
+    stats = {
+        "moved_out": sw.moved_out.sum(),
+        "movers": n_w + n_c,
+        "mover_overflow_killed": (w_overkill.sum() + c_overkill.sum() + o_over
+                                  + ring_undelivered),
+        "voxel_full_killed": kill_w.sum() + (n_own - n_landed),
+    }
+    return dataclasses.replace(particles, **new), stats
+
+
 def fov_geometry_compact(particles, cfg: MapConfig, sensor_pos, quat):
     """``(pyramid cell [P], in-FOV mask [P])`` of the compact set for one
     sensor pose (host arrays): the per-sensor half of
@@ -346,12 +448,14 @@ def register_fov_compact(particles, cfg: MapConfig, pyr, fov_mask,
 
 
 def insert_compact(particles, cfg: MapConfig, *, pos, vel, weight, valid,
-                   origin, flag, t, count_v):
+                   origin, flag, t, count_v, shard=None):
     """Capacity-limited insertion into free rows (``addAParticle``): the
     candidates rank per destination voxel in arrival order and are eligible
     while ``rank < S - count_v[dest]``; eligible ones land in free rows
     first-to-last, the rest of them are dropped and counted.  Returns
-    ``(new_particles, n_born, n_dropped)``."""
+    ``(new_particles, n_born, n_dropped)``.  With ``shard`` the candidates
+    whose voxel this rank does not own are left to their owner, and
+    ``count_v`` is the slab's table."""
     P = particles.flags.shape[0]
     S = cfg.slots_per_voxel
     Vs = count_v.shape[0]
@@ -360,6 +464,9 @@ def insert_compact(particles, cfg: MapConfig, *, pos, vel, weight, valid,
     wv = geometry.world_voxel(pos, cfg)
     valid = valid & geometry.in_window(wv, origin, cfg)
     dest = geometry.storage_index(wv, cfg)
+    if shard is not None:
+        valid = valid & shard.owns(dest, Vs)
+        dest = (dest - shard.lo).clamp(0, Vs - 1)
     order, sorted_dest, ranks = sort_by_destination(dest, valid)
     prefilter = (sorted_dest < I32_MAX) & (ranks < S)
 
@@ -389,13 +496,19 @@ def insert_compact(particles, cfg: MapConfig, *, pos, vel, weight, valid,
             eligible.sum() - n_landed)
 
 
-def occupancy_compact(particles, cfg: MapConfig, origin, future_in):
+def occupancy_compact(particles, cfg: MapConfig, origin, future_in,
+                      shard=None):
     """Cull + per-voxel aggregates + future scatter + systematic resampling
     over the compact set.  One stable sort by cell defragments the array
     (dead rows sort to the tail) and the output IS that sorted view, with
     resample copies placed in the dropped holes.  Returns
     ``(new_particles, weight_sum[Vs], vel_avg[Vs, 3], future[T, Vs],
-    stats)``."""
+    stats)``.
+
+    ``shard``: the rows and tables are the slab's (``Vs`` is the slab's
+    width, cells are local); the future-status movers are gathered from
+    every rank and each rank scatters the contributions whose cell it
+    owns."""
     P = particles.flags.shape[0]
     S = cfg.slots_per_voxel
     T, Vs = future_in.shape
@@ -415,7 +528,8 @@ def occupancy_compact(particles, cfg: MapConfig, origin, future_in):
                     | (particles.vz != 0.0))
     wx, wy, wz = geometry.world_voxel_planar(particles.px, particles.py,
                                              particles.pz, cfg)
-    cell = geometry.storage_index_planar(wx, wy, wz, cfg)
+    cell = geometry.storage_index_planar(wx, wy, wz, cfg) - (
+        0 if shard is None else shard.lo)
 
     # ---- future-status movers (pre-resample weights) -------------------
     m_i, m_ok, n_moving, fm_over = compact_mask(moving, m_cap)
@@ -423,6 +537,8 @@ def occupancy_compact(particles, cfg: MapConfig, origin, future_in):
     m = [getattr(particles, n)[m_i] for n in ("px", "py", "pz", "vx", "vy",
                                                "vz")]
     m_w = torch.where(m_ok, w[m_i], zero)
+    if shard is not None:
+        *m, m_w, m_ok = shard.exchange(m + [m_w, m_ok])
 
     # ---- the sort (defrag): valid rows first, grouped by cell ----------
     key = torch.where(valid, cell, I32_MAX).to(torch.int32)
@@ -468,6 +584,9 @@ def occupancy_compact(particles, cfg: MapConfig, origin, future_in):
     fwx, fwy, fwz = geometry.world_voxel_planar(fx, fy, fz, cfg)
     ok = m_ok[None, :] & geometry.in_window_planar(fwx, fwy, fwz, origin, cfg)
     fcell = geometry.storage_index_planar(fwx, fwy, fwz, cfg)
+    if shard is not None:
+        ok = ok & shard.owns(fcell, Vs)
+        fcell = fcell - shard.lo
     hor = Vs * torch.arange(T, dtype=torch.int32, device=dev)[:, None]
     fidx = torch.where(ok, fcell + hor, T * Vs)
     future = scatter_add(future.reshape(-1), fidx.reshape(-1),

@@ -17,9 +17,12 @@ and, on the noisy arm, jitters the surviving in-FOV particles' velocities
 (``dsp_dynamic.h:1261-1269``: vx and vy get noise, vz is set to 0, under
 the keep-still test of ``ops/propagate.py``).
 
-Only the full-width, single-device, immediate-payload path is ported (the
-JAX package's prefix-bucket ladder over candidate counts and its deferred
-payload for pools of 64 MB or more give the same result).
+Only the full-width, immediate-payload path is ported (the JAX package's
+prefix-bucket ladder over candidate counts and its deferred payload for
+pools of 64 MB or more give the same result); on a slab of the sharded step
+:func:`rebin_and_register` exchanges the movers across ranks.
+:func:`register_fov` needs no sharded arm: it works on the slab's own
+slots, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -168,19 +171,29 @@ def register_fov(particles, cfg: MapConfig, sensor_pos, quat, noise=None,
 
 
 def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,
-                       update_time):
+                       update_time, shard=None):
     """Returns ``(new_particles, FovBinning, future_movers, stats)`` with
     ``future_movers = (flat[m_cap], valid[m_cap], n_dropped)``.
 
     ``particles`` are the post-sweep planes and ``sw`` the sweep's tags and
     new cells, both ``[S, V]`` or both flat ``[S*V]`` (the step's mid-frame
     form).  A flat working plane is written in place: the caller's
-    ``particles`` must not be read afterwards."""
+    ``particles`` must not be read afterwards.
+
+    ``shard`` (:class:`~.common.ShardCtx`): the planes are this rank's slab
+    and mover destinations are global, so the mover buffer (payload, global
+    destination, sweep tags) is exchanged over the ranks (``all_gather``, or
+    the ring of ``cfg.ring_hops`` neighbours) and each rank inserts the
+    arrivals whose cell it owns, behind its local movers in shard-major
+    order.  FOV registration then ranks the local non-movers and the
+    inserted arrivals, whose fov, moving and pyramid tags rode the
+    exchange."""
     S, V = pool_sv(particles.flags, cfg)
     SV = S * V
     n_pyr = cfg.n_pyramids
     cap, m_cap = cfg.fov_buffer_capacity, cfg.mover_capacity
     dev = particles.flags.device
+    t = update_time if cfg.record_particle_time else None
 
     idx, c_valid, _, _ = compact_mask(sw.candidate, cap)
     total_movers = sw.mover.sum()
@@ -204,40 +217,77 @@ def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,
     mov_i = mov_i.to(torch.int64)
     mov_src = flat0[mov_i].clamp(max=SV - 1)
     mov_cell = torch.where(mov_ok, pool_take(sw.new_cell, mov_src), V)
-    order, _, ranks_sorted = sort_by_destination(mov_cell, mov_ok)
-    mov_ranks = inverse_ranks(order, ranks_sorted)
-    safe_src = torch.where(mov_ok, flat0[mov_i], SV).clamp(max=SV - 1)
-    new_flat, keep_ins = allocate_slots(vacated, cfg, mov_cell, mov_ranks,
-                                        mov_ok)
-    cols_m = (px[mov_i], py[mov_i], pz[mov_i],
-              pool_take(particles.vx, safe_src),
-              pool_take(particles.vy, safe_src),
-              pool_take(particles.vz, safe_src), w[mov_i])
+    mov_vel = [pool_take(getattr(particles, n), mov_src)
+               for n in ("vx", "vy", "vz")]
+    own_over = ring_undelivered = 0
+    if shard is None:
+        ins_cell, ins_ok, n_arrivals = mov_cell, mov_ok, n_mov
+        cols_m = (px[mov_i], py[mov_i], pz[mov_i], *mov_vel, w[mov_i])
+    else:
+        exp = [mov_cell, px[mov_i], py[mov_i], pz[mov_i], *mov_vel, w[mov_i],
+               tags[mov_i], mov_ok & (mov_cell < cfg.voxel_num)]
+        hops = None
+        if cfg.mover_exchange == "ring":
+            hops = cfg.ring_hops
+            reach = shard.ring_reachable(mov_cell.clamp(min=0), V, hops)
+            ring_undelivered = (exp[-1] & ~reach).sum()
+        *a_cols, a_tags, a_ok = shard.exchange(exp, hops)
+        a_cell = a_cols.pop(0)
+        own_i, ins_ok, n_arrivals, own_over = compact_mask(
+            a_ok & shard.owns(a_cell, V), m_cap)
+        own_i = own_i.to(torch.int64)
+        ins_cell = torch.where(ins_ok, a_cell[own_i] - shard.lo, V)
+        ins_tags = torch.where(ins_ok, a_tags[own_i], 0)
+        cols_m = tuple(c[own_i] for c in a_cols)
+    order, _, ranks_sorted = sort_by_destination(ins_cell, ins_ok)
+    new_flat, keep_ins = allocate_slots(
+        vacated, cfg, ins_cell, inverse_ranks(order, ranks_sorted), ins_ok)
 
-    # ---- FOV ranks from the combined buffer (movers remapped) ----------
-    flat = scatter_set(flat0, torch.where(mov_ok, mov_i, cap),
-                       torch.where(keep_ins, new_flat, SV))
-    fov_sel = is_fov & (flat < SV)
-    mv_sel = is_moving & (flat < SV)
-    keys = torch.where(fov_sel, pyr, n_pyr).to(torch.int32)
-    sorted_keys, f_order = torch.sort(keys, stable=True)
-    f_ranks = inverse_ranks(f_order, group_ranks(sorted_keys))
-    kill = fov_sel & (f_ranks >= cfg.pyramid_slots)
-    # killed movers write flag 0 through their own row; non-mover kill rows
-    # join the same flags scatter (disjoint by construction)
-    killed_m = kill[mov_i.clamp(max=cap - 1)] & mov_ok
-    mov_flag = torch.where(killed_m, 0, 1).to(torch.int32)
-    kill_nm = torch.where(kill & ~is_mover, flat, SV)
-    new_particles = scatter_candidates(
-        vacated, new_flat, cols_m, mov_flag,
-        update_time if cfg.record_particle_time else None,
-        flag_extra=(kill_nm, torch.zeros(cap, dtype=torch.int32, device=dev)),
-    )
+    if shard is None:
+        # ---- FOV ranks from the combined buffer (movers remapped) ------
+        flat = scatter_set(flat0, torch.where(mov_ok, mov_i, cap),
+                           torch.where(keep_ins, new_flat, SV))
+        fov_sel = is_fov & (flat < SV)
+        mv_sel = is_moving & (flat < SV)
+        keys = torch.where(fov_sel, pyr, n_pyr).to(torch.int32)
+        sorted_keys, f_order = torch.sort(keys, stable=True)
+        f_ranks = inverse_ranks(f_order, group_ranks(sorted_keys))
+        kill = fov_sel & (f_ranks >= cfg.pyramid_slots)
+        # killed movers write flag 0 through their own row; non-mover kill
+        # rows join the same flags scatter (disjoint by construction)
+        killed_m = kill[mov_i.clamp(max=cap - 1)] & mov_ok
+        mov_flag = torch.where(killed_m, 0, 1).to(torch.int32)
+        kill_nm = torch.where(kill & ~is_mover, flat, SV)
+        new_particles = scatter_candidates(
+            vacated, new_flat, cols_m, mov_flag, t,
+            flag_extra=(kill_nm, torch.zeros(cap, dtype=torch.int32,
+                                             device=dev)))
+        fovbin, _, stats = _bin_candidates(
+            cfg, SV, sensor_pos, flat, keys, f_ranks, fov_sel, total_fov,
+            cols=(px, py, pz, w))
+    else:
+        # ---- FOV ranks over local non-movers + inserted arrivals -------
+        new_particles = scatter_candidates(vacated, new_flat, cols_m, 1, t)
+        flat = torch.cat([torch.where(is_mover, SV, flat0.clamp(max=SV)),
+                          torch.where(keep_ins, new_flat, SV)])
+        fov_sel = torch.cat([is_fov & ~is_mover,
+                             keep_ins & (((ins_tags >> 1) & 1) != 0)])
+        fov_sel = fov_sel & (flat < SV)
+        mv_sel = torch.cat([is_moving & ~is_mover,
+                            keep_ins & (((ins_tags >> 2) & 1) != 0)])
+        mv_sel = mv_sel & (flat < SV)
+        keys = torch.where(fov_sel, torch.cat([pyr, ins_tags >> 4]),
+                           n_pyr).to(torch.int32)
+        sorted_keys, f_order = torch.sort(keys, stable=True)
+        f_ranks = inverse_ranks(f_order, group_ranks(sorted_keys))
+        cols = tuple(torch.cat([a, b]) for a, b in zip((px, py, pz, w),
+                                                      cols_m[:3] + cols_m[6:]))
+        fovbin, kill, stats = _bin_candidates(
+            cfg, SV, sensor_pos, flat, keys, f_ranks, fov_sel, total_fov,
+            cols)
+        new_particles = dataclasses.replace(new_particles, flags=pool_put(
+            new_particles.flags, torch.where(kill, flat, SV), 0))
     n_inserted = keep_ins.sum()
-
-    fovbin, _, stats = _bin_candidates(
-        cfg, SV, sensor_pos, flat, keys, f_ranks, fov_sel, total_fov,
-        cols=(px, py, pz, w))
 
     fm_i, fm_ok, _, fm_over = compact_mask(mv_sel, m_cap)
     future_movers = (
@@ -248,8 +298,9 @@ def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,
     stats.update(
         moved_out=sw.moved_out.sum(),
         movers=n_mov.clamp(max=m_cap),
-        mover_overflow_killed=(total_movers - is_mover.sum()) + mov_buf_over,
-        voxel_full_killed=n_mov - n_inserted,
+        mover_overflow_killed=((total_movers - is_mover.sum()) + mov_buf_over
+                               + own_over + ring_undelivered),
+        voxel_full_killed=n_arrivals - n_inserted,
         fov_global_overflow=total_fov - is_fov.sum(),
     )
     return new_particles, fovbin, future_movers, stats

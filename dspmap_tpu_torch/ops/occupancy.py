@@ -229,7 +229,7 @@ def occupancy_pool_pass(particles, cfg: MapConfig, with_moving: bool = True):
 
 
 def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
-                           future_movers):
+                           future_movers, shard=None):
     """Returns ``(new_particles, weight_sum[V], vel_avg[V, 3], future[T, V],
     stats)``.  ``future_movers = (flat, valid, n_dropped)`` is the
     pre-compacted nonzero-velocity candidate set from
@@ -243,7 +243,13 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
     planes reach it as ``[S, V]`` views of their flat working buffers; only
     a flat plane that the pool pass hands through (a constant-zero velocity
     plane) is copied out (``state.unflatten_pool``; kernel K5b for large
-    planes).  Either way the returned state holds no working buffer."""
+    planes).  Either way the returned state holds no working buffer.
+
+    ``shard`` (:class:`~.common.ShardCtx`): the pool pass is per voxel and
+    runs on the slab as it is; only the future-status scatter crosses slabs
+    (a moving particle's predicted cell can lie anywhere), so the compacted
+    mover columns are gathered from every rank and each rank scatters the
+    contributions whose cell it owns."""
     particles = unflatten_pool(particles, cfg.slots_per_voxel,
                                views=rewritten_planes(cfg))
     S, V = particles.flags.shape
@@ -277,6 +283,8 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
     m = [pool_take(getattr(src, n), idx)
          for n in ("px", "py", "pz", "vx", "vy", "vz")]
     m_w = torch.where(sel, wgt, 0.0)
+    if shard is not None:
+        *m, m_w, sel = shard.exchange(m + [m_w, sel])
 
     taus = to_device(cfg.prediction_horizons, torch.float32, dev)[:, None]
     fx = m[0][None, :] + m[3][None, :] * taus
@@ -285,6 +293,9 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
     wx, wy, wz = geometry.world_voxel_planar(fx, fy, fz, cfg)
     ok = sel[None, :] & geometry.in_window_planar(wx, wy, wz, origin, cfg)
     cell = geometry.storage_index_planar(wx, wy, wz, cfg)
+    if shard is not None:
+        ok = ok & shard.owns(cell, V)
+        cell = cell - shard.lo
     hor = V * torch.arange(T, dtype=torch.int32, device=dev)[:, None]
     fidx = torch.where(ok, cell + hor, T * V)
     # duplicate (cell, horizon) hits accumulate; index_add_ on CUDA adds in

@@ -58,9 +58,12 @@ def _frame_rotation(quat) -> np.ndarray:
 
 
 def sweep_reference(particles, cfg: MapConfig, dt, origin, sensor_pos,
-                    quat) -> SweepOut:
+                    quat, cell_base: int = 0) -> SweepOut:
     """Plain PyTorch sweep.  ``dt`` is a float, ``origin`` / ``sensor_pos``
-    / ``quat`` host arrays."""
+    / ``quat`` host arrays.  ``cell_base`` is the global storage cell of
+    column 0: nonzero on a slab of the sharded step, where the mover test
+    compares ``new_cell`` with ``cell_base + column`` (``new_cell`` stays
+    global either way)."""
     S, V = particles.flags.shape
     dev = particles.flags.device
     valid = particles.valid
@@ -82,7 +85,8 @@ def sweep_reference(particles, cfg: MapConfig, dt, origin, sensor_pos,
     flags = torch.where(moved_out, 0, particles.flags)
 
     new_cell = geometry.storage_index_from_rel(rx, ry, rz, origin, cfg)
-    current = torch.arange(V, dtype=torch.int32, device=dev)[None, :]
+    current = int(cell_base) + torch.arange(V, dtype=torch.int32,
+                                            device=dev)[None, :]
     mover = valid & inside & (new_cell != current)
 
     s = [float(x) for x in np.asarray(sensor_pos, np.float32)]
@@ -101,9 +105,10 @@ def sweep_reference(particles, cfg: MapConfig, dt, origin, sensor_pos,
 
 
 def sweep_cuda(particles, cfg: MapConfig, dt, origin, sensor_pos,
-               quat) -> SweepOut:
-    """The sweep kernel (``csrc/sweep.cu``) on CUDA tensors.  Requires the
-    limit-xy or static configurations (vz is never read)."""
+               quat, cell_base: int = 0) -> SweepOut:
+    """The sweep kernel (``csrc/sweep.cu``) on CUDA tensors; ``cell_base``
+    as in :func:`sweep_reference`.  Requires the limit-xy or static
+    configurations (vz is never read)."""
     if not (cfg.limit_motion_to_xy_plane or cfg.motion_model == "static"):
         raise ValueError("the fused sweep covers limit-xy / static configs")
     p = particles
@@ -128,14 +133,18 @@ def sweep_cuda(particles, cfg: MapConfig, dt, origin, sensor_pos,
          np.float32(cfg.angle_resolution_rad), *R]
     i = [S, V, o[0], o[1], o[2], o[0] % cfg.nx, o[1] % cfg.ny, o[2] % cfg.nz,
          cfg.nx, cfg.ny, cfg.nz, cfg.n_pyramids_h, cfg.n_pyramids_v,
-         int(cfg.motion_model != "static")]
+         int(cfg.motion_model != "static"), int(cell_base)]
     kernels.launch("sweep", [p.flags, p.px, p.py, p.pz, p.vx, p.vy,
                              opx, opy, oflags, ocell, otags], f, i)
     return SweepOut(opx, opy, p.pz, oflags, ocell, otags)
 
 
-def sweep(particles, cfg: MapConfig, dt, origin, sensor_pos, quat) -> SweepOut:
-    """Plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+def sweep(particles, cfg: MapConfig, dt, origin, sensor_pos, quat,
+          cell_base: int = 0) -> SweepOut:
+    """Plain version for CPU tensors, the CUDA kernel for CUDA tensors (on
+    a slab too: ``cell_base`` is a kernel argument)."""
     if particles.flags.is_cuda:
-        return sweep_cuda(particles, cfg, dt, origin, sensor_pos, quat)
-    return sweep_reference(particles, cfg, dt, origin, sensor_pos, quat)
+        return sweep_cuda(particles, cfg, dt, origin, sensor_pos, quat,
+                          cell_base)
+    return sweep_reference(particles, cfg, dt, origin, sensor_pos, quat,
+                           cell_base)

@@ -151,9 +151,16 @@ def update_pass2(pos, cinv, nbr_pts, sigma: float, scaled=None):
 
 @full_f32_matmul()
 def measurement_update(particles, fovbin, obs, cfg: MapConfig,
-                       expected_newborn: torch.Tensor, update_time, rt):
+                       expected_newborn: torch.Tensor, update_time, rt,
+                       shard=None):
     """Returns ``(new_particles, norm_coeff, stats)``; ``rt`` is the
-    state's :class:`~dspmap_tpu_torch.state.RuntimeParams`."""
+    state's :class:`~dspmap_tpu_torch.state.RuntimeParams`.
+
+    ``shard`` (:class:`~.common.ShardCtx`): the C(z) partials of pass 1 and
+    of the spill block -- the update's only sums over particles -- are
+    summed over the ranks before pass 2 (``all_reduce``), so ``norm_coeff``
+    comes out the same on every rank; pass 2 and the weight writeback stay
+    on the slab."""
     dev = particles.flags.device
     total = particles.flags.numel()
     n_pyr, S_t = cfg.n_pyramids, cfg.dense_slots
@@ -204,6 +211,8 @@ def measurement_update(particles, fovbin, obs, cfg: MapConfig,
         onehot_p = ((sp_pyr_safe.to(torch.int32)[None, :] == arange_pyr[:, None])
                     & fovbin.sp_mask[None, :])
         c_part = c_part + onehot_p.to(torch.float32) @ (sp_w[:, None] * g_pz)
+    if shard is not None:
+        c_part = shard.psum(c_part)
     c_grid = scatter_neighbor_sum(c_part, cfg) * p_d + e_birth
     c_grid = torch.where(obs.mask, c_grid, 1.0)
 
@@ -211,6 +220,8 @@ def measurement_update(particles, fovbin, obs, cfg: MapConfig,
         c_sp = torch.bmm(d_w.reshape(Yc, 1, C * S_t), g_dy)[:, 0, :]
         if have_psp:
             c_sp = c_sp + (sp_w @ g_py).reshape(Yc, Ks)
+        if shard is not None:
+            c_sp = shard.psum(c_sp)
         c_spill = torch.where(obs.spill_pts_mask, c_sp * p_d + e_birth, 1.0)
 
     norm_coeff = torch.where(obs.mask, 1.0 / c_grid, 0.0).sum()

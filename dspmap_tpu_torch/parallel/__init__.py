@@ -1,0 +1,13 @@
+"""Map parallelism on ``torch.distributed``: the voxel grid and the
+particles in it split into contiguous slabs, one process (rank) a slab
+(mirrors ``dspmap_tpu/parallel``)."""
+
+from .sharding import (  # noqa: F401
+    Mesh,
+    make_mesh,
+    state_shardings,
+    shard_state,
+    gather_state,
+    make_sharded_step,
+)
+from .shard_step import make_shardmap_step  # noqa: F401

@@ -1,0 +1,80 @@
+"""The explicitly scheduled sharded step (mirrors
+``dspmap_tpu/parallel/shard_step.py``, the JAX package's ``shard_map`` fast
+path).
+
+One process a shard, each holding a contiguous slab of the storage grid
+(``parallel.shard_state``); the step body runs on the slab with every
+cross-slab interaction placed by hand as a ``torch.distributed``
+collective:
+
+* ``all_reduce`` of the ``[n_pyr, (2N+1)^2 K]`` C(z) partials -- the
+  measurement update's only sum over particles (``ops/update.py``);
+* the exchange of the compacted mover and future-mover buffers --
+  ``all_gather`` (in rank order), or with ``cfg.mover_exchange = "ring"``
+  the ``cfg.ring_hops`` nearest ranks each way -- and insertion of the
+  arrivals each rank owns (``ops/fov.py``, ``ops/rebin.py``,
+  ``ops/compact.py``, ``ops/occupancy.py``);
+* ``all_reduce`` of birth's DS classification sums; the newborn table is
+  the same on every rank (replicated draws), each rank inserting only the
+  newborns whose voxel it owns (``ops/birth.py``);
+* one ``all_reduce`` of the metric counters (``models/pipeline.py``).
+
+Frames, the estimator, the birth table and the replicated draws are the
+same on every rank, so every replicated quantity comes out the same;
+pool-shaped noise (noisy configurations only) is each rank's own
+(``models.pipeline.make_draws``).
+
+Deviations from the single-device step, as in the JAX package: capacities
+(FOV buffer, spill, mover buffers) are per rank, so n ranks tolerate n
+times the load before overflow; arrivals from other slabs land behind the
+local movers in rank order, so which candidate takes the last slot of a
+*contested* voxel can differ.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch.distributed as dist
+
+from ..config import MapConfig
+from ..ops.common import ShardCtx, ring_transport
+from ..state import resolve_device
+from .sharding import Mesh, make_mesh
+
+
+def shard_ctx(cfg: MapConfig, mesh: Mesh, device) -> ShardCtx:
+    """This rank's :class:`~..ops.common.ShardCtx` on ``mesh``: slab
+    ``rank * V/n`` onward, the ring transport chosen once for the group's
+    backend and ``device`` (and printed on standard error)."""
+    n = mesh.size
+    V = cfg.storage_voxels
+    if V % n != 0:
+        raise ValueError(f"storage_voxels {V} not divisible by mesh size {n}")
+    if cfg.layout == "compact" and cfg.compact_capacity % n != 0:
+        raise ValueError(f"compact_capacity {cfg.compact_capacity} not "
+                         f"divisible by mesh size {n}")
+    transport = ring_transport(mesh.group, device)
+    backend = (dist.get_backend(mesh.group) if dist.is_initialized()
+               else "none")
+    print(f"[shard] rank {mesh.rank} of {n}: backend {backend}, device "
+          f"{device}, ring transport {transport}", file=sys.stderr,
+          flush=True)
+    return ShardCtx(n_shards=n, rank=mesh.rank, lo=mesh.rank * (V // n),
+                    group=mesh.group, transport=transport)
+
+
+def make_shardmap_step(cfg: MapConfig, mesh: Mesh | None = None,
+                       with_metrics: bool = True, device=None):
+    """Build this rank's sharded step, ``step(state, frame, draws=None)``,
+    with ``state`` this rank's slab (``shard_state``) and the frame the
+    same on every rank.  Covers both layouts and both prediction arms; see
+    :func:`~..models.pipeline.make_step` for the semantics and
+    :func:`~..models.pipeline.make_draws` for the draws.  ``device`` is
+    where the slabs live (``None``: the CUDA card; it fixes the ring
+    transport)."""
+    from ..models.pipeline import make_step
+
+    mesh = mesh if mesh is not None else make_mesh()
+    shard = shard_ctx(cfg, mesh, resolve_device(device))
+    return make_step(cfg, with_metrics=with_metrics, shard=shard)

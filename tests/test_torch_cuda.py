@@ -122,6 +122,37 @@ def test_sweep_kernel_matches_plain(device, arm):
     assert bool(got.fov.any()) and bool(got.moved_out.any())
 
 
+@pytest.mark.parametrize("half", [0, 1], ids=["cell_base_0", "cell_base_V/2"])
+def test_sweep_kernel_on_a_slab_matches_plain(device, half):
+    """K2 on the upper half of a pool (``cell_base = V/2``, as on a slab of
+    the sharded step) and on the whole pool (``cell_base = 0``): the bars
+    of the whole-pool test against the plain version at the same
+    ``cell_base``, and the slab's outputs bit-equal to the whole pool's in
+    the same columns (the mover test reads the global column)."""
+    cfg = _cfg()
+    p = _pool(cfg, device, seed=2)
+    V = cfg.storage_voxels
+    base = half * V // 2
+    slab = T.Particles(**{k: getattr(p, k)[:, base:].contiguous()
+                          for k in ("flags", "px", "py", "pz", "vx", "vy",
+                                    "vz", "weight", "t")})
+    sensor = np.asarray([-2.3, 0.4, 1.0], np.float32)
+    quat = np.asarray([np.cos(0.4), 0, 0, np.sin(0.4)], np.float32)
+    origin = T.geometry.window_origin_np(sensor, cfg)
+    args = (cfg, np.float32(0.1), origin, sensor, quat)
+    n0 = kernels.LAUNCHES["sweep"]
+    got = sweep.sweep(slab, *args, cell_base=base)
+    assert kernels.LAUNCHES["sweep"] == n0 + 1
+    want = sweep.sweep_reference(slab, *args, cell_base=base)
+    torch.testing.assert_close(got.px, want.px, atol=1e-5, rtol=0)
+    for name in ("flags", "new_cell", "tags"):
+        assert (getattr(got, name) != getattr(want, name)).float().mean() < 1e-3
+    assert bool(got.mover.any()) and bool(got.fov.any())
+    whole = sweep.sweep(p, *args)
+    for name in ("px", "py", "flags", "new_cell", "tags"):
+        assert torch.equal(getattr(got, name), getattr(whole, name)[:, base:])
+
+
 def test_wrappers_refuse_operands_the_kernels_do_not_take(device):
     """A slot depth without an instantiation, a plane of another dtype, a
     non-contiguous or misshapen plane, or a CPU tensor raises; nothing

@@ -78,6 +78,9 @@ for name in names:
     importlib.import_module(name)
 assert {"dspmap_tpu_torch.ops.relayout", "dspmap_tpu_torch.ops.propagate",
         "dspmap_tpu_torch.ops.rebin", "dspmap_tpu_torch.io.replay",
+        "dspmap_tpu_torch.parallel", "dspmap_tpu_torch.parallel.sharding",
+        "dspmap_tpu_torch.parallel.shard_step",
+        "dspmap_tpu_torch.parallel.distributed",
         "dspmap_tpu_torch.io.checkpoint", "dspmap_tpu_torch.io.ros_bridge",
         "dspmap_tpu_torch.io.ros2_bridge", "dspmap_tpu_torch.utils.profiling",
         "dspmap_tpu_torch.utils.markers", "dspmap_tpu_torch.utils.viz"} <= set(names)
@@ -110,6 +113,13 @@ for layout in ("pool", "compact"):  # noisy prediction, then two cameras
         ms_state, ms_out = ms_step(ms_state, dm.stack_frames([dm.Frame(*f)] * 2))
         assert out.accepted and ms_out.accepted, layout
     assert int(out.metrics["alive"]) > 0 and int(ms_out.metrics["alive"]) > 0
+from dspmap_tpu_torch.parallel import make_mesh  # a mesh of one process
+cfg = dm.example_node_settings(dm.dsp_dynamic(**cut))
+state = dm.shard_state(dm.init_state(cfg, seed=0, device="cpu"), make_mesh())
+step = dm.make_shardmap_step(cfg, device="cpu")
+for f in sim.generate_sequence(2, cfg, seed=7):
+    state, out = step(state, dm.Frame(*f))
+assert int(out.metrics["alive"]) > 0
 import contextlib, io
 from dspmap_tpu_torch.io import load_state, replay
 with contextlib.redirect_stdout(io.StringIO()) as said:
@@ -129,8 +139,9 @@ def test_port_copied_alone_runs_every_preset(tmp_path):
     beside it, ``jax`` blocked -- imports every module, builds a state for
     the flagship, static, multi-neighbor and compact presets and steps two
     frames of each on the CPU, then two frames of the noisy prediction
-    path and of the two-camera step on both layouts, then two frames of the
-    replay CLI on the CPU with its CSV and its checkpoint, loaded back."""
+    path and of the two-camera step on both layouts, two frames of the
+    sharded step on a mesh of one process, then two frames of the replay
+    CLI on the CPU with its CSV and its checkpoint, loaded back."""
     shutil.copytree(REPO / "dspmap_tpu_torch", tmp_path / "dspmap_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     env = dict(os.environ, PYTHONPATH=str(tmp_path))

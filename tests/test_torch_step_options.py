@@ -2,7 +2,9 @@
 flagship configuration of ``tests/torch_parity.py``, pool and compact
 layout (CPU): ``with_metrics=False`` returns ``alive`` alone,
 ``admission_control=False`` runs a frame that admission control would
-reject and still reports it as not accepted, ``shard`` is not ported.
+reject and still reports it as not accepted, ``shard`` takes a
+``ShardCtx`` and nothing else (the sharded step itself:
+``tests/test_torch_shard_*.py``).
 
 The JAX step is built with both options off and run from a random-init
 state (``init_state(init_particle_num=...)``) over the street sequence,
@@ -94,6 +96,8 @@ def test_rejected_frame_without_metrics(lean_run):
 
 
 def test_sharded_step_is_not_ported():
+    """The sharded step is ported (``parallel``): ``shard`` must be a
+    ``ShardCtx``; anything else is refused when the step is built."""
     _, tcfg = _cfgs("pool")
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(TypeError, match="ShardCtx"):
         T.make_step(tcfg, shard=object())

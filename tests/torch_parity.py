@@ -436,3 +436,174 @@ def check_multi_free_run(frames, tcfg, monkeypatch, pinned):
                        == np.asarray(f["after"].particles.flags))
         bar = 0.999 if pinned else (0.995 if tcfg.layout == "compact" else 0)
         assert frac >= bar, (i, frac)
+
+
+# --- shared by the sharded tests (tests/test_torch_shard_*.py) -------------
+
+def port_cfg(jcfg):
+    """The port's copy of a JAX configuration."""
+    import dataclasses
+
+    return T.MapConfig(**dataclasses.asdict(jcfg))
+
+
+def jax_shard_draws(rng, cfg, n):
+    """The draws of the JAX ``make_shardmap_step`` on ``n`` shards for key
+    ``rng``, in the form ``tests/torch_shard.py`` hands each rank:
+    ``(replicated, per_rank)``.  The replicated draws are the single-device
+    step's first four (``_sensor_draws``); on a noisy configuration rank
+    ``r`` draws its own propagation and FOV noise at the slab's shape from
+    ``fold_in(keys[1], r)`` and ``fold_in(keys[2], r)``."""
+    keys = jax.random.split(rng, 6)
+    replicated = _sensor_draws(keys[0], keys[3], cfg)
+    if not noisy(cfg):
+        return replicated, None
+    shape = particle_shape(cfg)
+    slab = shape[:-1] + (shape[-1] // n,)
+    return replicated, [tuple(
+        np.array(jax.random.normal(jax.random.fold_in(keys[k], r),
+                                   (m,) + slab, jnp.float32))
+        for k, m in ((1, 3), (2, 2))) for r in range(n)]
+
+
+def record_shardmap(jcfg, n, state, seq):
+    """Run JAX's ``make_shardmap_step`` on ``n`` of the virtual CPU devices
+    over ``seq`` (items of ``sim.generate_sequence``) from the whole state
+    ``state``: per frame the whole state before and after (numpy), the
+    draws (:func:`jax_shard_draws`), the frame and the metrics."""
+    from dspmap_tpu.parallel import make_mesh, shard_state
+    from dspmap_tpu.parallel.shard_step import make_shardmap_step
+
+    mesh = make_mesh(n)
+    step = make_shardmap_step(jcfg, mesh)
+    state = shard_state(state, mesh)
+    frames = []
+    for pts, npts, pos, quat, t in seq:
+        before = jax.device_get(state)
+        draws = jax_shard_draws(state.rng, jcfg, n)
+        state, out = step(state, J.Frame(jnp.asarray(pts), jnp.int32(npts),
+                                         jnp.asarray(pos), jnp.asarray(quat),
+                                         jnp.asarray(t)))
+        frames.append(dict(
+            before=before, draws=draws, frame=(pts, npts, pos, quat, t),
+            after=jax.device_get(state), accepted=bool(out.accepted),
+            metrics={k: np.asarray(v) for k, v in out.metrics.items()}))
+    return frames
+
+
+def voxel_flag_counts(flags):
+    """Per voxel, the number of slots holding each flag value 1, 2, 3."""
+    f = np.asarray(flags)
+    return np.stack([(f == k).sum(axis=0) for k in (1, 2, 3)])
+
+
+def port_result(tcfg, res):
+    """``(state, StepOutput)`` on the CPU from one frame's ``(accepted,
+    metrics, gathered numpy state)`` of ``tests/torch_shard.py``'s
+    ``steps``."""
+    from torch_shard import tree
+
+    accepted, metrics, whole = res
+    state = T.state_from_numpy(tree(whole), tcfg, device="cpu")
+    return state, T.StepOutput(accepted, state.weight_sum, metrics, None)
+
+
+#: the counters ``tests/test_shard_step.py`` holds equal
+SHARD_COUNTERS = ("alive", "born", "movers", "in_fov", "updated_particles",
+                  "culled", "mover_overflow_killed", "voxel_full_killed")
+
+
+def whole_draws(draws):
+    """A sharded frame's draws for the single-device step: the replicated
+    ones, then each pool-shaped draw joined from the ranks' slabs (the
+    noise every slot saw)."""
+    replicated, per_rank = draws
+    if per_rank is None:
+        return replicated
+    return replicated + tuple(np.concatenate(parts, axis=-1)
+                              for parts in zip(*per_rank))
+
+
+def shard_cases(base, exchanges, tmp_path_factory, overrides=None,
+                extra=()):
+    """Per exchange, on ``tests/test_shard_step.py``'s ``cfg_for(4, base)``
+    (with ``overrides``) and its frames: the JAX sharded run, the port's
+    single-device run with the same draws, and the ranks' teacher-forced
+    and free runs; the ranks' results of the ``extra`` cases under
+    ``"extra"`` (one start of the ranks for all)."""
+    import dataclasses
+
+    from test_shard_step import cfg_for
+    from torch_shard import N_RANKS, run_ranks, tree
+
+    runs, cases = {}, []
+    for exchange in exchanges:
+        jcfg = dataclasses.replace(cfg_for(N_RANKS, base),
+                                   mover_exchange=exchange,
+                                   **(overrides or {})).validate()
+        seq = list(sim.generate_sequence(4, jcfg, seed=5))
+        frames = record_shardmap(jcfg, N_RANKS,
+                                 J.init_state(jcfg, jax.random.key(0)), seq)
+        tcfg = port_cfg(jcfg)
+        init = tree(frames[0]["before"])
+        common = dict(kind="steps", cfg=tcfg,
+                      frames=[f["frame"] for f in frames],
+                      draws=[f["draws"] for f in frames])
+        cases.append(dict(common, teacher=[tree(f["before"]) for f in frames],
+                          pin=[f["metrics"]["newborn_weight"] for f in frames]))
+        cases.append(dict(common, init=init, keep=[len(frames) - 1]))
+        runs[exchange] = dict(frames=frames, tcfg=tcfg)
+    # the port's one-device run (the mover exchange plays no part there; the
+    # exchanges' JAX runs give it the same draws)
+    frames, tcfg = runs[exchanges[0]]["frames"], runs[exchanges[0]]["tcfg"]
+    step = T.make_step(tcfg)
+    state = T.state_from_numpy(tree(frames[0]["before"]), tcfg, device="cpu")
+    for f in frames:
+        state, out = step(state, T.Frame(*f["frame"]), whole_draws(f["draws"]))
+    for exchange in exchanges:
+        runs[exchange]["single"] = (state, out)
+    got = run_ranks(cases + list(extra), tmp_path_factory.mktemp("ranks"))
+    for k, exchange in enumerate(exchanges):
+        runs[exchange]["teacher"] = [r[2 * k] for r in got]
+        runs[exchange]["free"] = [r[2 * k + 1] for r in got]
+    runs["extra"] = [r[2 * len(exchanges):] for r in got]
+    return runs
+
+
+def check_teacher_forced(run):
+    """Every frame of every rank: the same metrics on every rank; rank 0's
+    gathered state against the JAX sharded step's (pinned bars)."""
+    from torch_shard import N_RANKS
+
+    tcfg, frames = run["tcfg"], run["frames"]
+    by_rank = run["teacher"]
+    for i, f in enumerate(frames):
+        for r in range(1, N_RANKS):
+            for k, v in by_rank[0][i][1].items():
+                assert np.array_equal(v, by_rank[r][i][1][k]), (i, r, k)
+        new, out = port_result(tcfg, by_rank[0][i])
+        check_frame(i, new, out, f, pinned=True)
+    last = frames[-1]["metrics"]
+    assert int(last["born"]) > 0 and int(last["updated_particles"]) > 0
+    # the dynamic model moves particles between voxels, the static never
+    dynamic = run["tcfg"].motion_model != "static"
+    assert (int(last["movers"]) > 0) == dynamic
+
+
+def check_free_running(run, counters=SHARD_COUNTERS):
+    """The last frame of the free run against the port's single-device
+    run (``tests/test_shard_step.py``'s bars)."""
+    s1, o1 = run["single"]
+    s2, o2 = port_result(run["tcfg"], run["free"][0][-1])
+    assert o1.accepted and o2.accepted
+    assert int(o1.metrics["alive"]) > 0
+    np.testing.assert_allclose(s1.weight_sum.numpy(), s2.weight_sum.numpy(),
+                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(s1.future.numpy(), s2.future.numpy(),
+                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_array_equal(voxel_flag_counts(s1.particles.flags),
+                                  voxel_flag_counts(s2.particles.flags))
+    for k in counters:
+        assert int(o1.metrics[k]) == int(o2.metrics[k]), k
+
+

@@ -1,0 +1,364 @@
+"""Runs the port's sharded step on gloo ranks for the sharded tests
+(``tests/test_torch_shard_*.py``).
+
+The test process (which has jax) prepares a list of cases and
+:func:`run_ranks` starts this file once per rank with that list: each rank
+joins a gloo group on the CPU through a ``file://`` rendezvous, runs every
+case -- the function of this module named by the case's ``"kind"`` -- and
+pickles its results.  The ranks import torch and the port, never jax
+(``sys.modules["jax"] = None``).  One start of the ranks serves a whole
+test file, since each start imports torch in every rank.
+"""
+
+from __future__ import annotations
+
+import os
+import pathlib
+import pickle
+import subprocess
+import sys
+import time
+from types import SimpleNamespace
+
+import numpy as np
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+N_RANKS = 4
+#: one thread a rank (four ranks run beside the test process), and glibc's
+#: malloc kept from giving every large block back to the system at its
+#: free: the step's temporaries would be mapped and faulted in anew each
+#: time, which doubled the ranks' CPU time on the larger maps
+RANK_ENV = {"OMP_NUM_THREADS": "1", "MALLOC_MMAP_THRESHOLD_": "4000000000",
+            "MALLOC_TRIM_THRESHOLD_": "4000000000"}
+
+_PLANES = ("flags", "px", "py", "pz", "vx", "vy", "vz", "weight", "t")
+_EST = ("prev_centers", "prev_point_num", "prev_intensity", "prev_valid")
+_PARAMS = ("sigma_ob", "position_noise_std", "velocity_noise_std",
+           "p_detection", "kappa", "newborn_particle_weight")
+_TOP = ("weight_sum", "vel_avg", "future", "sensor_pos", "last_sensor_pos",
+        "origin", "update_time", "last_timestamp", "update_counter",
+        "initialized")
+
+
+def tree(state) -> SimpleNamespace:
+    """A state as nested namespaces of numpy arrays (what
+    ``state_from_numpy`` reads): from a JAX ``MapState`` after
+    ``device_get``, or from the port's ``state_to_numpy`` dict."""
+    get = ((lambda o, k: o[k]) if isinstance(state, dict)
+           else (lambda o, k: getattr(o, k)))
+
+    def ns(obj, names):
+        return SimpleNamespace(**{k: np.asarray(get(obj, k)) for k in names})
+
+    return SimpleNamespace(
+        particles=ns(get(state, "particles"), _PLANES),
+        estimator=ns(get(state, "estimator"), _EST),
+        params=ns(get(state, "params"), _PARAMS),
+        **{k: np.asarray(get(state, k)) for k in _TOP})
+
+
+def newborn_coeff(w_b, target):
+    """The float32 ``c`` with ``w_b * c == target`` bit for bit: the
+    ``norm_coeff`` that makes the port's newborn weight the given one."""
+    w_b, target = np.float32(w_b), np.float32(target)
+    c = np.float32(target / w_b)
+    for _ in range(8):
+        if np.float32(w_b * c) == target:
+            break
+        c = np.nextafter(c, np.float32(np.inf) if np.float32(w_b * c) < target
+                         else np.float32(-np.inf))
+    assert np.float32(w_b * c) == target
+    return c
+
+
+def run_ranks(cases: list, tmp_path, n: int = N_RANKS,
+              timeout: float = 240.0) -> list:
+    """Start ``n`` ranks on ``cases`` and return each rank's list of
+    results.  A rank that fails or runs out of time fails the call with
+    the end of its standard error."""
+    tmp = pathlib.Path(tmp_path)
+    job = tmp / "job.pkl"
+    with open(job, "wb") as f:
+        pickle.dump(cases, f)
+    env = dict(os.environ, PYTHONPATH=str(REPO), **RANK_ENV)
+    procs, logs = [], []
+    for r in range(n):
+        log = open(tmp / f"rank{r}.log", "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, str(job), str(r), str(n),
+             str(tmp / "rendezvous")], cwd=REPO, env=env, stdout=log,
+            stderr=subprocess.STDOUT))
+    end = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(end - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    said = []
+    for r, log in enumerate(logs):
+        log.seek(0)
+        said.append(log.read())
+        log.close()
+    assert not failed, "\n".join(f"rank {r} ({procs[r].returncode}):\n"
+                                 f"{said[r][-3000:]}" for r in failed)
+    out = []
+    for r in range(n):
+        with open(tmp / f"out{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+# --- run in the ranks -------------------------------------------------------
+
+def _pin_birth(weights: list):
+    """Make the port's birth stages use the given newborn weights, one a
+    call, consumed in order."""
+    import torch
+    from dspmap_tpu_torch.models import pipeline
+
+    for name in ("particle_birth", "particle_birth_compact"):
+        orig = getattr(pipeline, "_unpinned_" + name, None) or getattr(
+            pipeline, name)
+        setattr(pipeline, "_unpinned_" + name, orig)
+
+        def birth(p, cfg, draws, _orig=orig, **kw):
+            c = newborn_coeff(kw["rt"].newborn_particle_weight, weights.pop(0))
+            kw["norm_coeff"] = torch.tensor(float(c), dtype=torch.float32)
+            return _orig(p, cfg, draws, **kw)
+
+        setattr(pipeline, name, birth)
+
+
+def _unpin_birth():
+    from dspmap_tpu_torch.models import pipeline
+
+    for name in ("particle_birth", "particle_birth_compact"):
+        orig = getattr(pipeline, "_unpinned_" + name, None)
+        if orig is not None:
+            setattr(pipeline, name, orig)
+
+
+def _draws(d, rank):
+    """A frame's draws for ``rank``: ``None``, or ``(replicated, per_rank)``
+    with ``per_rank`` ``None`` or one tuple of pool-shaped draws a rank."""
+    if d is None:
+        return None
+    replicated, per_rank = d
+    return tuple(replicated) + (() if per_rank is None else
+                                tuple(per_rank[rank]))
+
+
+def _metrics(out) -> dict:
+    return {k: np.asarray(v.cpu()) for k, v in out.metrics.items()}
+
+
+def steps(case, mesh):
+    """The sharded step over ``case["frames"]``: from ``case["init"]`` with
+    the state carried, or from ``case["teacher"][i]`` before every frame;
+    ``case["draws"][i]`` as :func:`_draws` reads it; ``case["pin"][i]``
+    the newborn weight to pin, if any.  Returns per frame ``(accepted,
+    metrics, gathered state as numpy)`` -- the state on rank 0 only, on
+    the frames of ``case["keep"]`` (default: all)."""
+    import dspmap_tpu_torch as T
+    from dspmap_tpu_torch.parallel import (gather_state, make_shardmap_step,
+                                           shard_state)
+
+    cfg = case["cfg"]
+    step = make_shardmap_step(cfg, mesh, device="cpu")
+    teacher = case.get("teacher")
+    keep = case.get("keep", range(len(case["frames"])))
+    state = None if teacher else shard_state(
+        T.state_from_numpy(case["init"], cfg, device="cpu"), mesh)
+    out = []
+    try:
+        for i, frame in enumerate(case["frames"]):
+            if teacher:
+                state = shard_state(T.state_from_numpy(teacher[i], cfg,
+                                                       device="cpu"), mesh)
+            if case.get("pin"):
+                _pin_birth([case["pin"][i]])
+            draws = case["draws"][i] if case.get("draws") else None
+            state, res = step(state, T.Frame(*frame), _draws(draws,
+                                                            mesh.rank))
+            whole = None
+            if i in keep:
+                whole = gather_state(state, mesh)
+                whole = T.state_to_numpy(whole) if mesh.rank == 0 else None
+            out.append((res.accepted, _metrics(res), whole))
+    finally:
+        _unpin_birth()
+    return out
+
+
+def rebin_exchange(case, mesh):
+    """``sweep_compact`` then ``rebin_exchange_compact`` on this rank's rows
+    of ``case["particles"]`` (numpy planes ``[P]``), as the step calls them;
+    returns the rank's rows of the result and its stats."""
+    import torch
+    import dspmap_tpu_torch as T
+    from dspmap_tpu_torch.ops.compact import (rebin_exchange_compact,
+                                              sweep_compact)
+    from dspmap_tpu_torch.parallel.shard_step import shard_ctx
+
+    cfg = case["cfg"]
+    shard = shard_ctx(cfg, mesh, "cpu")
+    rows = slice(mesh.rank * cfg.compact_capacity // mesh.size,
+                 (mesh.rank + 1) * cfg.compact_capacity // mesh.size)
+    p = T.Particles(**{k: torch.from_numpy(np.array(v[rows]))
+                       for k, v in case["particles"].items()})
+    noise = case["noise"]
+    noise = None if noise is None else torch.from_numpy(noise[mesh.rank])
+    p, sw = sweep_compact(p, cfg, case["dt"], case["origin"],
+                          case["sensor_pos"], case["quat"], noise,
+                          T.state.RuntimeParams.from_config(cfg))
+    new, stats = rebin_exchange_compact(p, sw, cfg, shard)
+    return ({k: getattr(new, k).numpy() for k in _PLANES},
+            {k: int(v) for k, v in stats.items()})
+
+
+def birth(case, mesh):
+    """``particle_birth`` (pool) or ``particle_birth_compact`` on this
+    rank's slab of ``case["particles"]`` with the rank's ``ShardCtx``, the
+    estimator output, draws and ``norm_coeff`` the same on every rank;
+    returns the rank's planes and the stats."""
+    import torch
+    import dspmap_tpu_torch as T
+    from dspmap_tpu_torch.ops.birth import (particle_birth,
+                                            particle_birth_compact)
+    from dspmap_tpu_torch.parallel.shard_step import shard_ctx
+
+    cfg = case["cfg"]
+    shard = shard_ctx(cfg, mesh, "cpu")
+    n, r = mesh.size, mesh.rank
+
+    def cut(v):
+        m = v.shape[-1] // n
+        return torch.from_numpy(
+            np.ascontiguousarray(v[..., r * m:(r + 1) * m]))
+
+    p = T.Particles(**{k: cut(v) for k, v in case["particles"].items()})
+    fn = (particle_birth_compact if cfg.layout == "compact"
+          else particle_birth)
+    t = {k: torch.from_numpy(v) for k, v in case["est"].items()}
+    new, stats = fn(
+        p, cfg, tuple(torch.from_numpy(d) for d in case["draws"]),
+        est_points=t["points"], est_vel=t["vel"], est_dynamic=t["dynamic"],
+        est_valid=t["valid"], norm_coeff=torch.tensor(case["norm_coeff"]),
+        origin=case["origin"], update_time=case["update_time"],
+        rt=T.state.RuntimeParams.from_config(cfg), shard=shard)
+    return ({k: getattr(new, k).numpy() for k in _PLANES},
+            {k: float(v) for k, v in stats.items()})
+
+
+def ctx(case, mesh):
+    """``ShardCtx`` on rank-marked tensors: ``gather_flat``, ``gather_ring``
+    by both transports for each hop count, ``exchange`` of mixed columns,
+    ``psum``, and ``ring_reachable`` over ``case["cells"]``."""
+    import torch
+    from dspmap_tpu_torch.ops.common import ShardCtx
+
+    r, n = mesh.rank, mesh.size
+    v_local = case["v_local"]
+    x = torch.arange(6, dtype=torch.int32) + 100 * r
+    ctxs = {t: ShardCtx(n_shards=n, rank=r, lo=r * v_local, group=mesh.group,
+                        transport=t) for t in ("p2p", "all_gather")}
+    c = ctxs["p2p"]
+    f = torch.linspace(0, 1, 6) + r
+    b = (torch.arange(6) % (r + 2)) == 0
+    return dict(
+        flat=c.gather_flat(x).numpy(),
+        ring={(t, h): ctxs[t].gather_ring(x, h).numpy()
+              for t in ctxs for h in (1, 2)},
+        exchange=[y.numpy() for y in c.exchange([f, x, b])],
+        exchange_ring=[y.numpy() for y in ctxs["all_gather"].exchange(
+            [f, x, b], ring_hops=1)],
+        psum=c.psum(torch.tensor([r, 1], dtype=torch.int64)).numpy(),
+        reach={h: c.ring_reachable(torch.from_numpy(case["cells"]), v_local,
+                                   h).numpy() for h in (1, 2)},
+        owns=c.owns(torch.from_numpy(case["cells"]), v_local).numpy())
+
+
+def layout(case, mesh):
+    """``shard_state`` / ``gather_state`` round trip of ``case["init"]``,
+    then ``make_sharded_step`` and ``make_shardmap_step`` over
+    ``case["frames"]`` side by side, and ``make_sharded_step`` given a
+    whole state; also ``make_draws`` with the rank's ``ShardCtx``."""
+    import torch
+    import dspmap_tpu_torch as T
+    from dspmap_tpu_torch.parallel import (gather_state, make_sharded_step,
+                                           make_shardmap_step, shard_state,
+                                           state_shardings)
+    from dspmap_tpu_torch.parallel.shard_step import shard_ctx
+
+    cfg = case["cfg"]
+    whole = T.state_from_numpy(case["init"], cfg, device="cpu")
+    slab = shard_state(whole, mesh)
+    back = T.state_to_numpy(gather_state(slab, mesh))
+    shapes = {k: tuple(getattr(v, "shape", ()))
+              for k, v in T.state_to_numpy(slab)["particles"].items()}
+    pinned = make_sharded_step(cfg, mesh, device="cpu")
+    plain = make_shardmap_step(cfg, mesh, device="cpu")
+    a, b = slab, shard_state(whole, mesh)  # a generator each
+    chain = []
+    for frame in case["frames"]:
+        a, out_a = pinned(a, T.Frame(*frame))
+        b, out_b = plain(b, T.Frame(*frame))
+        same = all(torch.equal(getattr(a.particles, k), getattr(b.particles, k))
+                   for k in _PLANES) and torch.equal(a.weight_sum, b.weight_sum)
+        chain.append((same, int(out_a.metrics["alive"]),
+                      {k: tuple(x.shape) for k, x in
+                       [("flags", a.particles.flags), ("weight_sum",
+                                                       a.weight_sum),
+                        ("future", a.future), ("vel_avg", a.vel_avg)]},
+                      state_shardings(a)))
+    try:
+        pinned(whole, T.Frame(*case["frames"][0]))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    shard = shard_ctx(cfg, mesh, "cpu")
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    d1 = T.make_draws(cfg, gen, "cpu", shard)
+    gen.manual_seed(5)
+    d2 = T.make_draws(cfg, gen, "cpu", shard)
+    return dict(back=back, slab_shapes=shapes, chain=chain, refused=refused,
+                draws=[x.numpy() for x in d1],
+                draws_again=all(torch.equal(x, y) for x, y in zip(d1, d2)))
+
+
+def _main(job, rank, n, rendezvous):
+    sys.modules["jax"] = None  # the ranks run the port alone
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)  # four ranks beside the test process
+    from dspmap_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            world_size=n, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(n)
+        with open(job, "rb") as f:
+            cases = pickle.load(f)
+        out = [globals()[c["kind"]](c, mesh) for c in cases]
+        with open(pathlib.Path(job).parent / f"out{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+        assert not [m for m in sys.modules if m == "dspmap_tpu"
+                    or m.startswith("dspmap_tpu.")]
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
