@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's eight paths, its IO and its sharded step on one
+"""Drive the PyTorch port's eight paths, its IO and its sharded steps on one
 CUDA card and check them.
 
 Run from the root of a checkout on a machine with an H100::
@@ -29,7 +29,8 @@ Phases (each prints one line; any failure raises and exits nonzero):
    the seven planes of a frame in one launch beside seven ``clone()``
    calls, one plane beside one; K1's ``with_moving`` arm (the moving
    mask of the noisy and multi-sensor paths) at S = 18 with three
-   velocity planes and with two;
+   velocity planes and with two, and with two on the upper half of the
+   pool (a rank's slab of the sharded two-camera path);
 4. the eight paths at full width on the synthetic street sequence --
    through ``make_step``: ``flagship`` (``example_node_settings(
    dsp_dynamic())``, pool layout), ``large_urban`` (compact layout),
@@ -65,12 +66,14 @@ Phases (each prints one line; any failure raises and exits nonzero):
    NCCL takes one rank a card) on the flagship with the ``all_gather``
    mover exchange and on large_urban with the ``ring`` exchange, six
    frames each at full width, large_urban once more with update budgets
-   that neither step overflows, then the flagship for three frames in a
-   one-rank NCCL group; each rank's launches pinned, one frame of rank 0
-   watched for host syncs, the gathered state held to the unsharded card
-   step on the same frames and draws by phase 5's bars (large_urban at its
-   own budgets, which the whole map overflows, by what per-rank budgets
-   imply: see :data:`SHARDED`).
+   that neither step overflows, the flagship for three frames in a
+   one-rank NCCL group, then the two-camera step on the flagship and on
+   large_urban with those budgets; each rank's launches pinned, one frame
+   of rank 0 watched for host syncs, every replicated leaf and metric of
+   the ranks compared (none may differ), the gathered state held to the
+   unsharded card step of as many cameras on the same frames and draws by
+   phase 5's bars (large_urban at its own budgets, which the whole map
+   overflows, by what per-rank budgets imply: see :data:`SHARDED`).
 
 The second-to-last line is a JSON object with every kernel's measurements,
 the last ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -364,12 +367,15 @@ def check_sweep_slab(cfg, device):
     return {"sweep": row}
 
 
-def check_moving_mask(label, cfg, device):
-    """Phase 3, K1's ``with_moving`` arm at ``cfg``'s pool shape: every
-    output of the kernel, the ``[S, V]`` moving mask included, bit-equal
-    to the plain version's.  With three velocity planes the pool's moving
-    particles move in z too.  Returns ``{kernel name: measurements}``."""
+def check_moving_mask(label, cfg, device, slab=False):
+    """Phase 3, K1's ``with_moving`` arm at ``cfg``'s pool shape (``slab``:
+    at the upper half of it, ``[S, V/2]``, a rank's slab of the sharded
+    step on two ranks): every output of the kernel, the moving mask
+    included, bit-equal to the plain version's.  With three velocity
+    planes the pool's moving particles move in z too.  Returns ``{kernel
+    name: measurements}``."""
     import torch
+    import dspmap_tpu_torch as dm
     from dspmap_tpu_torch import kernels
     from dspmap_tpu_torch.ops import occupancy
     from dspmap_tpu_torch.utils.kernel_times import populated_pool
@@ -382,6 +388,11 @@ def check_moving_mask(label, cfg, device):
         vz = np.where(pool.vx.cpu().numpy() != 0, rng.normal(0, 0.5, (S, V)),
                       0).astype(np.float32)
         pool.vz = torch.from_numpy(vz).to(device)
+    if slab:
+        pool = dm.Particles(**{
+            f.name: getattr(pool, f.name)[:, V // 2:].contiguous()
+            for f in dataclasses.fields(dm.Particles)})
+        V -= V // 2
     got = occupancy.pool_pass_cuda(pool, cfg, with_moving=True)
     ref = occupancy.pool_pass_plain(pool, cfg, with_moving=True)
     torch.cuda.synchronize()
@@ -1000,11 +1011,15 @@ def check_io(configs, device, smi) -> dict:
     return by_path
 
 
-#: the sharded phase's paths: (label, configuration, its overrides, mover
+#: the sharded phase's paths: (label, path whose configuration, launches a
+#: frame and sensors it takes, the configuration's overrides, mover
 #: exchange, ranks, backend, frames, bars).  Two ranks share the card over
 #: gloo; the one-rank group runs NCCL.  A slab's planes (the flagship's 18 x
 #: 87552 x 4 B = 6.3 MB) stay under the relayout's 16 MiB line, so no K5
-#: launch.  Bars "phase5" are :func:`card_vs_cpu`'s pinned ones.  The
+#: launch.  The two-camera paths build their frames as ``multisensor_2cam``
+#: does (each camera the frame's cloud and pose) and launch what a frame of
+#: their unsharded path launches on each rank.  Bars "phase5" are
+#: :func:`card_vs_cpu`'s pinned ones.  The
 #: update's budgets (spill tier, pyramid cell) are each rank's, the JAX
 #: package's documented deviation, and large_urban's overflow them: the
 #: unsharded step leaves some 12,000 particles a frame out of the update and
@@ -1015,7 +1030,8 @@ def check_io(configs, device, smi) -> dict:
 #: alive within the JAX package's band for this comparison
 #: (tests/test_compact_shard.py: max(10, 5%)) -- and the "uncontested" path
 #: raises the update's budgets on both sides until neither overflows, where
-#: the phase-5 bars hold the sharded code itself.
+#: the phase-5 bars hold the sharded code itself; the two-camera compact
+#: path takes the uncontested budgets for the same reason.
 UNCONTESTED = dict(particle_spill_capacity=1 << 15, pyramid_slot_capacity=2048)
 SHARDED = (
     ("sharded_flagship", "flagship", {}, "all_gather", 2, "gloo", 6,
@@ -1026,6 +1042,10 @@ SHARDED = (
      "gloo", 6, "phase5"),
     ("sharded_flagship_nccl", "flagship", {}, "all_gather", 1, "nccl", 3,
      "phase5"),
+    ("sharded_multisensor_2cam", "multisensor_2cam", {}, "all_gather", 2,
+     "gloo", 6, "phase5"),
+    ("sharded_multisensor_compact", "multisensor_compact", UNCONTESTED,
+     "ring", 2, "gloo", 5, "phase5"),
 )
 #: the frame of rank 0 watched for host syncs; the frames from it on are
 #: timed
@@ -1076,25 +1096,56 @@ def _sharded_agreement(cfg, whole, out, ref, ref_out) -> dict:
     return m
 
 
-def _sharded_path(label, cfg, mesh, n_frames, per_frame, bars, device):
-    """One path of phase 8 in this rank: the sharded step from a fresh
-    state over ``n_frames`` frames with the launch counts set to 0 before
-    and pinned after, rank 0's watched frame, and on rank 0 the gathered
-    state against the unsharded step's by ``bars`` (see :data:`SHARDED`).
-    Returns this rank's record."""
+def _replicated_digests(state, out) -> dict:
+    """A digest of each replicated leaf of a rank's state (the estimator
+    tracks, the host scalars and runtime parameters), of its generator's
+    state and of each metric, by name."""
+    import hashlib
+
+    import dspmap_tpu_torch as dm
+
+    axes = dm.state_shardings(state)
+    leaves = {k: v for k, v in _leaves(state).items() if axes.get(k) is None}
+    leaves["gen"] = state.gen.get_state().numpy()
+    leaves.update({f"metrics.{k}": v.cpu().numpy()
+                   for k, v in out.metrics.items()})
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()
+                              + str(v.dtype).encode()).hexdigest()
+            for k, v in leaves.items()}
+
+
+def _sharded_path(label, cfg, mesh, n_frames, per_frame, n_sensors, bars,
+                  device):
+    """One path of phase 8 in this rank: the sharded step (of ``n_sensors``
+    cameras, or the single-sensor one) from a fresh state over ``n_frames``
+    frames with the launch counts set to 0 before and pinned after, rank
+    0's watched frame, the replicated leaves and metrics of every rank
+    compared (one ``all_gather`` of their digests), and on rank 0 the
+    gathered state against the unsharded step's by ``bars`` (see
+    :data:`SHARDED`).  Returns this rank's record."""
     import torch
+    import torch.distributed as dist
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch import kernels
     from dspmap_tpu_torch.utils import sim
 
-    step = dm.make_shardmap_step(cfg, mesh, device=device)
-    state = dm.shard_state(dm.init_state(cfg, seed=0, device=device), mesh)
+    step = dm.make_shardmap_step(cfg, mesh, device=device,
+                                 n_sensors=n_sensors)
+    frames = [dm.Frame(*f) for f in sim.generate_sequence(n_frames, cfg,
+                                                           seed=0)]
+    if n_sensors is None:
+        fresh = lambda: dm.init_state(cfg, seed=0, device=device)  # noqa: E731
+        ustep = dm.make_step(cfg)
+    else:  # every camera sees the frame's cloud from its pose
+        fresh = lambda: dm.init_multisensor_state(  # noqa: E731
+            cfg, n_sensors, seed=0, device=device)
+        ustep = dm.make_multisensor_step(cfg, n_sensors)
+        frames = [dm.stack_frames([f] * n_sensors) for f in frames]
+    state = dm.shard_state(fresh(), mesh)
     _require(state.device.type == "cuda" and all(
         getattr(state.particles, f.name).is_cuda
         for f in dataclasses.fields(dm.Particles)),
         f"{label}: a slab off the card")
-    frames = [dm.Frame(*f) for f in sim.generate_sequence(n_frames, cfg,
-                                                           seed=0)]
     syncs, ms = [], []
     kernels.reset_launch_counts()
     for i, frame in enumerate(frames):
@@ -1114,15 +1165,21 @@ def _sharded_path(label, cfg, mesh, n_frames, per_frame, bars, device):
     # gloo stages a CUDA collective through the host on threads of its own,
     # which print their syncs and are not flagged here
     _require(not syncs, f"{label}: host syncs in rank 0's step: {syncs}")
+    mine = _replicated_digests(state, out)
+    every = [mine]
+    if mesh.size > 1:
+        every = [None] * mesh.size
+        dist.all_gather_object(every, mine, group=mesh.group)
     whole = dm.gather_state(state, mesh)
     rec = dict(launches=launches, median_frame_ms=statistics.median(ms),
                alive=int(out.metrics["alive"]))
     if mesh.rank == 0:
+        differ = sorted(k for k in mine if any(d.get(k) != mine[k]
+                                               for d in every))
         _require(bool(torch.isfinite(whole.weight_sum).all()
                       and torch.isfinite(whole.future).all()),
                  f"{label}: not finite")
-        ustep = dm.make_step(cfg)
-        ref = dm.init_state(cfg, seed=0, device=device)
+        ref = fresh()
         for frame in frames:
             ref, ref_out = ustep(ref, frame)
         m = _sharded_agreement(cfg, whole, out, ref, ref_out)
@@ -1131,7 +1188,7 @@ def _sharded_path(label, cfg, mesh, n_frames, per_frame, bars, device):
                  **{f"{k}_sharded_unsharded": [int(out.metrics[k]),
                                                int(ref_out.metrics[k])]
                     for k in ("update_spill_overflow", "pyramid_full_killed",
-                              "mover_overflow_killed")})
+                              "mover_overflow_killed") if k in out.metrics})
         if bars == "capacity":
             a0, a1 = m["alive_unsharded"], m["alive_sharded"]
             _require(abs(a0 - a1) <= max(10, 0.05 * a0), f"{label} alive {m}")
@@ -1145,7 +1202,8 @@ def _sharded_path(label, cfg, mesh, n_frames, per_frame, bars, device):
             _require(m["weight_sum_close"] >= 0.999,
                      f"{label} weight_sum {m}")
             _require(m["future_close"] >= 0.999, f"{label} future grid {m}")
-        rec.update(agreement=m, host_syncs_in_watched_frame=len(syncs))
+        rec.update(agreement=m, host_syncs_in_watched_frame=len(syncs),
+                   replicated_compared=len(mine), replicated_differing=differ)
     return rec
 
 
@@ -1176,9 +1234,9 @@ def _sharded_rank(rank, n, port, out_dir):
             cfg = dataclasses.replace(configs[base], mover_exchange=exchange,
                                       **overrides)
             mesh = make_mesh(ranks, group=nccl if backend == "nccl" else None)
-            per_frame = PATHS[base][3]
+            per_frame, n_sensors = PATHS[base][3], PATHS[base][4]
             records[label] = _sharded_path(label, cfg, mesh, frames,
-                                           per_frame, bars, device)
+                                           per_frame, n_sensors, bars, device)
         dist.barrier()
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(records, f)
@@ -1229,6 +1287,7 @@ def check_sharded(smi) -> dict:
         recs = [records[r][label] for r in range(ranks)]
         for r, rec in enumerate(recs):
             by_path[f"{label}_rank{r}"] = rec["launches"]
+        differ = recs[0]["replicated_differing"]
         _say(label, config=base, overrides=json.dumps(overrides),
              exchange=exchange, ranks=ranks, backend=backend, frames=frames,
              bars=bars,
@@ -1236,8 +1295,15 @@ def check_sharded(smi) -> dict:
              launches=json.dumps([rec["launches"] for rec in recs]),
              host_syncs_in_watched_frame=recs[0]["host_syncs_in_watched_frame"],
              alive=json.dumps([rec["alive"] for rec in recs]),
+             replicated_compared=recs[0]["replicated_compared"],
+             replicated_differing=len(differ),
+             replicated_differing_names=json.dumps(differ),
              **recs[0]["agreement"], card=json.dumps(smi))
     _say("sharded", seconds_with_spawn=seconds)
+    for label, *_ in SHARDED:  # after every path has printed its line
+        differ = records[0][label]["replicated_differing"]
+        _require(not differ, f"{label}: replicated leaves differ across the "
+                 f"ranks: {differ}")
     return by_path
 
 
@@ -1308,9 +1374,13 @@ def main() -> int:
     by_shape = {label: check_kernels(label, configs[label], device)
                 for label in ("flagship", "static", "multi")}
     by_shape["flagship_slab"] = check_sweep_slab(configs["flagship"], device)
-    # K1's moving mask, as the noisy and the two-camera pool paths take it
+    # K1's moving mask, as the noisy and the two-camera pool paths take it,
+    # and as a rank of the sharded two-camera path takes it on its slab
     for label in ("noisy", "multisensor_2cam"):
         by_shape[label] = check_moving_mask(label, configs[label], device)
+    by_shape["multisensor_2cam_slab"] = check_moving_mask(
+        "multisensor_2cam_slab", configs["multisensor_2cam"], device,
+        slab=True)
     # K3 at a shape that is no multiple of pass 2's lane groups, its
     # particles a lane or its rows a block
     check_pairs("ragged", 37, 13, 101, 0.1, np.random.default_rng(1), device,

@@ -14,7 +14,7 @@ from .config import MapConfig
 from .state import EstimatorState
 from .ops.assignment import solve_assignment
 from .ops.cluster import euclidean_cluster
-from .ops.common import compact_mask, scatter_set
+from .ops.common import compact_mask, scatter_set, segment_sum
 
 
 class EstimatorOutput(NamedTuple):
@@ -53,10 +53,10 @@ def estimate_velocities(cloud_world: torch.Tensor, cloud_valid: torch.Tensor,
     lab = labels.to(torch.int64)
 
     ones = nonground.to(torch.float32)
-    size = torch.zeros(P + 1, dtype=torch.float32, device=dev).index_add(
-        0, lab, ones)
-    centroid = torch.zeros((P + 1, 3), dtype=torch.float32,
-                           device=dev).index_add(0, lab, cloud_world * ones[:, None])
+    # the same bits on every call: each rank of the sharded step runs the
+    # estimator and must keep the same tracks
+    size = segment_sum(ones, lab, P + 1)
+    centroid = segment_sum(cloud_world * ones[:, None], lab, P + 1)
     centroid = centroid / size.clamp(min=1.0)[:, None]
 
     my_size = size[lab]

@@ -22,10 +22,11 @@ the frame's numpy inputs and the state's host copy of the last pose and
 timestamp; a rejected frame returns the state unchanged.  Nothing else in
 the step reads a device value on the host.
 
-``make_step(cfg, shard=ShardCtx(...))`` builds the step of one rank of the
-sharded step (``parallel/``): the state is the rank's slab, the frame, the
-estimator and the replicated draws are the same on every rank, and the
-cross-slab work runs as collectives.
+``make_step(cfg, shard=ShardCtx(...))`` and ``make_multisensor_step(cfg,
+n, shard=ShardCtx(...))`` build the step of one rank of the sharded step
+(``parallel/``): the state is the rank's slab, the frame, the estimator and
+the replicated draws are the same on every rank, and the cross-slab work
+runs as collectives.
 """
 
 from __future__ import annotations
@@ -124,18 +125,22 @@ def rank_generator(gen: torch.Generator, rank: int) -> torch.Generator:
     return out
 
 
-def _sensor_draws(cfg: MapConfig, gen: torch.Generator, device,
-                  fov: bool) -> tuple:
+def _sensor_draws(cfg: MapConfig, gen: torch.Generator, device) -> tuple:
     shape = (cfg.max_input_points, cfg.newborn_particles_per_point, 3)
     kw = dict(generator=gen, device=device, dtype=torch.float32)
     fresh = torch.rand(cfg.max_clusters, **kw) * 0.9 + 0.1
     noise_p = torch.randn(shape, **kw)
     noise_v = torch.randn(shape, **kw)
     noise_u = torch.rand(shape, **kw) * 2.0 - 1.0
-    if not fov:
-        return fresh, noise_p, noise_v, noise_u
-    return (fresh, noise_p, noise_v, noise_u,
-            torch.randn((2,) + _particle_shape(cfg), **kw))
+    return fresh, noise_p, noise_v, noise_u
+
+
+def _pool_normal(cfg: MapConfig, m: int, gen: torch.Generator, device,
+                 n_shards: int = 1) -> torch.Tensor:
+    """``m`` standard-normal particle planes (``[m, S, V/n]`` or ``[m,
+    P/n]``)."""
+    return torch.randn((m,) + _particle_shape(cfg, n_shards), generator=gen,
+                       device=device, dtype=torch.float32)
 
 
 def make_draws(cfg: MapConfig, gen: torch.Generator, device, shard=None):
@@ -151,30 +156,40 @@ def make_draws(cfg: MapConfig, gen: torch.Generator, device, shard=None):
     and the two pool-shaped ones are the rank's own, at the slab's shape
     (``[3, S, V/n]``, ``[2, S, V/n]``; ``[3, P/n]``, ``[2, P/n]``), drawn
     from :func:`rank_generator`."""
-    draws = _sensor_draws(cfg, gen, device, fov=False)
+    draws = _sensor_draws(cfg, gen, device)
     if not is_noisy(cfg):
         return draws
     n = 1 if shard is None else shard.n_shards
     own = gen if shard is None else rank_generator(gen, shard.rank)
-    kw = dict(generator=own, device=device, dtype=torch.float32)
-    prop = torch.randn((3,) + _particle_shape(cfg, n), **kw)
-    return draws + (prop, torch.randn((2,) + _particle_shape(cfg, n), **kw))
+    prop = _pool_normal(cfg, 3, own, device, n)
+    return draws + (prop, _pool_normal(cfg, 2, own, device, n))
 
 
 def make_multisensor_draws(cfg: MapConfig, n_sensors: int,
-                           gen: torch.Generator, device):
+                           gen: torch.Generator, device, shard=None):
     """The multi-sensor step's random draws from ``gen``, in this order:
     ``prop_noise`` (``[3, S, V]`` or ``[3, P]``; noisy configurations
     only, else ``None``), then for each sensor ``(fresh, noise_p, noise_v,
     noise_u)`` as :func:`make_draws` makes them, with ``fov_noise`` (``[2,
     S, V]`` or ``[2, P]``) appended on noisy configurations.  Returns
-    ``(prop_noise, per-sensor tuples)``; a sensor's draws are used only if
-    it is admitted, so a skipped camera never shifts another's draws."""
+    ``(prop_noise, per-sensor tuples)``; every draw is made up front and a
+    sensor's are used only if it is admitted, so a skipped camera never
+    shifts another's draws.
+
+    With ``shard`` (a :class:`~..ops.common.ShardCtx`) each sensor's four
+    are replicated -- drawn from ``gen`` in sensor order, the same on every
+    rank -- and the pool-shaped normals are the rank's own, at the slab's
+    shape (``[3, S, V/n]`` and ``[2, S, V/n]``; ``[3, P/n]`` and ``[2,
+    P/n]``), drawn in the same order from one :func:`rank_generator`."""
     noisy = is_noisy(cfg)
-    prop = (torch.randn((3,) + _particle_shape(cfg), generator=gen,
-                        device=device, dtype=torch.float32) if noisy else None)
-    return prop, tuple(_sensor_draws(cfg, gen, device, fov=noisy)
-                       for _ in range(n_sensors))
+    n = 1 if shard is None else shard.n_shards
+    own = gen if shard is None or not noisy else rank_generator(gen,
+                                                                shard.rank)
+    prop = _pool_normal(cfg, 3, own, device, n) if noisy else None
+    return prop, tuple(
+        _sensor_draws(cfg, gen, device)
+        + ((_pool_normal(cfg, 2, own, device, n),) if noisy else ())
+        for _ in range(n_sensors))
 
 
 def _on_device(draws, dev) -> tuple:
@@ -422,7 +437,7 @@ def _sensor_estimator(est: EstimatorState, i: int) -> EstimatorState:
                              for f in dataclasses.fields(EstimatorState)})
 
 
-def make_multisensor_step(cfg: MapConfig, n_sensors: int):
+def make_multisensor_step(cfg: MapConfig, n_sensors: int, shard=None):
     """Build ``step(state, frames, draws=None) -> (state, StepOutput)`` for
     one map fed by ``n_sensors`` depth cameras (mirrors the JAX package's
     ``make_multisensor_step`` and its compact form).
@@ -444,8 +459,24 @@ def make_multisensor_step(cfg: MapConfig, n_sensors: int):
     quaternion is skipped alone.  ``draws`` (see
     :func:`make_multisensor_draws`) injects the random numbers; ``None``
     draws them from ``state.gen``.  The metrics are the occupancy stage's
-    and ``estimator_cloud`` is ``()``."""
+    and ``estimator_cloud`` is ``()``.
+
+    ``shard`` (a :class:`~..ops.common.ShardCtx`) builds one rank's step of
+    the sharded multi-sensor step (``parallel.make_shardmap_step(...,
+    n_sensors=)``), as :func:`make_step`'s ``shard`` does: the state is the
+    rank's slab with the estimator tensors replicated, the frames are the
+    same on every rank, and so is every admission decision, taken on the
+    host from them.  A frame makes one mover exchange (``rebin``; compact:
+    ``rebin_exchange_compact``), then for each admitted sensor the sum of
+    the C(z) partials and of birth's classification, then the occupancy
+    stage's future-mover exchange and one sum of the counters.  FOV
+    registration works on the slab's own slots, the estimator and the
+    birth table on the replicated frames.  Pool-shaped noise is each
+    rank's own (:func:`make_multisensor_draws`)."""
     cfg.validate()
+    if shard is not None and not isinstance(shard, ShardCtx):
+        raise TypeError(
+            f"shard must be a ShardCtx, got {type(shard).__name__}")
     compact = cfg.layout == "compact"
 
     def step(state: MapState, frames: Frame, draws=None):
@@ -466,7 +497,8 @@ def make_multisensor_step(cfg: MapConfig, n_sensors: int):
                 for k in names}, ())
 
         if draws is None:
-            draws = make_multisensor_draws(cfg, n_sensors, state.gen, dev)
+            draws = make_multisensor_draws(cfg, n_sensors, state.gen, dev,
+                                           shard)
         prop_noise, sensor_draws = draws
         if prop_noise is not None:
             (prop_noise,) = _on_device((prop_noise,), dev)
@@ -478,10 +510,13 @@ def make_multisensor_step(cfg: MapConfig, n_sensors: int):
         if compact:
             p, sw = sweep_compact(_clamp_velocities(p, cfg), cfg, dt, origin,
                                   poses[0], quats[0], prop_noise, rt)
-            p, _, _ = rebin_compact(p, sw, cfg)
+            if shard is None:
+                p, _, _ = rebin_compact(p, sw, cfg)
+            else:
+                p, _ = rebin_exchange_compact(p, sw, cfg, shard)
         else:
             p = propagate(p, cfg, prop_noise, dt, rt)
-            p, _ = rebin(p, cfg, origin, update_time)
+            p, _ = rebin(p, cfg, origin, update_time, shard)
 
         tracks = []
         for i in range(n_sensors):
@@ -507,21 +542,23 @@ def make_multisensor_step(cfg: MapConfig, n_sensors: int):
                 p, fovbin, _ = register_fov(p, cfg, poses[i], quats[i],
                                             fov_noise, rt)
             p, norm_coeff, _ = measurement_update(
-                p, fovbin, obs, cfg, expected_newborn, update_time, rt)
+                p, fovbin, obs, cfg, expected_newborn, update_time, rt, shard)
             birth = particle_birth_compact if compact else particle_birth
             p, _ = birth(
                 p, cfg, (noise_p, noise_v, noise_u),
                 est_points=est_out.points, est_vel=est_out.vel,
                 est_dynamic=est_out.dynamic, est_valid=est_out.valid,
                 norm_coeff=norm_coeff, origin=origin, update_time=update_time,
-                rt=rt)
+                rt=rt, shard=shard)
 
         if compact:
             p, weight_sum, vel_avg, future, occ_stats = occupancy_compact(
-                p, cfg, origin, state.future)
+                p, cfg, origin, state.future, shard)
         else:
             p, weight_sum, vel_avg, future, occ_stats = occupancy_and_resample(
-                p, cfg, origin, state.future, None)
+                p, cfg, origin, state.future, None, shard)
+        if shard is not None:
+            occ_stats = _sum_counters(occ_stats, shard)
         estimator = EstimatorState(**{
             f.name: torch.stack([getattr(e, f.name) for e in tracks])
             for f in dataclasses.fields(EstimatorState)})

@@ -106,6 +106,21 @@ def scatter_add(target: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     return buf[:n]
 
 
+def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """``zeros[n, ...].at[seg].add(vals)`` with every ``seg`` in ``[0, n)``,
+    its bits the same from call to call.  On the CPU ``index_add`` adds in
+    index order, as XLA's scatter does; on the card its float atomics add
+    in no fixed order, so it takes ``index_put_`` with ``accumulate``,
+    which adds duplicates in an order fixed by the indices.  Replicated
+    computation in the sharded step needs this: every rank must reach the
+    same bits."""
+    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                      device=vals.device)
+    if vals.is_cuda:
+        return out.index_put_((seg,), vals, accumulate=True)
+    return out.index_add_(0, seg, vals)
+
+
 def scatter_max(target: torch.Tensor, idx: torch.Tensor,
                 vals: torch.Tensor) -> torch.Tensor:
     """``target.at[idx].max(vals, mode="drop")`` for 1-D ``target``."""

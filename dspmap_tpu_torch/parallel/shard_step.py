@@ -19,10 +19,15 @@ collective:
   newborns whose voxel it owns (``ops/birth.py``);
 * one ``all_reduce`` of the metric counters (``models/pipeline.py``).
 
-Frames, the estimator, the birth table and the replicated draws are the
-same on every rank, so every replicated quantity comes out the same;
-pool-shaped noise (noisy configurations only) is each rank's own
-(``models.pipeline.make_draws``).
+The multi-sensor step (``n_sensors``) makes one mover exchange a frame,
+the update's and birth's sums once an admitted sensor, then the
+occupancy stage's exchange and the counters' sum.  Frames, the estimator
+(one track a sensor), the birth table and the replicated draws are the
+same on every rank, and so is every admission decision, taken on the
+host from the frames, so every rank makes the same collectives and every
+replicated quantity comes out the same; pool-shaped noise (noisy
+configurations only) is each rank's own (``models.pipeline.make_draws``,
+``make_multisensor_draws``).
 
 Deviations from the single-device step, as in the JAX package: capacities
 (FOV buffer, spill, mover buffers) are per rank, so n ranks tolerate n
@@ -65,16 +70,28 @@ def shard_ctx(cfg: MapConfig, mesh: Mesh, device) -> ShardCtx:
 
 
 def make_shardmap_step(cfg: MapConfig, mesh: Mesh | None = None,
-                       with_metrics: bool = True, device=None):
+                       with_metrics: bool = True, device=None,
+                       n_sensors: int | None = None):
     """Build this rank's sharded step, ``step(state, frame, draws=None)``,
     with ``state`` this rank's slab (``shard_state``) and the frame the
     same on every rank.  Covers both layouts and both prediction arms; see
     :func:`~..models.pipeline.make_step` for the semantics and
     :func:`~..models.pipeline.make_draws` for the draws.  ``device`` is
     where the slabs live (``None``: the CUDA card; it fixes the ring
-    transport)."""
-    from ..models.pipeline import make_step
+    transport).
+
+    ``n_sensors`` builds the rank's step of the multi-sensor step instead
+    (:func:`~..models.pipeline.make_multisensor_step`, ``step(state,
+    frames, draws=None)``; the state from ``init_multisensor_state``, its
+    estimator tensors with their leading ``[n_sensors]`` axis replicated;
+    the draws of :func:`~..models.pipeline.make_multisensor_draws`).  Its
+    metrics are the occupancy stage's, so it takes no ``with_metrics``."""
+    from ..models.pipeline import make_multisensor_step, make_step
 
     mesh = mesh if mesh is not None else make_mesh()
+    if n_sensors is not None and not with_metrics:
+        raise ValueError("the multi-sensor step has no with_metrics option")
     shard = shard_ctx(cfg, mesh, resolve_device(device))
+    if n_sensors is not None:
+        return make_multisensor_step(cfg, n_sensors, shard=shard)
     return make_step(cfg, with_metrics=with_metrics, shard=shard)

@@ -149,8 +149,10 @@ def gather_state(state: MapState, mesh: Mesh) -> MapState:
     return _replace(state, new)
 
 
-def _slab_shapes(cfg: MapConfig, n: int) -> dict:
-    """The shapes a slab's split leaves must have."""
+def _slab_shapes(cfg: MapConfig, n: int, n_sensors: int | None) -> dict:
+    """The shapes a slab's split leaves and its replicated estimator
+    leaves must have (the latter with their leading ``[n_sensors]`` axis
+    on a multi-sensor state)."""
     v = cfg.storage_voxels // n
     planes = ((cfg.compact_capacity // n,) if cfg.layout == "compact"
               else (cfg.slots_per_voxel, v))
@@ -158,24 +160,35 @@ def _slab_shapes(cfg: MapConfig, n: int) -> dict:
            for f in dataclasses.fields(Particles)}
     out.update({"weight_sum": (v,), "vel_avg": (v, 3),
                 "future": (cfg.n_horizons, v)})
+    lead = () if n_sensors is None else (n_sensors,)
+    c = cfg.max_clusters
+    out.update({"estimator.prev_centers": lead + (c, 3),
+                **{f"estimator.{k}": lead + (c,) for k in (
+                    "prev_point_num", "prev_intensity", "prev_valid")}})
     return out
 
 
 def make_sharded_step(cfg: MapConfig, mesh: Mesh, with_metrics: bool = True,
-                      device=None):
+                      device=None, n_sensors: int | None = None):
     """The sharded step with its layout pinned: ``step(state, frame,
     draws=None)`` takes this rank's slab and returns the next one, and
-    raises unless every split leaf has the slab's shape and stays on the
-    state's device, in and out.
+    raises unless every split leaf has the slab's shape and every
+    estimator leaf its own (with the leading ``[n_sensors]`` axis of a
+    multi-sensor state), all on the state's device, in and out.
 
     This is :func:`~.shard_step.make_shardmap_step`'s step: PyTorch has no
     partitioner to place the collectives of the unchanged step, as the JAX
     package's GSPMD form does (bit-identical to one device there); here it
-    is held to the ``shard_map`` step's bars.  Single-sensor states only."""
+    is held to the ``shard_map`` step's bars.  ``n_sensors`` builds the
+    multi-sensor step over a state of ``init_multisensor_state`` -- the
+    counterpart of the JAX package's ``make_sharded_step(cfg, mesh,
+    step=make_multisensor_step(cfg, n), template_state=...)``, whose
+    budgets (FOV buffer, spill, mover buffers) are the whole map's; here
+    they are each rank's, as in the ``shard_map`` step."""
     from .shard_step import make_shardmap_step
 
-    step = make_shardmap_step(cfg, mesh, with_metrics, device)
-    want = _slab_shapes(cfg, mesh.size)
+    step = make_shardmap_step(cfg, mesh, with_metrics, device, n_sensors)
+    want = _slab_shapes(cfg, mesh.size, n_sensors)
 
     def check(state: MapState, where: str, dev) -> None:
         leaves = _leaves(state)
@@ -183,7 +196,8 @@ def make_sharded_step(cfg: MapConfig, mesh: Mesh, with_metrics: bool = True,
             x = leaves[k]
             if tuple(x.shape) != shape or x.device != dev:
                 raise ValueError(f"{where}: {k} is {tuple(x.shape)} on "
-                                 f"{x.device}, the slab is {shape} on {dev}")
+                                 f"{x.device}, the slab's is {shape} on "
+                                 f"{dev}")
 
     def pinned(state: MapState, frame, draws=None):
         dev = state.device

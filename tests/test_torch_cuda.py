@@ -610,6 +610,33 @@ def test_occupancy_kernel_moving_mask_at_full_width(device):
     assert float(want[6][4].sum()) > 0
 
 
+def test_occupancy_kernel_moving_mask_on_a_slab(device):
+    """K1's ``with_moving`` arm as a rank of the sharded two-camera step
+    takes it on two ranks: the upper half of the flagship pool, S = 18,
+    V = 87,552, two velocity planes; every output, the moving mask
+    included, bit-equal to the plain version's."""
+    from dspmap_tpu_torch.utils.kernel_times import populated_pool
+
+    cfg = T.example_node_settings(T.dsp_dynamic())
+    assert occupancy._n_vel(cfg) == 2
+    whole = populated_pool(cfg, np.random.default_rng(3), device)
+    V = cfg.storage_voxels // 2
+    p = T.Particles(**{k: getattr(whole, k)[:, V:].contiguous()
+                       for k in ("flags", "px", "py", "pz", "vx", "vy", "vz",
+                                 "weight", "t")})
+    assert tuple(p.flags.shape) == (18, 87552)
+    got = occupancy.pool_pass_cuda(p, cfg, with_moving=True)
+    want = occupancy.pool_pass_plain(p, cfg, with_moving=True)
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    for name in ("flags", "weight", "px", "py", "pz", "vx", "vy", "vz", "t"):
+        assert torch.equal(bits(got[0][name]), bits(want[0][name])), name
+    for a, b in zip((got[1], got[2], got[4]) + got[3] + got[6],
+                    (want[1], want[2], want[4]) + want[3] + want[6]):
+        assert torch.equal(bits(a), bits(b))
+    assert torch.equal(got[5], want[5]) and int(want[5].sum()) > 0
+    assert float(want[6][4].sum()) > 0
+
+
 #: the noisy single-sensor step and the two-camera step, on both layouts
 STEP_CASES = {
     "noisy_pool": (dict(limit_motion_to_xy_plane=False), None),
@@ -753,3 +780,42 @@ def test_particle_csv_from_the_card_equals_the_cpus(device, layout, tmp_path):
                                      tmp_path / "cpu.csv") > 0
     assert ((tmp_path / "card.csv").read_bytes()
             == (tmp_path / "cpu.csv").read_bytes())
+
+
+def test_estimator_repeats_its_bits_on_the_card(device):
+    """The velocity estimator, which every rank of the sharded step runs on
+    the same frames, gives the same bits twice over eight flagship frames
+    (two tracks fed alike), and ``segment_sum`` with duplicate indices the
+    same bits on every call; ``index_add``'s float atomics would not."""
+    from dspmap_tpu_torch.estimator import estimate_velocities
+    from dspmap_tpu_torch.models import pipeline
+    from dspmap_tpu_torch.ops.common import segment_sum
+
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    seg = torch.randint(0, 40, (5000,), device=device, generator=g)
+    vals = torch.randn(5000, 3, device=device, generator=g)
+    sums = [segment_sum(vals, seg, 41) for _ in range(10)]
+    assert all(torch.equal(sums[0].view(torch.int32), s.view(torch.int32))
+               for s in sums[1:])
+    torch.testing.assert_close(sums[0].cpu(), segment_sum(
+        vals.cpu(), seg.cpu(), 41), rtol=1e-5, atol=1e-4)
+
+    cfg = T.example_node_settings(T.dsp_dynamic())
+    state = T.init_state(cfg, seed=0, device=device)
+    est_a = est_b = state.estimator
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    n_dynamic = 0
+    for pts, n, pos, quat, _ in sim.generate_sequence(8, cfg, seed=0):
+        obs, _ = pipeline._observe(pts, n, pos, quat, cfg, state.params,
+                                   device)
+        fresh = torch.rand(cfg.max_clusters, device=device, generator=g)
+        out_a, est_a = estimate_velocities(obs.cloud_world, obs.cloud_valid,
+                                           est_a, cfg, 0.1, fresh)
+        out_b, est_b = estimate_velocities(obs.cloud_world, obs.cloud_valid,
+                                           est_b, cfg, 0.1, fresh)
+        for a, b in zip(tuple(out_a) + tuple(vars(est_a).values()),
+                        tuple(out_b) + tuple(vars(est_b).values())):
+            assert torch.equal(bits(a), bits(b))
+        n_dynamic += int(out_a.dynamic.sum())
+    assert n_dynamic > 0

@@ -120,6 +120,13 @@ step = dm.make_shardmap_step(cfg, device="cpu")
 for f in sim.generate_sequence(2, cfg, seed=7):
     state, out = step(state, dm.Frame(*f))
 assert int(out.metrics["alive"]) > 0
+state = dm.shard_state(dm.init_multisensor_state(cfg, 2, seed=0, device="cpu"),
+                       make_mesh())  # and two cameras
+step = dm.make_sharded_step(cfg, make_mesh(), device="cpu", n_sensors=2)
+for f in sim.generate_sequence(2, cfg, seed=7):
+    state, out = step(state, dm.stack_frames([dm.Frame(*f)] * 2))
+assert int(out.metrics["alive"]) > 0
+assert tuple(state.estimator.prev_valid.shape) == (2, cfg.max_clusters)
 import contextlib, io
 from dspmap_tpu_torch.io import load_state, replay
 with contextlib.redirect_stdout(io.StringIO()) as said:
@@ -140,7 +147,8 @@ def test_port_copied_alone_runs_every_preset(tmp_path):
     the flagship, static, multi-neighbor and compact presets and steps two
     frames of each on the CPU, then two frames of the noisy prediction
     path and of the two-camera step on both layouts, two frames of the
-    sharded step on a mesh of one process, then two frames of the replay
+    sharded step and two of the sharded two-camera step on a mesh of one
+    process, then two frames of the replay
     CLI on the CPU with its CSV and its checkpoint, loaded back."""
     shutil.copytree(REPO / "dspmap_tpu_torch", tmp_path / "dspmap_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))

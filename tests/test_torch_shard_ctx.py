@@ -251,6 +251,57 @@ def test_make_draws_per_rank(ranks):
             assert not np.array_equal(draws[r][k], draws[0][k])
 
 
+@pytest.mark.parametrize("noisy", [True, False], ids=["noisy", "limit_xy"])
+def test_make_multisensor_draws_per_rank(noisy):
+    """``make_multisensor_draws(..., shard=)`` for each of four ranks from
+    one generator state: each camera's four draws the same on every rank;
+    on the noisy arm the propagation noise and each camera's FOV noise the
+    rank's own at the slab's shape (none under limit-xy, where the draws
+    are the unsharded step's); the same state gives the same draws."""
+    from dspmap_tpu_torch.ops.common import ShardCtx
+
+    tcfg = dataclasses.replace(_layout_cfg("pool"),
+                               limit_motion_to_xy_plane=not noisy)
+    v_loc = tcfg.storage_voxels // N_RANKS
+    slab = (tcfg.slots_per_voxel, v_loc)
+
+    def draws(rank):
+        gen = torch.Generator()
+        gen.manual_seed(5)
+        shard = ShardCtx(n_shards=N_RANKS, rank=rank, lo=rank * v_loc,
+                         group=None)
+        return T.make_multisensor_draws(tcfg, 2, gen, "cpu", shard)
+
+    got = [draws(r) for r in range(N_RANKS)]
+    prop_b, sensors_b = draws(1)  # the same state, the same draws
+    assert all(torch.equal(x, y) for s, t in zip(got[1][1], sensors_b)
+               for x, y in zip(s, t))
+    assert prop_b is None if not noisy else torch.equal(prop_b, got[1][0])
+    for r in range(N_RANKS):
+        prop, sensors = got[r]
+        assert len(sensors) == 2
+        for i in range(2):
+            assert len(sensors[i]) == (5 if noisy else 4)
+            for x, y in zip(sensors[i][:4], got[0][1][i][:4]):
+                assert torch.equal(x, y)
+        if not noisy:
+            assert prop is None
+            continue
+        assert prop.shape == (3,) + slab
+        assert all(s[4].shape == (2,) + slab for s in sensors)
+        assert not torch.equal(sensors[0][4], sensors[1][4])
+        if r:
+            assert not torch.equal(prop, got[0][0])
+            assert not torch.equal(sensors[1][4], got[0][1][1][4])
+    if not noisy:
+        gen = torch.Generator()
+        gen.manual_seed(5)
+        whole = T.make_multisensor_draws(tcfg, 2, gen, "cpu")
+        assert whole[0] is None and all(
+            torch.equal(x, y) for s, t in zip(whole[1], got[0][1])
+            for x, y in zip(s, t))
+
+
 def test_sweep_reference_on_a_slab_matches_jax():
     """``sweep_reference(..., cell_base=V/2)`` on the upper half of a pool:
     every output bit-equal to JAX's, and the movers are the slots whose new
@@ -310,6 +361,29 @@ def test_one_process_mesh_and_init_without_a_group():
     assert {k: float(v) for k, v in out_a.metrics.items()} == {
         k: float(v) for k, v in out_b.metrics.items()}
     assert int(out_a.metrics["alive"]) > 0
+
+
+def test_sharded_multisensor_step_pins_the_sensor_axis():
+    """``make_sharded_step(..., n_sensors=2)`` on a one-process mesh steps a
+    two-camera state and keeps its estimator's ``[2, C, ...]`` leaves; it
+    refuses a state whose estimator lacks the sensor axis, and a
+    ``with_metrics`` the multi-sensor step does not have."""
+    tcfg = _layout_cfg("pool")
+    mesh = make_mesh()
+    step = T.make_sharded_step(tcfg, mesh, device="cpu", n_sensors=2)
+    state = T.shard_state(T.init_multisensor_state(tcfg, 2, device="cpu"),
+                          mesh)
+    f = next(iter(sim.generate_sequence(1, tcfg, seed=5)))
+    frames = T.stack_frames([T.Frame(*f)] * 2)
+    state, out = step(state, frames)
+    assert out.accepted
+    assert tuple(state.estimator.prev_centers.shape) == (
+        2, tcfg.max_clusters, 3)
+    with pytest.raises(ValueError, match="estimator.prev_centers"):
+        step(T.init_state(tcfg, device="cpu"), frames)
+    with pytest.raises(ValueError, match="with_metrics"):
+        T.make_sharded_step(tcfg, mesh, with_metrics=False, device="cpu",
+                            n_sensors=2)
 
 
 def _birth_case(layout):

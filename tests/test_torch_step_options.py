@@ -101,3 +101,11 @@ def test_sharded_step_is_not_ported():
     _, tcfg = _cfgs("pool")
     with pytest.raises(TypeError, match="ShardCtx"):
         T.make_step(tcfg, shard=object())
+
+
+def test_sharded_multisensor_step_takes_a_shard_ctx_only():
+    """``make_multisensor_step``'s ``shard`` is a ``ShardCtx`` too; anything
+    else is refused when the step is built."""
+    _, tcfg = _cfgs("pool")
+    with pytest.raises(TypeError, match="ShardCtx"):
+        T.make_multisensor_step(tcfg, 2, shard=object())

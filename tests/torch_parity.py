@@ -3,6 +3,8 @@
 JAX run, the newborn-weight pin and the teacher-forced bars.  The bars and
 their reasons are stated in ``tests/test_torch_step.py``'s docstring."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,13 +125,16 @@ def pin_newborn_weight(monkeypatch, birth_name, jax_weight):
     monkeypatch.setattr(pipeline, birth_name, birth)
 
 
-def check_frame(i, new, out, f, pinned):
+def check_frame(i, new, out, f, pinned, share=None):
     """The teacher-forced bars for one frame; returns the share of equal
-    flags (held per frame here, and on average by the caller)."""
+    flags (held per frame here, and on average by the caller).  ``share
+    (new, want)`` measures that share where rows are not comparable one
+    by one (default: the flags, slot by slot)."""
     assert out.accepted == f["accepted"]
     want = f["after"]
-    frac = np.mean(new.particles.flags.numpy()
-                   == np.asarray(want.particles.flags))
+    frac = (np.mean(new.particles.flags.numpy()
+                    == np.asarray(want.particles.flags)) if share is None
+            else share(new, want))
     assert frac >= (0.999 if pinned else 0.995), (i, frac)
     for name in ("weight_sum", "future"):
         close = np.isclose(getattr(new, name).numpy(),
@@ -499,11 +504,11 @@ def voxel_flag_counts(flags):
 
 def port_result(tcfg, res):
     """``(state, StepOutput)`` on the CPU from one frame's ``(accepted,
-    metrics, gathered numpy state)`` of ``tests/torch_shard.py``'s
-    ``steps``."""
+    metrics, gathered numpy state, ...)`` of ``tests/torch_shard.py``'s
+    ``steps`` or ``multisensor_steps``."""
     from torch_shard import tree
 
-    accepted, metrics, whole = res
+    accepted, metrics, whole = res[:3]
     state = T.state_from_numpy(tree(whole), tcfg, device="cpu")
     return state, T.StepOutput(accepted, state.weight_sum, metrics, None)
 
@@ -607,3 +612,225 @@ def check_free_running(run, counters=SHARD_COUNTERS):
         assert int(o1.metrics[k]) == int(o2.metrics[k]), k
 
 
+
+
+# --- shared by the sharded multi-sensor tests ------------------------------
+
+#: the occupancy counters, which are the multi-sensor step's metrics
+MS_COUNTERS = ("alive", "culled", "resampled_voxels", "resample_dropped",
+               "resample_copies", "future_moving", "future_overflow")
+
+
+def slab_draws(draws, n):
+    """A multi-sensor frame's draws ``(prop_noise, per-sensor tuples)`` for
+    each of ``n`` ranks: the per-sensor four replicated, and each
+    pool-shaped normal (the propagation noise, a sensor's FOV noise) cut to
+    the rank's slab on its last axis -- the noise every slot of the slab
+    sees on one device."""
+    prop, sensors = draws
+
+    def cut(x, r):
+        m = x.shape[-1] // n
+        return np.ascontiguousarray(x[..., r * m:(r + 1) * m])
+
+    return [(None if prop is None else cut(prop, r),
+             tuple(tuple(s[:4]) + tuple(cut(x, r) for x in s[4:])
+                   for s in sensors)) for r in range(n)]
+
+
+def multisensor_shard_cases(cases, tmp_path_factory, n_sensors=2,
+                            init_particles=0):
+    """For each ``name: (JAX config, frames)`` of ``cases`` (items of
+    :func:`two_camera_frames`, edited as a case needs): the JAX one-device
+    multi-sensor run from ``init_multisensor_state(key 0)`` with
+    ``init_particles`` random particles added (``add_random_particles``:
+    velocities in [-1, 1]) and each frame's newborn weights
+    (:func:`record_multi`; one jitted step a configuration), the port's
+    one-device run on the same draws, and the ranks' teacher-forced run
+    (each frame from JAX's state before it, the newborn weights pinned)
+    and free run (``tests/torch_shard.py``'s ``multisensor_steps``), each
+    rank given its slab of the pool-shaped draws (:func:`slab_draws`).  One
+    start of the ranks for all: they take each case as soon as it is
+    recorded, and a thread makes the one-device runs meanwhile."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pytest
+    from dspmap_tpu.models.pipeline import (init_multisensor_state,
+                                            make_multisensor_step)
+    from dspmap_tpu.state import add_random_particles
+    from torch_shard import (N_RANKS, post_jobs, start_ranks, stop_ranks,
+                             tree, wait_ranks)
+
+    def one_device(rec, tcfg):
+        step = T.make_multisensor_step(tcfg, n_sensors)
+        state = T.state_from_numpy(tree(rec[0]["before"]), tcfg,
+                                   device="cpu")
+        for f in rec:
+            state, out = step(state, T.Frame(*f["frame"]), f["draws"])
+        return state, out
+
+    runs, sink, built = {}, [], {}
+    scatter = jax.jit(add_random_particles, static_argnums=(1, 2, 3))
+    ranks = start_ranks(tmp_path_factory.mktemp("ranks"))
+    # the one-device runs overlap the recording of the next configuration
+    worker = ThreadPoolExecutor(1)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            capture_newborn_weights(mp, sink)
+            for name, (jcfg, frames) in cases.items():
+                if jcfg not in built:  # one initial state and step a config
+                    init = init_multisensor_state(jcfg, n_sensors,
+                                                  jax.random.key(0))
+                    built[jcfg] = (
+                        scatter(init, jcfg, init_particles, 0.01)
+                        if init_particles else init,
+                        jax.jit(make_multisensor_step(jcfg, n_sensors)))
+                init, step = built[jcfg]
+                rec = record_multi(jcfg, step, init, frames, sink)
+                tcfg = port_cfg(jcfg)
+                common = dict(kind="multisensor_steps", cfg=tcfg,
+                              n_sensors=n_sensors,
+                              frames=[f["frame"] for f in rec],
+                              draws=[slab_draws(f["draws"], N_RANKS)
+                                     for f in rec])
+                post_jobs(ranks, [
+                    dict(common, pin=[f["newborn"] for f in rec],
+                         teacher=[rows_by_slab(tree(f["before"]), tcfg,
+                                               N_RANKS) for f in rec]),
+                    dict(common, keep=[len(rec) - 1], init=rows_by_slab(
+                        tree(rec[0]["before"]), tcfg, N_RANKS))])
+                runs[name] = dict(frames=rec, tcfg=tcfg,
+                                  single=worker.submit(one_device, rec,
+                                                       tcfg))
+        for run in runs.values():
+            run["single"] = run["single"].result()
+    except BaseException:
+        stop_ranks(ranks)
+        raise
+    finally:
+        worker.shutdown(cancel_futures=True)
+    got = wait_ranks(ranks)
+    for k, run in enumerate(runs.values()):
+        run["teacher"] = [r[2 * k] for r in got]
+        run["free"] = [r[2 * k + 1] for r in got]
+    return runs
+
+
+def population(state, cfg):
+    """Per storage cell, the particles holding each flag value 1, 2, 3
+    (``[3, V]``): pool slots by their column, compact rows by the cell of
+    their position, so that it reads alike whatever the row order."""
+    flags = np.asarray(state.particles.flags)
+    if cfg.layout != "compact":
+        return voxel_flag_counts(flags)
+    cell = _row_cells(state.particles, cfg)
+    return np.stack([np.bincount(cell[flags == k],
+                                 minlength=cfg.storage_voxels)
+                     for k in (1, 2, 3)])
+
+
+def _row_cells(p, cfg):
+    """The storage cell of each compact row's position (numpy)."""
+    g = T.geometry
+    return g.storage_index_planar(*g.world_voxel_planar(*(
+        torch.tensor(np.asarray(getattr(p, k))) for k in ("px", "py",
+                                                             "pz")), cfg),
+        cfg).numpy()
+
+
+def placed_alike(cfg):
+    """``check_frame``'s ``share`` for the compact layout, whose rows the
+    sharded step keeps by slab and the one-device step by cell: the share
+    of the reference's particles placed in the same cells with the same
+    flag, one minus the summed count differences over its count."""
+    def share(new, want):
+        a, b = population(new, cfg), population(want, cfg)
+        return 1.0 - np.abs(a - b).sum() / max(b.sum(), 1)
+    return share
+
+
+def rows_by_slab(tree, cfg, n):
+    """A one-device compact state (a :func:`torch_shard.tree`) with its
+    live rows moved to the block of rows of their cell's slab, in their
+    order, as ``shard_state`` expects it for ``n`` ranks (dead rows
+    zeroed); a pool state as it is."""
+    if cfg.layout != "compact":
+        return tree
+    from types import SimpleNamespace
+
+    p = tree.particles
+    P, V = cfg.compact_capacity, cfg.storage_voxels
+    slab = np.where(p.flags != 0, _row_cells(p, cfg) // (V // n), n)
+    rows = np.full(P, P)  # the source row of each row, P: a dead row
+    for r in range(n):
+        mine = np.nonzero(slab == r)[0]
+        assert mine.size <= P // n, (r, mine.size)
+        rows[r * (P // n):r * (P // n) + mine.size] = mine
+    planes = {k: np.concatenate([v, np.zeros(1, v.dtype)])[rows]
+              for k, v in vars(p).items()}
+    return SimpleNamespace(**dict(vars(tree),
+                                  particles=SimpleNamespace(**planes)))
+
+
+def check_ranks_agree(by_rank):
+    """Every frame: the same acceptance, metrics and replicated leaves
+    (estimator tracks, host scalars, the generator) on every rank, bit for
+    bit -- the JAX package's invariant for replicated quantities."""
+    for i, (acc, metrics, _, leaves, _) in enumerate(by_rank[0]):
+        for r, mine in enumerate(by_rank[1:], 1):
+            assert mine[i][0] == acc, (i, r)
+            assert mine[i][1].keys() == metrics.keys(), (i, r)
+            for k, v in metrics.items():
+                assert np.array_equal(v, mine[i][1][k]), (i, r, k)
+            assert mine[i][3].keys() == leaves.keys(), (i, r)
+            for k, v in leaves.items():
+                w = mine[i][3][k]
+                assert v.dtype == w.dtype, (i, r, k)
+                assert np.array_equal(bits(v), bits(w)), (i, r, k)
+
+
+def check_multisensor_teacher_forced(run):
+    """Every frame from JAX's state before it, the newborn weights pinned:
+    the ranks agree (:func:`check_ranks_agree`) and rank 0's gathered state
+    holds ``check_frame``'s pinned bars against JAX's one-device step (the
+    compact layout's flags by :func:`placed_alike`), its estimator tracks
+    those of ``tests/test_torch_multisensor.py``."""
+    tcfg, frames = run["tcfg"], run["frames"]
+    check_ranks_agree(run["teacher"])
+    share = placed_alike(tcfg) if tcfg.layout == "compact" else None
+    for i, f in enumerate(frames):
+        new, out = port_result(tcfg, run["teacher"][0][i][:3])
+        check_frame(i, new, out, f, pinned=True, share=share)
+        est, want = new.estimator, f["after"].estimator
+        for name in ("prev_point_num", "prev_valid"):
+            np.testing.assert_array_equal(getattr(est, name).numpy(),
+                                          np.asarray(getattr(want, name)))
+        for name in ("prev_centers", "prev_intensity"):
+            np.testing.assert_allclose(getattr(est, name).numpy(),
+                                       np.asarray(getattr(want, name)),
+                                       rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def check_multisensor_free_running(run):
+    """The free run: the ranks agree (:func:`check_ranks_agree`), and the
+    last gathered state holds :func:`check_free_running`'s bars against
+    the port's one-device multi-sensor step on the same draws --
+    ``weight_sum`` and ``future`` within rtol 1e-5, the same particles of
+    each flag in every cell (:func:`population`), the occupancy counters
+    equal -- and its estimator tracks are bit-equal (the same frames
+    through the same replicated computation)."""
+    check_ranks_agree(run["free"])
+    tcfg = run["tcfg"]
+    (s1, o1), (s2, o2) = run["single"], port_result(tcfg, run["free"][0][-1])
+    assert o1.accepted and o2.accepted
+    assert int(o1.metrics["alive"]) > 0
+    for name in ("weight_sum", "future"):
+        np.testing.assert_allclose(getattr(s2, name).numpy(),
+                                   getattr(s1, name).numpy(), rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
+    np.testing.assert_array_equal(population(s2, tcfg), population(s1, tcfg))
+    for k in MS_COUNTERS:
+        assert int(o1.metrics[k]) == int(o2.metrics[k]), k
+    for f in dataclasses.fields(T.EstimatorState):
+        assert_bits_equal(getattr(s2.estimator, f.name).numpy(),
+                          getattr(s1.estimator, f.name).numpy(), f.name)

@@ -1,10 +1,12 @@
 """Runs the port's sharded step on gloo ranks for the sharded tests
 (``tests/test_torch_shard_*.py``).
 
-The test process (which has jax) prepares a list of cases and
-:func:`run_ranks` starts this file once per rank with that list: each rank
-joins a gloo group on the CPU through a ``file://`` rendezvous, runs every
-case -- the function of this module named by the case's ``"kind"`` -- and
+The test process (which has jax) prepares lists of cases and
+:func:`run_ranks` (or :func:`start_ranks`, :func:`post_jobs` and
+:func:`wait_ranks`, which let the test process record the next cases while
+the ranks run the first) starts this file once per rank: each rank joins
+a gloo group on the CPU through a ``file://`` rendezvous, runs every case
+-- the function of this module named by the case's ``"kind"`` -- and
 pickles its results.  The ranks import torch and the port, never jax
 (``sys.modules["jax"] = None``).  One start of the ranks serves a whole
 test file, since each start imports torch in every rank.
@@ -71,24 +73,54 @@ def newborn_coeff(w_b, target):
     return c
 
 
-def run_ranks(cases: list, tmp_path, n: int = N_RANKS,
-              timeout: float = 240.0) -> list:
-    """Start ``n`` ranks on ``cases`` and return each rank's list of
-    results.  A rank that fails or runs out of time fails the call with
-    the end of its standard error."""
+def start_ranks(tmp_path, n: int = N_RANKS) -> dict:
+    """Start ``n`` ranks that wait for jobs: each list of cases that
+    :func:`post_jobs` hands them, in turn, until :func:`wait_ranks` says
+    that no job follows and collects the results.  The caller works
+    meanwhile (records the next cases, say)."""
     tmp = pathlib.Path(tmp_path)
-    job = tmp / "job.pkl"
-    with open(job, "wb") as f:
-        pickle.dump(cases, f)
     env = dict(os.environ, PYTHONPATH=str(REPO), **RANK_ENV)
     procs, logs = [], []
     for r in range(n):
         log = open(tmp / f"rank{r}.log", "w+")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, __file__, str(job), str(r), str(n),
-             str(tmp / "rendezvous")], cwd=REPO, env=env, stdout=log,
-            stderr=subprocess.STDOUT))
+            [sys.executable, __file__, str(tmp), str(r), str(n)], cwd=REPO,
+            env=env, stdout=log, stderr=subprocess.STDOUT))
+    return dict(tmp=tmp, procs=procs, logs=logs, posted=0)
+
+
+def post_jobs(ranks: dict, cases: list) -> None:
+    """Hand the ranks of :func:`start_ranks` a list of cases (written
+    whole before the ranks can see it)."""
+    path = ranks["tmp"] / f"job{ranks['posted']}.pkl"
+    with open(path.with_suffix(".part"), "wb") as f:
+        pickle.dump(cases, f)
+    os.replace(path.with_suffix(".part"), path)
+    ranks["posted"] += 1
+
+
+def stop_ranks(ranks: dict) -> list:
+    """End the ranks that still run; returns each rank's output."""
+    for p in ranks["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    said = []
+    for log in ranks["logs"]:
+        if not log.closed:
+            log.seek(0)
+            said.append(log.read())
+            log.close()
+    return said
+
+
+def wait_ranks(ranks: dict, timeout: float = 240.0) -> list:
+    """Each rank's list of results, one a posted case in order.  A rank
+    that fails or runs out of time fails the call with the end of its
+    standard error; the ranks are ended in any case."""
+    (ranks["tmp"] / "jobs.end").touch()  # no job follows
+    procs = ranks["procs"]
     end = time.monotonic() + timeout
     try:
         for p in procs:
@@ -96,23 +128,24 @@ def run_ranks(cases: list, tmp_path, n: int = N_RANKS,
     except subprocess.TimeoutExpired:
         pass
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        said = stop_ranks(ranks)
     failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-    said = []
-    for r, log in enumerate(logs):
-        log.seek(0)
-        said.append(log.read())
-        log.close()
     assert not failed, "\n".join(f"rank {r} ({procs[r].returncode}):\n"
                                  f"{said[r][-3000:]}" for r in failed)
     out = []
-    for r in range(n):
-        with open(tmp / f"out{r}.pkl", "rb") as f:
+    for r in range(len(procs)):
+        with open(ranks["tmp"] / f"out{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
     return out
+
+
+def run_ranks(cases: list, tmp_path, n: int = N_RANKS,
+              timeout: float = 240.0) -> list:
+    """Start ``n`` ranks on ``cases`` and return each rank's list of
+    results."""
+    ranks = start_ranks(tmp_path, n)
+    post_jobs(ranks, cases)
+    return wait_ranks(ranks, timeout)
 
 
 # --- run in the ranks -------------------------------------------------------
@@ -194,6 +227,105 @@ def steps(case, mesh):
             out.append((res.accepted, _metrics(res), whole))
     finally:
         _unpin_birth()
+    return out
+
+
+def _replicated(state) -> dict:
+    """The rank's replicated leaves (``state_shardings`` axis ``None``, and
+    the runtime parameters) as numpy, by path, and the generator's state
+    under ``"gen"``."""
+    import dspmap_tpu_torch as T
+    from dspmap_tpu_torch.parallel import state_shardings
+
+    flat = {}
+    for k, v in T.state_to_numpy(state).items():
+        if isinstance(v, dict):
+            flat.update({f"{k}.{n}": x for n, x in v.items()})
+        else:
+            flat[k] = v
+    axes = state_shardings(state)
+    out = {k: np.asarray(v) for k, v in flat.items() if axes.get(k) is None}
+    out["gen"] = state.gen.get_state().numpy()
+    return out
+
+
+def _count_movers(sink: list):
+    """Wrap the multi-sensor step's mover exchange (``pipeline.rebin``,
+    ``pipeline.rebin_exchange_compact``) so that each call appends to
+    ``sink`` this rank's ``(movers, movers bound for another rank's
+    slab)``.  Returns the function that puts the stages back."""
+    from dspmap_tpu_torch import geometry
+    from dspmap_tpu_torch.models import pipeline
+
+    rebin, exchange = pipeline.rebin, pipeline.rebin_exchange_compact
+
+    def pool(p, cfg, origin, t, shard=None):
+        w = geometry.world_voxel_planar(p.px, p.py, p.pz, cfg)
+        inside = geometry.in_window_planar(*w, origin, cfg) & p.valid
+        away = ~shard.owns(geometry.storage_index_planar(*w, cfg),
+                           p.flags.shape[1])
+        new, stats = rebin(p, cfg, origin, t, shard)
+        sink.append((int(stats["movers"]), int((inside & away).sum())))
+        return new, stats
+
+    def compact(p, sw, cfg, shard):
+        away = ~shard.owns(sw.cell, cfg.storage_voxels // shard.n_shards)
+        new, stats = exchange(p, sw, cfg, shard)
+        sink.append((int(stats["movers"]), int((sw.mover & away).sum())))
+        return new, stats
+
+    def restore():
+        pipeline.rebin, pipeline.rebin_exchange_compact = rebin, exchange
+
+    pipeline.rebin, pipeline.rebin_exchange_compact = pool, compact
+    return restore
+
+
+def multisensor_steps(case, mesh):
+    """The sharded multi-sensor step (``make_shardmap_step(...,
+    n_sensors=)``) over ``case["frames"]`` (multi-sensor frame tuples),
+    as :func:`steps` runs the single-sensor one: from ``case["init"]`` or
+    from ``case["teacher"][i]`` before every frame;
+    ``case["draws"][i][rank]`` this rank's draws ``(prop_noise, per-sensor
+    tuples)``; ``case["pin"][i]`` the newborn weights to pin, one an
+    admitted sensor.  Returns per frame ``(accepted, metrics, gathered
+    state as numpy on rank 0 or None, this rank's replicated leaves, its
+    ``(movers, movers bound for another rank's slab)``)``; a rejected
+    frame exchanges nothing and reads ``(0, 0)``."""
+    import dspmap_tpu_torch as T
+    from dspmap_tpu_torch.parallel import (gather_state, make_shardmap_step,
+                                           shard_state)
+
+    cfg, n_sensors = case["cfg"], case["n_sensors"]
+    step = make_shardmap_step(cfg, mesh, device="cpu", n_sensors=n_sensors)
+    teacher = case.get("teacher")
+    keep = case.get("keep", range(len(case["frames"])))
+    state = None if teacher else shard_state(
+        T.state_from_numpy(case["init"], cfg, device="cpu"), mesh)
+    movers = []
+    restore = _count_movers(movers)
+    out = []
+    try:
+        for i, frame in enumerate(case["frames"]):
+            if teacher:
+                state = shard_state(T.state_from_numpy(teacher[i], cfg,
+                                                       device="cpu"), mesh)
+            weights = list(case["pin"][i]) if case.get("pin") else []
+            if weights:
+                _pin_birth(weights)
+            del movers[:]
+            state, res = step(state, T.Frame(*frame),
+                              case["draws"][i][mesh.rank])
+            assert not weights, (i, weights)  # one pinned birth a sensor
+            whole = None
+            if i in keep:
+                whole = gather_state(state, mesh)
+                whole = T.state_to_numpy(whole) if mesh.rank == 0 else None
+            out.append((res.accepted, _metrics(res), whole,
+                        _replicated(state), movers[0] if movers else (0, 0)))
+    finally:
+        _unpin_birth()
+        restore()
     return out
 
 
@@ -334,7 +466,24 @@ def layout(case, mesh):
                 draws_again=all(torch.equal(x, y) for x, y in zip(d1, d2)))
 
 
-def _main(job, rank, n, rendezvous):
+def _jobs(tmp: pathlib.Path, deadline: float):
+    """The lists of cases :func:`post_jobs` writes, in turn, until the
+    mark of :func:`wait_ranks` (written after the last job)."""
+    k = 0
+    while time.monotonic() < deadline:
+        path = tmp / f"job{k}.pkl"
+        if path.exists():
+            with open(path, "rb") as f:
+                yield pickle.load(f)
+            k += 1
+        elif (tmp / "jobs.end").exists():
+            return
+        else:
+            time.sleep(0.02)
+    raise TimeoutError("no job and no end of the jobs")
+
+
+def _main(tmp, rank, n):
     sys.modules["jax"] = None  # the ranks run the port alone
     import datetime
 
@@ -344,15 +493,16 @@ def _main(job, rank, n, rendezvous):
     torch.set_num_threads(1)  # four ranks beside the test process
     from dspmap_tpu_torch.parallel import make_mesh
 
-    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+    tmp = pathlib.Path(tmp)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
                             world_size=n, rank=rank,
                             timeout=datetime.timedelta(seconds=120))
     try:
         mesh = make_mesh(n)
-        with open(job, "rb") as f:
-            cases = pickle.load(f)
-        out = [globals()[c["kind"]](c, mesh) for c in cases]
-        with open(pathlib.Path(job).parent / f"out{rank}.pkl", "wb") as f:
+        out = [globals()[c["kind"]](c, mesh)
+               for cases in _jobs(tmp, time.monotonic() + 600)
+               for c in cases]
+        with open(tmp / f"out{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
         assert not [m for m in sys.modules if m == "dspmap_tpu"
                     or m.startswith("dspmap_tpu.")]
@@ -361,4 +511,4 @@ def _main(job, rank, n, rendezvous):
 
 
 if __name__ == "__main__":
-    _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
