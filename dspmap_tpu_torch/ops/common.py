@@ -70,6 +70,21 @@ def _safe(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where((idx >= 0) & (idx < n), idx, n)
 
 
+#: sentinel rows of a scatter-add's buffer: its dropped entries spread over
+#: them in turn, since :func:`add_at` on the card adds each index's
+#: duplicates one after another in one warp
+DROP_ROWS = 1024
+
+
+def drop_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``idx`` as int64 with its out-of-range entries sent to the
+    :data:`DROP_ROWS` sentinel rows ``n, n + 1, ...`` in turn."""
+    idx = idx.to(torch.int64)
+    spread = n + torch.arange(idx.numel(), device=idx.device).view(
+        idx.shape) % DROP_ROWS
+    return torch.where((idx >= 0) & (idx < n), idx, spread)
+
+
 def _put(buf: torch.Tensor, target: torch.Tensor, idx: torch.Tensor,
          vals) -> None:
     """``buf[idx] = vals`` with out-of-range rows sent to ``buf``'s last
@@ -93,32 +108,50 @@ def scatter_set(target: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     return buf[:n]
 
 
+def add_at(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+           dim: int = 0) -> torch.Tensor:
+    """``out.index_add_(dim, idx, vals)`` in place (``dim`` 0, or 1 of a
+    contiguous 2-D ``out``), its bits the same from call to call.  On the
+    CPU ``index_add_`` adds duplicates in index order, as XLA's scatter
+    does; on the card its float atomics add them in no fixed order, so a
+    float ``out`` there takes ``index_put_`` with ``accumulate``, whose
+    stable sort of the indices fixes the order in which duplicates add
+    (``dim`` 1 as one index into the flat rows, which copies nothing).
+    Integer sums are exact in any order and keep the atomics.  A long run
+    of one index costs the card its length in serial adds (see
+    :func:`drop_rows`).  Returns ``out``."""
+    if not (out.is_cuda and out.is_floating_point()):
+        return out.index_add_(dim, idx, vals)
+    if dim == 1:
+        rows = torch.arange(out.shape[0], device=out.device)[:, None]
+        out.view(-1).index_put_(((rows * out.shape[1] + idx).reshape(-1),),
+                                vals.reshape(-1), accumulate=True)
+    else:
+        out.index_put_((idx,), vals, accumulate=True)
+    return out
+
+
 def scatter_add(target: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
-    """``target.at[idx].add(vals, mode="drop")`` along dim 0 (functional)."""
+    """``target.at[idx].add(vals, mode="drop")`` along dim 0 (functional),
+    through :func:`add_at`; dropped rows land in sentinel rows
+    (:func:`drop_rows`)."""
     n = target.shape[0]
-    buf = torch.zeros((n + 1,) + tuple(target.shape[1:]), dtype=target.dtype,
-                      device=target.device)
+    buf = torch.zeros((n + DROP_ROWS,) + tuple(target.shape[1:]),
+                      dtype=target.dtype, device=target.device)
     buf[:n] = target
     vals = _vals(vals, target)
     if vals.dim() < idx.dim() + target.dim() - 1:
         vals = vals.expand(tuple(idx.shape) + tuple(target.shape[1:]))
-    buf.index_add_(0, _safe(idx, n), vals)
-    return buf[:n]
+    return add_at(buf, drop_rows(idx, n), vals)[:n]
 
 
 def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """``zeros[n, ...].at[seg].add(vals)`` with every ``seg`` in ``[0, n)``,
-    its bits the same from call to call.  On the CPU ``index_add`` adds in
-    index order, as XLA's scatter does; on the card its float atomics add
-    in no fixed order, so it takes ``index_put_`` with ``accumulate``,
-    which adds duplicates in an order fixed by the indices.  Replicated
-    computation in the sharded step needs this: every rank must reach the
-    same bits."""
+    """``zeros[n, ...].at[seg].add(vals)`` with every ``seg`` in ``[0, n)``
+    (:func:`add_at`).  Replicated computation in the sharded step needs its
+    repeatable bits: every rank must reach the same ones."""
     out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
                       device=vals.device)
-    if vals.is_cuda:
-        return out.index_put_((seg,), vals, accumulate=True)
-    return out.index_add_(0, seg, vals)
+    return add_at(out, seg, vals)
 
 
 def scatter_max(target: torch.Tensor, idx: torch.Tensor,

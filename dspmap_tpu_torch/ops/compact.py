@@ -37,8 +37,9 @@ import torch
 from ..config import MapConfig
 from .. import geometry, kernels
 from ..state import FLAG_NEWBORN, FLAG_VALID
-from .common import (I32_MAX, compact_and_group, compact_mask, scatter_add,
-                     scatter_max, scatter_set, sort_by_destination, to_device)
+from .common import (DROP_ROWS, I32_MAX, add_at, compact_and_group,
+                     compact_mask, drop_rows, scatter_add, scatter_max,
+                     scatter_set, sort_by_destination, to_device)
 from .fov import _bin_candidates, fov_jitter
 from .propagate import propagate
 
@@ -67,13 +68,12 @@ class CompactSweep(NamedTuple):
 def _table(cell, valid, upd: torch.Tensor, n_cells: int) -> torch.Tensor:
     """``zeros[n_cells + 1, C].at[idx].add(upd.T, mode="drop")[:n_cells]``
     for ``upd [C, n]`` as a column-major ``[C, n_cells]`` table (rows of it
-    are contiguous).  Duplicate cells add in row order on the CPU, as XLA's
-    scatter does."""
-    idx = torch.where(valid, cell.to(torch.int64), n_cells)
-    out = torch.zeros((upd.shape[0], n_cells + 1), dtype=torch.float32,
-                      device=upd.device)
-    out.index_add_(1, idx, upd)
-    return out[:, :n_cells]
+    are contiguous).  Duplicate cells add in row order (:func:`add_at`);
+    invalid rows land in sentinel columns (:func:`drop_rows`)."""
+    idx = drop_rows(torch.where(valid, cell, -1), n_cells)
+    out = torch.zeros((upd.shape[0], n_cells + DROP_ROWS),
+                      dtype=torch.float32, device=upd.device)
+    return add_at(out, idx, upd, dim=1)[:, :n_cells]
 
 
 def _scatter_add_cols(cell, valid, cols, n_cells):

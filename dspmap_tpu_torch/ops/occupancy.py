@@ -298,8 +298,7 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
         cell = cell - shard.lo
     hor = V * torch.arange(T, dtype=torch.int32, device=dev)[:, None]
     fidx = torch.where(ok, cell + hor, T * V)
-    # duplicate (cell, horizon) hits accumulate; index_add_ on CUDA adds in
-    # no fixed order, so the future grid agrees to rounding only
+    # duplicate (cell, horizon) hits accumulate, in index order
     future = scatter_add(future.reshape(-1), fidx.reshape(-1),
                          m_w[None, :].expand(T, -1).reshape(-1)).view(T, V)
 

@@ -1,2 +1,3 @@
 """Host-side utilities: synthetic scene simulation, markers and PLY
-exports, profiling, and the stage and kernel timers of the card."""
+exports, profiling, the stage and kernel timers of the card, and the
+comparison of a card step with a CPU step (``parity``)."""

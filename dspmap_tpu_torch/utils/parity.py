@@ -1,0 +1,230 @@
+"""One step on the card held against the same step on the CPU.
+
+The newborn weight ``w_b * sum 1/C(z)`` of a card step and of a CPU step
+differ in their last bit (the CPU's pair passes use the ``|a|^2 + |b|^2 -
+2ab`` form, the kernels coordinate differences), and that bit decides
+which copies survive the resample of voxels full of equal-weight newborns.
+So a CPU step is held to a card step given the card's ``norm_coeff``:
+:func:`births_recorded` keeps each birth's ``norm_coeff`` of the card step,
+:func:`births_pinned` hands them, in the same order, to the births of the
+CPU step, and :func:`agreement` measures the two results, which
+:func:`missed_bars` holds to :data:`PINNED_BARS` (or to
+:func:`free_bars` where the CPU step keeps its own newborn weight).
+:func:`placed_alike` reads the compact layout's population by voxel, and
+:func:`rows_parted` where two such populations part, row by row;
+:func:`particles_recorded` keeps the particles that given stages of a step
+take in, so that the rows can be compared stage by stage;
+:func:`differing_leaves` compares two states bit for bit.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from .. import geometry
+from ..models import pipeline
+from ..state import FLAG_DEAD, state_to_numpy
+
+#: the bars of a card step against a CPU step given the card's norm_coeff:
+#: the least shares of equal particle flags and of ``weight_sum`` and the
+#: future grid within rtol 1e-4, and the most relative alive difference
+PINNED_BARS = dict(flags_equal=0.999, weight_sum_close=0.999,
+                   future_close=0.999, alive_rel=0.005)
+
+
+def _birth_name(cfg) -> str:
+    return ("particle_birth_compact" if cfg.layout == "compact"
+            else "particle_birth")
+
+
+@contextlib.contextmanager
+def _stage_wrapped(name, wrap):
+    stage = getattr(pipeline, name)
+    setattr(pipeline, name, wrap(stage))
+    try:
+        yield
+    finally:
+        setattr(pipeline, name, stage)
+
+
+def _births_wrapped(cfg, wrap):
+    return _stage_wrapped(_birth_name(cfg), wrap)
+
+
+def births_recorded(cfg, sink: list):
+    """Within the block, each birth of a step of ``cfg`` appends its
+    ``norm_coeff`` to ``sink`` (one a sensor, in sensor order)."""
+    def wrap(birth):
+        def recorded(*a, **kw):
+            sink.append(kw["norm_coeff"])
+            return birth(*a, **kw)
+        return recorded
+    return _births_wrapped(cfg, wrap)
+
+
+def births_pinned(cfg, pending: list):
+    """Within the block, each birth of a step of ``cfg`` takes the next
+    ``norm_coeff`` of ``pending`` (removed from it), moved to the step's
+    device, in place of its own."""
+    def wrap(birth):
+        def pinned(*a, **kw):
+            kw["norm_coeff"] = pending.pop(0).to(kw["norm_coeff"].device)
+            return birth(*a, **kw)
+        return pinned
+    return _births_wrapped(cfg, wrap)
+
+
+@contextlib.contextmanager
+def particles_recorded(names, sink: dict):
+    """Within the block, each call of a stage of ``models/pipeline.py``
+    named in ``names`` appends a copy of the particles it takes (its first
+    argument) to ``sink[name]``."""
+    def wrap(name):
+        def outer(stage):
+            def recorded(p, *a, **kw):
+                sink.setdefault(name, []).append(p.clone())
+                return stage(p, *a, **kw)
+            return recorded
+        return outer
+
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(_stage_wrapped(name, wrap(name)))
+        yield
+
+
+def agreement(card, cpu) -> dict:
+    """The measures of one step's result on the card against the CPU's:
+    ``(state, StepOutput)`` pairs, the second on the CPU.  The share of
+    equal particle flags, the alive counts and their relative difference,
+    the shares of ``weight_sum`` and of the future grid within rtol 1e-4
+    (atol 1e-7 and 1e-6), and the share of the future grid equal bit for
+    bit."""
+    (g_state, g_out), (c_state, c_out) = card, cpu
+    close = lambda a, b, atol: float(torch.isclose(  # noqa: E731
+        a.cpu(), b, rtol=1e-4, atol=atol).float().mean())
+    ga, ca = int(g_out.metrics["alive"]), int(c_out.metrics["alive"])
+    return dict(
+        flags_equal=float((g_state.particles.flags.cpu()
+                           == c_state.particles.flags).float().mean()),
+        alive_card=ga, alive_cpu=ca, alive_rel=abs(ga - ca) / max(ca, 1),
+        weight_sum_close=close(g_state.weight_sum, c_state.weight_sum, 1e-7),
+        future_close=close(g_state.future, c_state.future, 1e-6),
+        future_bit_equal=float((g_state.future.cpu().view(torch.int32)
+                                == c_state.future.view(torch.int32))
+                               .float().mean()))
+
+
+def free_bars(cfg) -> dict:
+    """The bars of a card step against a CPU step that keeps its own
+    newborn weight: alive within 2%, and in the compact layout, whose flags
+    are compared over the live array's rows rather than over mostly empty
+    pool slots, flags on 99.5%."""
+    return dict(PINNED_BARS, alive_rel=0.02,
+                flags_equal=0.995 if cfg.layout == "compact" else 0.999)
+
+
+def missed_bars(m: dict, bars: dict = PINNED_BARS) -> list:
+    """The names of the bars that :func:`agreement`'s measures ``m`` miss
+    (``alive_rel`` is a most, every other bar a least)."""
+    return [k for k, bar in bars.items()
+            if (m[k] > bar if k == "alive_rel" else m[k] < bar)]
+
+
+def placed_alike(card, cpu, cfg) -> float:
+    """The share of ``cpu``'s particles (a ``Particles``) that ``card``
+    places in the same voxels: one minus the summed per-voxel count
+    differences over ``cpu``'s alive count."""
+    def counts(p):
+        cell = geometry.storage_index_planar(*geometry.world_voxel_planar(
+            p.px, p.py, p.pz, cfg), cfg)
+        return torch.bincount(cell[p.flags != 0].long(),
+                              minlength=cfg.storage_voxels).cpu()
+
+    a, b = counts(card), counts(cpu)
+    return 1.0 - int((a - b).abs().sum()) / max(int(b.sum()), 1)
+
+
+def rows_parted(card, cpu, cfg, most: int = 8) -> dict:
+    """Where two compact populations (``Particles`` of ``[P]`` rows, the
+    first on any device) part, row by row:
+
+    * ``rows_differing``: the rows whose flags differ, with the first and
+      the last of them (None if none);
+    * ``card_only`` / ``cpu_only``: the rows alive on one side only;
+    * ``cell_differing``: the rows alive on both whose cells differ (a
+      shift of the rows), and ``payload_differing``: those alive on both in
+      the same cell whose position, velocity or weight differs in any bit;
+    * ``cull_differing``: the rows alive on both that the cull of
+      ``occupancy_compact`` (weight below ``cfg.weight_cull_threshold``)
+      takes on one side only, the first ``most`` of them in ``cull_rows``
+      as ``[row, cell, card weight, CPU weight]``: such a row sorts to the
+      tail on one side only, so every later row of the sorted view moves;
+    * ``cells_off``: the cells whose alive counts differ, ``[cell, card
+      count, CPU count, card's first row, CPU's first row]`` (-1 where a
+      side holds none), the first ``most`` in row order, and their number
+      ``n_cells_off``.
+    """
+    def rows(p):
+        flags = p.flags.cpu().numpy()
+        cell = geometry.storage_index_planar(*geometry.world_voxel_planar(
+            p.px, p.py, p.pz, cfg), cfg).cpu().numpy().astype(np.int64)
+        pay = np.stack([getattr(p, n).cpu().numpy().view(np.int32) for n in
+                        ("px", "py", "pz", "vx", "vy", "vz", "weight")])
+        return flags, np.where(flags != FLAG_DEAD, cell, -1), pay
+
+    (fa, ca, pa), (fb, cb, pb) = rows(card), rows(cpu)
+    differ = np.flatnonzero(fa != fb)
+    both = (ca >= 0) & (cb >= 0)
+    wa, wb = pa[6].view(np.float32), pb[6].view(np.float32)
+    thr = np.float32(cfg.weight_cull_threshold)
+    cull = np.flatnonzero(both & ((wa < thr) != (wb < thr)))
+    na = np.bincount(ca[ca >= 0], minlength=cfg.storage_voxels)
+    nb = np.bincount(cb[cb >= 0], minlength=cfg.storage_voxels)
+    off = np.flatnonzero(na != nb)
+
+    def first_rows(cell):
+        u, at = np.unique(cell, return_index=True)
+        found = dict(zip(u.tolist(), at.tolist()))
+        return [found.get(int(v), -1) for v in off]
+
+    cells = sorted(([int(v), int(na[v]), int(nb[v]), x, y] for v, x, y in
+                    zip(off, first_rows(ca), first_rows(cb))),
+                   key=lambda r: min(x for x in r[3:] if x >= 0))
+    return dict(
+        rows_differing=int(len(differ)),
+        first_differing_row=int(differ[0]) if len(differ) else None,
+        last_differing_row=int(differ[-1]) if len(differ) else None,
+        card_only=int(((ca >= 0) & (cb < 0)).sum()),
+        cpu_only=int(((ca < 0) & (cb >= 0)).sum()),
+        cell_differing=int((both & (ca != cb)).sum()),
+        payload_differing=int((both & (ca == cb)
+                               & (pa != pb).any(0)).sum()),
+        cull_differing=int(len(cull)),
+        cull_rows=[[int(r), int(ca[r]), float(wa[r]), float(wb[r])]
+                   for r in cull[:most]],
+        cells_off=cells[:most], n_cells_off=int(len(off)))
+
+
+def leaves(state) -> dict:
+    """Every leaf of a state as numpy, by its path in the JAX state."""
+    out = {}
+    for key, value in state_to_numpy(state).items():
+        if isinstance(value, dict):
+            out.update({f"{key}.{k}": np.asarray(v) for k, v in value.items()})
+        else:
+            out[key] = np.asarray(value)
+    return out
+
+
+def differing_leaves(a, b) -> list:
+    """The leaves in which two states differ, by bits, shape or dtype (a
+    leaf of one state only among them)."""
+    x, y = leaves(a), leaves(b)
+    return sorted(k for k in x.keys() | y.keys()
+                  if k not in x or k not in y or x[k].dtype != y[k].dtype
+                  or x[k].shape != y[k].shape
+                  or x[k].tobytes() != y[k].tobytes())

@@ -819,3 +819,73 @@ def test_estimator_repeats_its_bits_on_the_card(device):
             assert torch.equal(bits(a), bits(b))
         n_dynamic += int(out_a.dynamic.sum())
     assert n_dynamic > 0
+
+
+#: the step's arms whose float sums meet duplicate indices on the card: the
+#: future scatter (pool), the per-voxel tables (compact), the noisy arm and
+#: the two-camera step
+REPEAT_CASES = {
+    "pool": ({}, None),
+    "compact": (dict(layout="compact"), None),
+    "noisy": (dict(limit_motion_to_xy_plane=False), None),
+    "two_camera": ({}, 2),
+}
+
+
+def _outputs_bit_equal(a, b):
+    """Two ``StepOutput``s: the same acceptance, and every tensor in them
+    bit for bit."""
+    assert a.accepted == b.accepted and a.metrics.keys() == b.metrics.keys()
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    pairs = ([(a.weight_sum, b.weight_sum)]
+             + [(a.metrics[k], b.metrics[k]) for k in a.metrics]
+             + list(zip(a.estimator_cloud, b.estimator_cloud)))
+    for x, y in pairs:
+        assert torch.equal(bits(x), bits(y))
+
+
+@pytest.mark.parametrize("case", sorted(REPEAT_CASES))
+def test_step_repeats_its_bits_on_the_card(device, case):
+    """Three frames on the card at a small map, then four more from that
+    state with the same draws twice over: every leaf of the two states and
+    every output bit for bit.  ``add_at`` with duplicate indices, along
+    either dimension, gives the same bits on every call."""
+    from dspmap_tpu_torch.ops.common import add_at
+
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    idx = torch.randint(0, 40, (5000,), device=device, generator=g)
+    vals = torch.randn(3, 5000, device=device, generator=g)
+    sums = [add_at(torch.zeros(3, 41, device=device), idx, vals, dim=1)
+            for _ in range(10)]
+    assert all(torch.equal(sums[0].view(torch.int32), s.view(torch.int32))
+               for s in sums[1:])
+
+    kw, n_sensors = REPEAT_CASES[case]
+    cfg = _cfg(**kw)
+    frames = [T.Frame(*f) for f in sim.generate_sequence(7, cfg, seed=0)]
+    if n_sensors:
+        step = T.make_multisensor_step(cfg, n_sensors)
+        state = T.init_multisensor_state(cfg, n_sensors)
+        frames = [T.stack_frames([f] * n_sensors) for f in frames]
+        draws = [T.make_multisensor_draws(cfg, n_sensors, g, device)
+                 for _ in frames[3:]]
+    else:
+        step = T.make_step(cfg)
+        state = T.init_state(cfg)
+        draws = [T.make_draws(cfg, g, device) for _ in frames[3:]]
+    for f in frames[:3]:
+        state, out = step(state, f)
+        assert out.accepted
+    runs = []
+    for _ in range(2):
+        s, outs = state, []
+        for f, d in zip(frames[3:], draws):
+            s, out = step(s, f, d)
+            outs.append(out)
+        runs.append((s, outs))
+    (a, outs_a), (b, outs_b) = runs
+    _bit_equal_states(a, b)
+    for x, y in zip(outs_a, outs_b):
+        _outputs_bit_equal(x, y)
+    assert int(outs_a[-1].metrics["alive"]) > 0
