@@ -111,14 +111,22 @@ def _median_ms(fn) -> float:
     return median_ms(fn)
 
 
-def _device_ms(fn, own: bool = True) -> float:
+def _device_ms(fn, own: bool = True):
     """Median of 20 calls of the time the card spent in the port's own
     kernels during one call (the profiler's device-side events); with
-    ``own`` false, in whatever it ran."""
-    from dspmap_tpu_torch.utils.kernel_times import ANY_KERNEL, device_ms
+    ``own`` false, in whatever it ran.  ``None``, said on a line of its own,
+    where the profiler lost events in every trace: a measurement it could
+    not take, not a fault of the kernel (``ms`` is taken without it)."""
+    from dspmap_tpu_torch.utils.kernel_times import (ANY_KERNEL,
+                                                     ProfilerLostEvents,
+                                                     device_ms)
     from dspmap_tpu_torch.utils.stage_times import OWN_KERNELS
 
-    return device_ms(fn, names=OWN_KERNELS if own else ANY_KERNEL)
+    try:
+        return device_ms(fn, names=OWN_KERNELS if own else ANY_KERNEL)
+    except ProfilerLostEvents as e:
+        _say("device_ms_not_measured", reason=json.dumps(str(e)))
+        return None
 
 
 def _watch_syncs(fn):
@@ -509,8 +517,8 @@ def check_relayout(cfg, device):
     flats = relayout.to_flat_many_cuda(planes)
     each = lambda fn, xs: (lambda: [fn(x) for x in xs])  # noqa: E731
     per = lambda row, n: {  # noqa: E731  (a row of n launches, per launch)
-        k: (v / n if k == "ms" or k.endswith("_ms") else v)
-        for k, v in row.items()}
+        k: (v / n if (k == "ms" or k.endswith("_ms")) and v is not None
+            else v) for k, v in row.items()}
     n_bytes = 2 * 4 * S * V
     rows = {}
     # K5a: the frame's seven planes in one launch, beside seven clone() calls
@@ -612,38 +620,97 @@ def check_segscan(cfg, device):
         for C, t in times.items()}}}
 
 
+#: the JV solve's phase-3 instances: tie-heavy costs at the flagship's
+#: N = max_clusters = 16, n_rows cycling through 0..16; every
+#: JV_ON_CARD-th also solved by the plain version on the card
+JV_INSTANCES, JV_ON_CARD = 500, 25
+#: float operations a JV path step takes per column (two subtracts, an
+#: add, the compare and the argmin's compare) and a row per used column
+#: (the two potential updates)
+JV_FLOPS_PER_COLUMN_STEP, JV_FLOPS_PER_USED = 5, 2
+
+
+def check_jv(cfg, device):
+    """Phase 3, the JV solve (``jv_solve``) at the flagship's ``N =
+    max_clusters``: the kernel's ``p`` bit-equal to ``_jv_plain``'s on
+    :data:`JV_INSTANCES` tie-heavy costs (the plain version on the CPU,
+    whose adds, subtracts, compares and argmin give the card's bits, and
+    on the card for every :data:`JV_ON_CARD`-th).  Timed on one instance
+    with every row augmented; its bound counts the path steps that
+    instance takes (``kernel_times.jv_numpy``).  Returns ``{kernel name:
+    measurements}``."""
+    import torch
+    from dspmap_tpu_torch import kernels
+    from dspmap_tpu_torch.ops import assignment
+    from dspmap_tpu_torch.utils.kernel_times import jv_case, jv_numpy
+
+    N = R = cfg.max_clusters
+    rng = np.random.default_rng(16)
+    equal = on_card = 0
+    for k in range(JV_INSTANCES):
+        a_np = jv_case(N, rng)
+        a = torch.from_numpy(a_np).to(device)
+        n_rows = torch.tensor(k % (R + 1), dtype=torch.int64, device=device)
+        got = assignment.jv_solve_cuda(a, n_rows, R).cpu()
+        equal += torch.equal(got, assignment._jv_plain(
+            torch.from_numpy(a_np), n_rows.cpu(), R))
+        if k % JV_ON_CARD == 0:
+            on_card += torch.equal(got, assignment._jv_plain(
+                a, n_rows, R).cpu())
+    share = equal / JV_INSTANCES
+    _require(share == 1.0 and on_card == JV_INSTANCES // JV_ON_CARD,
+             f"jv_solve: {equal} of {JV_INSTANCES} bit-equal to the plain "
+             f"version, {on_card} on the card")
+    a_np = jv_case(N, rng)
+    a = torch.from_numpy(a_np).to(device)
+    n_rows = torch.tensor(R, dtype=torch.int64, device=device)
+    _, n_path, _ = jv_numpy(a_np, R, R)
+    # cost read once, n_rows read, p written once
+    n_bytes = 4 * N * N + 8 + 8 * (N + 1)
+    n_flops = (JV_FLOPS_PER_COLUMN_STEP * N * n_path
+               + JV_FLOPS_PER_USED * (n_path + R))
+    row = _row(0.0, lambda: assignment.jv_solve_cuda(a, n_rows, R),
+               lambda: assignment._jv_plain(a, n_rows, R), n_bytes, n_flops,
+               shape=f"N={N} R={R} n_rows={R}", path_steps=n_path,
+               instances=JV_INSTANCES, bit_equal_share=share,
+               plain_on_card_bit_equal=on_card)
+    _say("jv_solve_flagship", **row)
+    kernels.reset_launch_counts()
+    return {"jv_solve": row}
+
+
 def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu",
                 n_sensors=None) -> None:
     """Phase 5: one frame from the same state with the same draws on the
     card and through the CPU's plain path (``n_sensors``: the step is
-    :func:`make_multisensor_step`'s, whose births are pinned one by one).
+    :func:`make_multisensor_step`'s, whose updates are pinned one by one).
 
-    The two newborn weights ``w_b * sum 1/C(z)`` differ in their last bit:
-    the CPU's pair passes use the ``|a|^2 + |b|^2 - 2ab`` form, the
-    kernels coordinate differences.  Voxels full of equal-weight newborns
-    sit exactly on the resample's ``ceil(x/wa - 1/2)`` grid, so that bit
-    flips which copies survive there (46 of 10743 particles in one run).
-    The bars (flags >= 99.9%, alive within 0.5%, weight_sum and future
-    within rtol 1e-4 on >= 99.9%) therefore hold the card against a CPU
-    step given the card's ``norm_coeff``; the free CPU step holds the same
-    bars except alive, held within 2%, and, in the compact layout, flags:
-    there the flags are compared over the P = 131072 rows of the live
-    array rather than over 3.2M mostly empty pool slots, so the same flips
-    weigh 24 times more (176 rows differed, 99.87% equal, with alive
-    equal), and the free case is held to the free-newborn-weight flag bar
-    of tests/test_torch_step.py, 99.5%.  Both sets of bars are
+    The updated weights and the newborn weight ``w_b * sum 1/C(z)`` differ
+    in their last bits: the CPU's pair passes use the ``|a|^2 + |b|^2 -
+    2ab`` form, the kernels coordinate differences.  Voxels full of
+    equal-weight newborns sit exactly on the resample's ``ceil(x/wa -
+    1/2)`` grid, so that bit flips which copies survive there (46 of 10743
+    particles in one run), and an updated weight on the other side of the
+    cull threshold reorders the compact layout's sorted rows (thousands of
+    rows' flags for one particle).  The bars (flags >= 99.9%, alive within
+    0.5%, weight_sum and future within rtol 1e-4 on >= 99.9%) therefore
+    hold the card against a CPU step given the card's result of each
+    ``measurement_update`` (its particles and ``norm_coeff``: birth and
+    occupancy alone); the free CPU step holds the same bars except alive,
+    held within 2%, and, in the compact layout, flags: there the flags are
+    compared over the P = 131072 rows of the live array rather than over
+    3.2M mostly empty pool slots, so the same flips weigh 24 times more
+    (176 rows differed, 99.87% equal, with alive equal), and the free case
+    is held to the free-newborn-weight flag bar of
+    tests/test_torch_step.py, 99.5%.  Both sets of bars are
     ``utils/parity.py``'s (``PINNED_BARS``, ``free_bars``), which
-    ``tools/parity_torch.py card`` holds every frame of 30 to.  Their limit:
-    the compact layout's flags are compared row by row over rows sorted by
-    cell, so a cell whose count is off by one shifts every later row, and
-    large_urban misses the pinned flag bar on 2 of the tool's 30 frames
-    while its population by voxel agrees on 99.99% (ROADMAP queue 3,
-    fault 8): a frame of this phase can land on such a shift."""
+    ``tools/parity_torch.py card`` holds every frame of 30 to."""
     import torch
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch.utils.parity import (PINNED_BARS, agreement,
-                                               births_pinned, births_recorded,
-                                               free_bars, missed_bars)
+                                               free_bars, missed_bars,
+                                               updates_pinned,
+                                               updates_recorded)
 
     if n_sensors is None:
         draws = dm.make_draws(cfg, state.gen, device)
@@ -656,13 +723,13 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu",
     cpu_state = state.to("cpu")
     t0 = time.perf_counter()
     seen = []
-    with births_recorded(cfg, seen):
+    with updates_recorded(seen):
         card = step(state, frame, draws)
     pending = list(seen)
-    with births_pinned(cfg, pending):
+    with updates_pinned(pending):
         pinned = agreement(card, step(cpu_state, frame, cpu_draws))
     _require(not pending and len(seen) == (n_sensors or 1),
-             f"{label}: {len(seen)} births pinned")
+             f"{label}: {len(seen)} updates pinned")
     free = agreement(card, step(cpu_state, frame, cpu_draws))
     torch.cuda.synchronize()
     _say(label + "_cost", seconds_for_one_card_and_two_cpu_frames=(
@@ -675,11 +742,13 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu",
 
 
 _POOL_FRAME = {"occupancy_pool_pass": 1, "sweep": 1, "update_pass1": 1,
-               "update_pass2": 1, "seg_scans": 0, "to_flat": 0, "from_flat": 0}
+               "update_pass2": 1, "seg_scans": 0, "to_flat": 0, "from_flat": 0,
+               "jv_solve": 1}
 _COMPACT_FRAME = {**_POOL_FRAME, "occupancy_pool_pass": 0, "sweep": 0,
                   "seg_scans": 4}
-#: two cameras: the pair passes run once a sensor
-_TWO_CAMERAS = {"update_pass1": 2, "update_pass2": 2}
+#: two cameras: the pair passes and the estimator's JV solve run once a
+#: sensor
+_TWO_CAMERAS = {"update_pass1": 2, "update_pass2": 2, "jv_solve": 2}
 #: per path: (warm-up frames, timed frames, the watched warm frame, the
 #: kernels' launches per frame, sensors: None for ``make_step``).  The
 #: multi-neighbor planes (17.3 MiB) take the flat working phase: flags, px,
@@ -690,11 +759,12 @@ _TWO_CAMERAS = {"update_pass1": 2, "update_pass2": 2}
 #: (K2) and keep [S, V] planes (no K5).  A compact frame launches K4 four
 #: times (rebin_compact's segment table, birth's table, occupancy's two
 #: scan sets); the two-camera compact frame five, birth's table once a
-#: sensor.
+#: sensor.  The velocity estimator solves one assignment a frame (a camera)
+#: wherever it runs: every path but static, whose preset turns it off.
 PATHS = {
     "flagship": (5, 10, 4, _POOL_FRAME, None),
     "large_urban": (3, 6, 2, _COMPACT_FRAME, None),
-    "static": (3, 8, 2, _POOL_FRAME, None),
+    "static": (3, 8, 2, {**_POOL_FRAME, "jv_solve": 0}, None),
     "multi": (3, 8, 2, {**_POOL_FRAME, "to_flat": 1, "from_flat": 1}, None),
     "noisy": (5, 10, 4, {**_POOL_FRAME, "sweep": 0}, None),
     "noisy_compact": (3, 6, 2, _COMPACT_FRAME, None),
@@ -1367,6 +1437,10 @@ KERNELS = {
                 "dspmap_tpu/ops/pallas/relayout.py:182", "multi"),
     "from_flat": ("dspmap_tpu_torch/csrc/relayout.cu",
                   "dspmap_tpu/ops/pallas/relayout.py:200", "multi"),
+    "jv_solve": ("dspmap_tpu_torch/csrc/assignment.cu",
+                 "dspmap_tpu/ops/assignment.py:201 (a lax.while_loop, "
+                 "with those at :146 and :175; not a pallas_call)",
+                 "flagship"),
 }
 
 
@@ -1416,6 +1490,7 @@ def main() -> int:
     by_shape = {label: check_kernels(label, configs[label], device)
                 for label in ("flagship", "static", "multi")}
     by_shape["flagship_slab"] = check_sweep_slab(configs["flagship"], device)
+    by_shape["flagship"].update(check_jv(configs["flagship"], device))
     # K1's moving mask, as the noisy and the two-camera pool paths take it,
     # and as a rank of the sharded two-camera path takes it on its slab
     for label in ("noisy", "multisensor_2cam"):

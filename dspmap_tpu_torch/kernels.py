@@ -36,16 +36,17 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("occupancy.cu", "sweep.cu", "update.cu", "segscan.cu",
-           "relayout.cu")
+           "relayout.cu", "assignment.cu")
 ENTRY_POINTS = ("dspmap_occupancy_pool_pass", "dspmap_sweep",
                 "dspmap_update_pass1", "dspmap_update_pass2",
-                "dspmap_seg_scans", "dspmap_to_flat", "dspmap_from_flat")
+                "dspmap_seg_scans", "dspmap_to_flat", "dspmap_from_flat",
+                "dspmap_jv_solve")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"occupancy_pool_pass": 0, "sweep": 0,
             "update_pass1": 0, "update_pass2": 0, "seg_scans": 0,
-            "to_flat": 0, "from_flat": 0}
+            "to_flat": 0, "from_flat": 0, "jv_solve": 0}
 
 _lib = None
 _lock = threading.Lock()

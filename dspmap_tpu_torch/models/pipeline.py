@@ -247,10 +247,9 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
     does not modify its input state's tensors: the returned state holds
     new ones.
 
-    ``with_metrics=False`` returns the metrics ``{"alive": ...}`` only.
-    Unlike the JAX step, where it lets the compiler drop some twenty
-    reductions, it saves no work here: the stages still compute and launch
-    their counters every frame, and only the returned dict is trimmed.
+    ``with_metrics=False`` returns the metrics ``{"alive": ...}`` only,
+    and the stages skip the reductions that only the other counters read
+    (the JAX step leaves the same to its compiler).
     ``admission_control=False`` runs the frame whatever its pose and time
     step; ``StepOutput.accepted`` still says whether admission control
     would have taken it.
@@ -306,23 +305,26 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
             p, sw = sweep_compact(p, cfg, dt, origin, sensor_pos, quat,
                                   prop_noise, rt)
             if shard is None:
-                p, _, rebin_stats = rebin_compact(p, sw, cfg)
+                p, _, rebin_stats = rebin_compact(p, sw, cfg, with_metrics)
                 pyr, fov_mask = sw.pyr, sw.fov
             else:
                 # arrivals changed the slab's rows: the FOV geometry is
                 # taken anew
-                p, rebin_stats = rebin_exchange_compact(p, sw, cfg, shard)
+                p, rebin_stats = rebin_exchange_compact(p, sw, cfg, shard,
+                                                        with_metrics)
                 pyr, fov_mask = fov_geometry_compact(p, cfg, sensor_pos, quat)
             p, fovbin, fov_stats = register_fov_compact(
-                p, cfg, pyr, fov_mask, sensor_pos, fov_noise, rt)
+                p, cfg, pyr, fov_mask, sensor_pos, fov_noise, rt,
+                with_metrics)
             fov_stats.update(rebin_stats)
         elif noisy:
             # no flat mid-frame phase here, as in the JAX package: the
             # planes stay [S, V] through birth
             p = propagate(p, cfg, prop_noise, dt, rt)
-            p, rebin_stats = rebin(p, cfg, origin, update_time, shard)
+            p, rebin_stats = rebin(p, cfg, origin, update_time, shard,
+                                   with_metrics)
             p, fovbin, fov_stats = register_fov(p, cfg, sensor_pos, quat,
-                                                fov_noise, rt)
+                                                fov_noise, rt, with_metrics)
             fov_stats.update(rebin_stats)
         else:
             sw = sweep(p, cfg, dt, origin, sensor_pos, quat, cell_base=lo)
@@ -350,11 +352,12 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
             sw = sw._replace(tags=sw.tags.view(-1),
                              new_cell=sw.new_cell.view(-1))
             p, fovbin, future_movers, fov_stats = rebin_and_register(
-                p, cfg, sw, sensor_pos, update_time, shard)
+                p, cfg, sw, sensor_pos, update_time, shard, with_metrics)
 
         # -- measurement update (dsp_dynamic.h:304,704-793) -------------
         p, norm_coeff, upd_stats = measurement_update(
-            p, fovbin, obs, cfg, expected_newborn, update_time, rt, shard)
+            p, fovbin, obs, cfg, expected_newborn, update_time, rt, shard,
+            with_metrics)
 
         # -- particle birth (dsp_dynamic.h:315,796-921) -----------------
         birth = particle_birth_compact if compact else particle_birth
@@ -363,15 +366,16 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
             est_points=est_out.points, est_vel=est_out.vel,
             est_dynamic=est_out.dynamic, est_valid=est_out.valid,
             norm_coeff=norm_coeff, origin=origin, update_time=update_time,
-            rt=rt, shard=shard)
+            rt=rt, shard=shard, with_metrics=with_metrics)
 
         # -- occupancy + future + resample (dsp_dynamic.h:322,924) ------
         if compact:
             p, weight_sum, vel_avg, future, occ_stats = occupancy_compact(
-                p, cfg, origin, state.future, shard)
+                p, cfg, origin, state.future, shard, with_metrics)
         else:
             p, weight_sum, vel_avg, future, occ_stats = occupancy_and_resample(
-                p, cfg, origin, state.future, future_movers, shard)
+                p, cfg, origin, state.future, future_movers, shard,
+                with_metrics)
 
         new_state = dataclasses.replace(
             state, particles=p, weight_sum=weight_sum, vel_avg=vel_avg,
@@ -387,7 +391,7 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
                 metrics["pool_overflow"] = (birth_stats["pool_overflow"]
                                             + occ_stats["pool_overflow"])
         else:
-            metrics = {"alive": occ_stats["alive"]}
+            metrics = occ_stats  # {"alive"} alone
         if shard is not None:
             metrics = _sum_counters(metrics, shard)
         cloud = (est_out.points, est_out.vel, est_out.dynamic, est_out.valid)

@@ -2,11 +2,14 @@
 Jonker-Volgenant shortest augmenting paths plus the exhaustive 8x8 path.
 
 Both paths run and a mask picks the result (the JAX package's
-``lax.cond``), so the solve needs no host decision.  The JV loops run a
-fixed number of masked steps: row ``i`` (1-based) finds its augmenting
-path within ``i`` steps -- each step visits one of the ``i - 1`` columns
-already matched or ends on a free one -- and unwinds it within ``i``
-steps, so the result equals the ``while_loop`` form.
+``lax.cond``), so the solve needs no host decision.  On the card the JV
+solve is one launch of the ``jv_solve`` kernel (``csrc/assignment.cu``);
+on the CPU it is :func:`_jv_plain`, which runs a fixed number of masked
+steps: row ``i`` (1-based) finds its augmenting path within ``i`` steps --
+each step visits one of the ``i - 1`` columns already matched or ends on a
+free one -- and unwinds it within ``i`` steps, so the result equals the
+``while_loop`` form.  The kernel ends each loop where the ``while_loop``
+does and gives the plain version's bits.
 """
 
 from __future__ import annotations
@@ -17,10 +20,14 @@ import itertools
 import numpy as np
 import torch
 
+from .. import kernels
 from .common import full_f32_matmul
 
 INF = 1.0e12
 _BRUTE_N = 8
+#: the largest square cost the kernel takes: one thread a column and one
+#: for the virtual column 0 in a block of at most 1,024 threads
+KERNEL_MAX_N = 1023
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,7 +55,7 @@ def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, i.reshape(1))[0]
 
 
-def _jv(a: torch.Tensor, n_rows: torch.Tensor, R: int) -> torch.Tensor:
+def _jv_plain(a: torch.Tensor, n_rows: torch.Tensor, R: int) -> torch.Tensor:
     """JV over the square cost ``a [N, N]``, augmenting rows ``1..n_rows``.
     Returns ``p [N+1]``: the (1-based) row owning each column."""
     N = a.shape[0]
@@ -102,6 +109,36 @@ def _jv(a: torch.Tensor, n_rows: torch.Tensor, R: int) -> torch.Tensor:
         v = torch.where(row_on, v_row, v)
         p = torch.where(row_on, p_row, p)
     return p
+
+
+def jv_solve_cuda(a: torch.Tensor, n_rows: torch.Tensor, R: int) -> torch.Tensor:
+    """:func:`_jv_plain` as one launch of the ``jv_solve`` kernel: ``a``
+    contiguous f32 ``[N, N]`` with ``N <= KERNEL_MAX_N``, ``n_rows`` a 0-d
+    int64 tensor on the same card (read by the kernel), ``R <= N`` a host
+    int.  Returns ``p [N+1]`` int64, bit for bit the plain version's."""
+    N = a.shape[0]
+    if a.dim() != 2 or a.shape[1] != N:
+        raise ValueError(f"cost of shape {tuple(a.shape)}, expected square")
+    if a.dtype != torch.float32 or n_rows.dtype != torch.int64:
+        raise TypeError(f"cost {a.dtype} and n_rows {n_rows.dtype}, expected "
+                        "float32 and int64")
+    if n_rows.dim() != 0 or not a.is_contiguous():
+        raise ValueError("n_rows must be a 0-d tensor and the cost contiguous")
+    if not 1 <= N <= KERNEL_MAX_N or not 0 <= R <= N:
+        raise ValueError(f"N = {N}, R = {R}: the kernel takes 1 <= N <= "
+                         f"{KERNEL_MAX_N} and 0 <= R <= N")
+    kernels.check_cuda(a, n_rows)
+    p = torch.empty(N + 1, dtype=torch.int64, device=a.device)
+    kernels.launch("jv_solve", (a, n_rows, p), iparams=(N, R))
+    return p
+
+
+def _jv(a: torch.Tensor, n_rows: torch.Tensor, R: int) -> torch.Tensor:
+    """The JV solve: the kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if a.device.type == "cpu":
+        return _jv_plain(a, n_rows, R)
+    return jv_solve_cuda(a, n_rows, R)
 
 
 @full_f32_matmul()

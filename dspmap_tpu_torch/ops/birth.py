@@ -79,10 +79,11 @@ def _point_sums(tables, owned, cell, shard):
 
 def particle_birth(particles, cfg: MapConfig, draws, *, est_points, est_vel,
                    est_dynamic, est_valid, norm_coeff, origin, update_time, rt,
-                   shard=None):
+                   shard=None, with_metrics=True):
     """Returns ``(new_particles, stats)``; ``draws = (noise_p, noise_v,
     noise_u)``.  The pool planes are ``[S, V]`` or flat ``[S*V]``; a flat
-    working plane is written in place."""
+    working plane is written in place.  ``stats`` is empty without
+    ``with_metrics``."""
     P = est_points.shape[0]
     n_b = cfg.newborn_particles_per_point
     w_new = rt.newborn_particle_weight * norm_coeff
@@ -133,17 +134,17 @@ def particle_birth(particles, cfg: MapConfig, draws, *, est_points, est_vel,
         "birth_candidates": valid.sum(),
         "born": new_particles.newborn.sum(),
         "newborn_weight": w_new,
-    }
+    } if with_metrics else {}
     return new_particles, stats
 
 
 def particle_birth_compact(particles, cfg: MapConfig, draws, *, est_points,
                            est_vel, est_dynamic, est_valid, norm_coeff, origin,
-                           update_time, rt, shard=None):
+                           update_time, rt, shard=None, with_metrics=True):
     """:func:`particle_birth` over the compact layout: the per-voxel class
     tables come from one O(alive) segment table and the newborns land in
     free rows (per-voxel capacity exact, the global row budget counted in
-    ``pool_overflow``)."""
+    ``pool_overflow``; ``stats`` is empty without ``with_metrics``)."""
     from .compact import insert_compact, segment_table
 
     P = est_points.shape[0]
@@ -200,5 +201,5 @@ def particle_birth_compact(particles, cfg: MapConfig, draws, *, est_points,
         "born": born,
         "newborn_weight": w_new,
         "pool_overflow": over,
-    }
+    } if with_metrics else {}
     return new_particles, stats

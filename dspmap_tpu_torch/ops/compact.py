@@ -274,11 +274,12 @@ def sweep_compact(particles, cfg: MapConfig, dt, origin, sensor_pos, quat,
     return new_particles, sw
 
 
-def rebin_compact(particles, sw: CompactSweep, cfg: MapConfig):
+def rebin_compact(particles, sw: CompactSweep, cfg: MapConfig,
+                  with_metrics=True):
     """Voxel capacity for relocated particles: movers rank behind their
     destination voxel's stayers and die at rank >= S; movers beyond
     ``cfg.mover_capacity`` die.  Returns ``(new_particles, stay_count[Vs],
-    stats)``."""
+    stats)``; ``stats`` is empty without ``with_metrics``."""
     S, Vs, m_cap = cfg.slots_per_voxel, cfg.storage_voxels, cfg.mover_capacity
     P = particles.flags.shape[0]
     alive = particles.flags != 0
@@ -307,12 +308,12 @@ def rebin_compact(particles, sw: CompactSweep, cfg: MapConfig):
         "movers": n_mov.clamp(max=m_cap),
         "mover_overflow_killed": over_kill.sum(),
         "voxel_full_killed": kill_sorted.sum(),
-    }
+    } if with_metrics else {}
     return dataclasses.replace(particles, flags=flags), stay_count, stats
 
 
 def rebin_exchange_compact(particles, sw: CompactSweep, cfg: MapConfig,
-                           shard):
+                           shard, with_metrics=True):
     """The sharded relocation of the compact layout: movers within the slab
     are capacity-checked in place (:func:`rebin_compact`'s rule); movers
     that leave it vacate their row and ride an exchange of the compacted
@@ -323,7 +324,8 @@ def rebin_exchange_compact(particles, sw: CompactSweep, cfg: MapConfig,
     As in the JAX package (``ops/compact.py``), the payload leaves the
     ``t`` plane out: under ``record_particle_time`` an arrival keeps the
     ``t`` its free row held (a defect of the reference kept here).
-    Returns ``(new_particles, stats)``."""
+    Returns ``(new_particles, stats)``; ``stats`` is empty without
+    ``with_metrics``."""
     P = particles.flags.shape[0]
     S, m_cap = cfg.slots_per_voxel, cfg.mover_capacity
     Vs = cfg.storage_voxels
@@ -370,8 +372,9 @@ def rebin_exchange_compact(particles, sw: CompactSweep, cfg: MapConfig,
     hops, ring_undelivered = None, 0
     if cfg.mover_exchange == "ring":
         hops = cfg.ring_hops
-        reach = shard.ring_reachable(exp[0].clamp(min=0), v_local, hops)
-        ring_undelivered = (c_ok & ~reach).sum()
+        if with_metrics:
+            reach = shard.ring_reachable(exp[0].clamp(min=0), v_local, hops)
+            ring_undelivered = (c_ok & ~reach).sum()
     a_cell, *a_pay, a_ok = shard.exchange(exp, hops)
     own_arr = a_ok & shard.owns(a_cell, v_local)
 
@@ -398,14 +401,13 @@ def rebin_exchange_compact(particles, sw: CompactSweep, cfg: MapConfig,
                            a_pay)}
     new["flags"] = scatter_set(
         flags, row, torch.where(land, FLAG_VALID, 0).to(torch.int32))
-    n_landed = land.sum()
     stats = {
         "moved_out": sw.moved_out.sum(),
         "movers": n_w + n_c,
         "mover_overflow_killed": (w_overkill.sum() + c_overkill.sum() + o_over
                                   + ring_undelivered),
-        "voxel_full_killed": kill_w.sum() + (n_own - n_landed),
-    }
+        "voxel_full_killed": kill_w.sum() + (n_own - land.sum()),
+    } if with_metrics else {}
     return dataclasses.replace(particles, **new), stats
 
 
@@ -423,13 +425,13 @@ def fov_geometry_compact(particles, cfg: MapConfig, sensor_pos, quat):
 
 
 def register_fov_compact(particles, cfg: MapConfig, pyr, fov_mask,
-                         sensor_pos, noise=None, rt=None):
+                         sensor_pos, noise=None, rt=None, with_metrics=True):
     """FOV registration over the compact set: compaction + pyramid grouping,
     the rank kill beyond the per-cell capacity and the dense + spill
     binning (``FovBinning.slot`` holds compact rows, sentinel ``P``), then
     the in-FOV velocity jitter of the noisy arm (``noise [2, P]``; see
     ``ops/fov.py::fov_jitter``).  Returns ``(new_particles, fovbin,
-    stats)``."""
+    stats)``; ``stats`` is empty without ``with_metrics``."""
     P = particles.flags.shape[0]
     fov_alive = fov_mask & (particles.flags != 0)
     idx, cand_pyr, ranks, sel_valid, _ = compact_and_group(
@@ -438,8 +440,8 @@ def register_fov_compact(particles, cfg: MapConfig, pyr, fov_mask,
     cols = (particles.px[i64], particles.py[i64], particles.pz[i64],
             particles.weight[i64])
     fovbin, kill, stats = _bin_candidates(
-        cfg, P, sensor_pos, idx, cand_pyr, ranks, sel_valid, fov_alive.sum(),
-        cols)
+        cfg, P, sensor_pos, idx, cand_pyr, ranks, sel_valid,
+        fov_alive.sum() if with_metrics else None, cols, with_metrics)
     flags = scatter_set(particles.flags, torch.where(kill, idx, P), 0)
     vx, vy, vz = fov_jitter(particles, cfg, fov_alive & (flags != 0), noise,
                             rt)
@@ -497,7 +499,7 @@ def insert_compact(particles, cfg: MapConfig, *, pos, vel, weight, valid,
 
 
 def occupancy_compact(particles, cfg: MapConfig, origin, future_in,
-                      shard=None):
+                      shard=None, with_metrics=True):
     """Cull + per-voxel aggregates + future scatter + systematic resampling
     over the compact set.  One stable sort by cell defragments the array
     (dead rows sort to the tail) and the output IS that sorted view, with
@@ -508,7 +510,8 @@ def occupancy_compact(particles, cfg: MapConfig, origin, future_in,
     ``shard``: the rows and tables are the slab's (``Vs`` is the slab's
     width, cells are local); the future-status movers are gathered from
     every rank and each rank scatters the contributions whose cell it
-    owns."""
+    owns.  Without ``with_metrics`` ``stats`` holds ``alive`` alone, and
+    the other counters are not summed."""
     P = particles.flags.shape[0]
     S = cfg.slots_per_voxel
     T, Vs = future_in.shape
@@ -646,6 +649,9 @@ def occupancy_compact(particles, cfg: MapConfig, origin, future_in,
         pz=planes[2], vx=planes[3], vy=planes[4], vz=planes[5],
         weight=planes[6], t=planes[8] if with_t else particles.t)
 
+    if not with_metrics:
+        return (new_particles, weight_sum, vel_avg, future,
+                {"alive": n_surv + n_placed})
     stats = {
         "alive": n_surv + n_placed,
         "culled": culled.sum(),

@@ -58,10 +58,12 @@ class FovBinning(NamedTuple):
 
 
 def _bin_candidates(cfg: MapConfig, total: int, sensor_pos, idx, cand_pyr,
-                    ranks, sel_valid, n_fov, cols):
+                    ranks, sel_valid, n_fov, cols, with_metrics=True):
     """Two-tier binning of the pyramid-ranked FOV candidates.  ``idx`` are
     flat pool positions (``total`` = drop sentinel), ``cols`` the gathered
-    ``(px, py, pz, weight)`` columns.  Returns ``(fovbin, kill, stats)``."""
+    ``(px, py, pz, weight)`` columns.  Returns ``(fovbin, kill, stats)``;
+    ``stats`` is empty without ``with_metrics`` (``n_fov`` is then not
+    read)."""
     dev = idx.device
     n_pyr, s_pyr, S_t = cfg.n_pyramids, cfg.pyramid_slots, cfg.dense_slots
     f_cap, p_cap = cfg.fov_buffer_capacity, cfg.particle_spill_capacity
@@ -117,7 +119,7 @@ def _bin_candidates(cfg: MapConfig, total: int, sensor_pos, idx, cand_pyr,
         "pyramid_full_killed": kill.sum(),
         "fov_global_overflow": (n_fov - f_cap).clamp(min=0),
         "update_spill_overflow": sp_over,
-    }
+    } if with_metrics else {}
     return fovbin, kill, stats
 
 
@@ -142,14 +144,14 @@ def fov_jitter(particles, cfg: MapConfig, alive_fov, noise, rt=None):
 
 
 def register_fov(particles, cfg: MapConfig, sensor_pos, quat, noise=None,
-                 rt=None):
+                 rt=None, with_metrics=True):
     """FOV registration of ``[S, V]`` planes for one sensor pose (host
     arrays): every slot rotated into the sensor frame, in-FOV valid slots
     compacted and grouped by pyramid cell, ranks beyond the per-cell
     capacity killed, the rest binned; then the in-FOV velocity jitter
     (:func:`fov_jitter`; ``noise [2, S, V]`` on the noisy arm).  Returns
     ``(new_particles, FovBinning, stats)``; the binning indexes into
-    ``new_particles``."""
+    ``new_particles``, and ``stats`` is empty without ``with_metrics``."""
     S, V = particles.flags.shape
     R = geometry.rotation_matrix_np(geometry.quaternion_conjugate_np(quat))
     s = [float(x) for x in np.asarray(sensor_pos, np.float32)]
@@ -163,7 +165,8 @@ def register_fov(particles, cfg: MapConfig, sensor_pos, quat, noise=None,
     cols = tuple(pool_take(getattr(particles, n), idx)
                  for n in ("px", "py", "pz", "weight"))
     fovbin, kill, stats = _bin_candidates(
-        cfg, S * V, sensor_pos, idx, cand_pyr, ranks, sel_valid, n_fov, cols)
+        cfg, S * V, sensor_pos, idx, cand_pyr, ranks, sel_valid, n_fov, cols,
+        with_metrics)
     flags = pool_put(particles.flags, torch.where(kill, idx, S * V), 0)
     vx, vy, vz = fov_jitter(particles, cfg, fov_mask & (flags != 0), noise, rt)
     return (dataclasses.replace(particles, flags=flags, vx=vx, vy=vy, vz=vz),
@@ -171,9 +174,11 @@ def register_fov(particles, cfg: MapConfig, sensor_pos, quat, noise=None,
 
 
 def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,
-                       update_time, shard=None):
+                       update_time, shard=None, with_metrics=True):
     """Returns ``(new_particles, FovBinning, future_movers, stats)`` with
-    ``future_movers = (flat[m_cap], valid[m_cap], n_dropped)``.
+    ``future_movers = (flat[m_cap], valid[m_cap], n_dropped)``.  Without
+    ``with_metrics`` the counters are not computed: ``stats`` is empty and
+    ``n_dropped`` is ``None``.
 
     ``particles`` are the post-sweep planes and ``sw`` the sweep's tags and
     new cells, both ``[S, V]`` or both flat ``[S*V]`` (the step's mid-frame
@@ -196,8 +201,7 @@ def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,
     t = update_time if cfg.record_particle_time else None
 
     idx, c_valid, _, _ = compact_mask(sw.candidate, cap)
-    total_movers = sw.mover.sum()
-    total_fov = sw.fov.sum()
+    total_fov = sw.fov.sum() if with_metrics else None
     vacated = dataclasses.replace(
         particles, flags=pool_fill(particles.flags, sw.mover, 0))
 
@@ -229,8 +233,9 @@ def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,
         hops = None
         if cfg.mover_exchange == "ring":
             hops = cfg.ring_hops
-            reach = shard.ring_reachable(mov_cell.clamp(min=0), V, hops)
-            ring_undelivered = (exp[-1] & ~reach).sum()
+            if with_metrics:
+                reach = shard.ring_reachable(mov_cell.clamp(min=0), V, hops)
+                ring_undelivered = (exp[-1] & ~reach).sum()
         *a_cols, a_tags, a_ok = shard.exchange(exp, hops)
         a_cell = a_cols.pop(0)
         own_i, ins_ok, n_arrivals, own_over = compact_mask(
@@ -264,7 +269,7 @@ def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,
                                              device=dev)))
         fovbin, _, stats = _bin_candidates(
             cfg, SV, sensor_pos, flat, keys, f_ranks, fov_sel, total_fov,
-            cols=(px, py, pz, w))
+            cols=(px, py, pz, w), with_metrics=with_metrics)
     else:
         # ---- FOV ranks over local non-movers + inserted arrivals -------
         new_particles = scatter_candidates(vacated, new_flat, cols_m, 1, t)
@@ -284,23 +289,25 @@ def rebin_and_register(particles, cfg: MapConfig, sw, sensor_pos,
                                                       cols_m[:3] + cols_m[6:]))
         fovbin, kill, stats = _bin_candidates(
             cfg, SV, sensor_pos, flat, keys, f_ranks, fov_sel, total_fov,
-            cols)
+            cols, with_metrics)
         new_particles = dataclasses.replace(new_particles, flags=pool_put(
             new_particles.flags, torch.where(kill, flat, SV), 0))
-    n_inserted = keep_ins.sum()
 
     fm_i, fm_ok, _, fm_over = compact_mask(mv_sel, m_cap)
     future_movers = (
         torch.where(fm_ok, flat[fm_i.to(torch.int64)], SV),
         fm_ok,
-        (sw.moving.sum() - is_moving.sum()) + fm_over,
+        ((sw.moving.sum() - is_moving.sum()) + fm_over) if with_metrics
+        else None,
     )
-    stats.update(
-        moved_out=sw.moved_out.sum(),
-        movers=n_mov.clamp(max=m_cap),
-        mover_overflow_killed=((total_movers - is_mover.sum()) + mov_buf_over
-                               + own_over + ring_undelivered),
-        voxel_full_killed=n_arrivals - n_inserted,
-        fov_global_overflow=total_fov - is_fov.sum(),
-    )
+    if with_metrics:
+        stats.update(
+            moved_out=sw.moved_out.sum(),
+            movers=n_mov.clamp(max=m_cap),
+            mover_overflow_killed=((sw.mover.sum() - is_mover.sum())
+                                   + mov_buf_over + own_over
+                                   + ring_undelivered),
+            voxel_full_killed=n_arrivals - keep_ins.sum(),
+            fov_global_overflow=total_fov - is_fov.sum(),
+        )
     return new_particles, fovbin, future_movers, stats

@@ -229,7 +229,7 @@ def occupancy_pool_pass(particles, cfg: MapConfig, with_moving: bool = True):
 
 
 def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
-                           future_movers, shard=None):
+                           future_movers, shard=None, with_metrics=True):
     """Returns ``(new_particles, weight_sum[V], vel_avg[V, 3], future[T, V],
     stats)``.  ``future_movers = (flat, valid, n_dropped)`` is the
     pre-compacted nonzero-velocity candidate set from
@@ -249,7 +249,10 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
     runs on the slab as it is; only the future-status scatter crosses slabs
     (a moving particle's predicted cell can lie anywhere), so the compacted
     mover columns are gathered from every rank and each rank scatters the
-    contributions whose cell it owns."""
+    contributions whose cell it owns.
+
+    Without ``with_metrics`` ``stats`` holds ``alive`` alone, and the other
+    counters are not summed."""
     particles = unflatten_pool(particles, cfg.slots_per_voxel,
                                views=rewritten_planes(cfg))
     S, V = particles.flags.shape
@@ -275,7 +278,7 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
         wgt = pool_take(src.weight, idx)
         sel = (fm_ok & (fl != 0) & (fl != 3)
                & (wgt >= cfg.weight_cull_threshold))
-        n_moving = sel.sum()
+        n_moving = sel.sum() if with_metrics else None
     else:
         idx, sel, n_moving, fm_dropped = compact_mask(moving,
                                                       cfg.mover_capacity)
@@ -303,8 +306,11 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
                          m_w[None, :].expand(T, -1).reshape(-1)).view(T, V)
 
     n_valid_v, n_culled_v, do_rs_v, n_dropped_v, n_filled_v = counters
+    alive = (n_valid_v - n_dropped_v + n_filled_v).sum().to(torch.int32)
+    if not with_metrics:
+        return new_particles, weight_sum, vel_avg, future, {"alive": alive}
     stats = {
-        "alive": (n_valid_v - n_dropped_v + n_filled_v).sum().to(torch.int32),
+        "alive": alive,
         "culled": n_culled_v.sum().to(torch.int32),
         "resampled_voxels": do_rs_v.sum().to(torch.int32),
         "resample_dropped": n_dropped_v.sum().to(torch.int32),

@@ -28,11 +28,12 @@ from .insert import insert_sorted
 PAYLOAD = ("px", "py", "pz", "vx", "vy", "vz", "weight")
 
 
-def rebin(particles, cfg: MapConfig, origin, t, shard=None):
+def rebin(particles, cfg: MapConfig, origin, t, shard=None,
+          with_metrics=True):
     """Re-home particles whose storage cell changed; kill window leavers.
     ``particles`` are ``[S, V]`` planes, ``origin`` the window origin and
     ``t`` the update time (host values).  Returns ``(new_particles,
-    stats)``.
+    stats)``; ``stats`` is empty without ``with_metrics``.
 
     ``shard`` (:class:`~.common.ShardCtx`): the planes are this rank's slab
     and mover destinations are global; the compacted movers (payload and
@@ -73,8 +74,9 @@ def rebin(particles, cfg: MapConfig, origin, t, shard=None):
         hops, ring_undelivered = None, 0
         if cfg.mover_exchange == "ring":
             hops = cfg.ring_hops
-            reach = shard.ring_reachable(dest.clamp(min=0), V, hops)
-            ring_undelivered = (ok & ~reach).sum()
+            if with_metrics:
+                reach = shard.ring_reachable(dest.clamp(min=0), V, hops)
+                ring_undelivered = (ok & ~reach).sum()
         a_dest, a_ok, *a_cols = shard.exchange(
             [dest, ok] + [pool_take(getattr(particles, n), idx)
                           for n in PAYLOAD], hops)
@@ -95,5 +97,5 @@ def rebin(particles, cfg: MapConfig, origin, t, shard=None):
         "movers": n_kept,
         "mover_overflow_killed": over,
         "voxel_full_killed": n_arrivals - keep.sum(),
-    }
+    } if with_metrics else {}
     return new_particles, stats

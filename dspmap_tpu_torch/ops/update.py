@@ -152,9 +152,10 @@ def update_pass2(pos, cinv, nbr_pts, sigma: float, scaled=None):
 @full_f32_matmul()
 def measurement_update(particles, fovbin, obs, cfg: MapConfig,
                        expected_newborn: torch.Tensor, update_time, rt,
-                       shard=None):
+                       shard=None, with_metrics=True):
     """Returns ``(new_particles, norm_coeff, stats)``; ``rt`` is the
-    state's :class:`~dspmap_tpu_torch.state.RuntimeParams`.
+    state's :class:`~dspmap_tpu_torch.state.RuntimeParams`; ``stats`` is
+    empty without ``with_metrics``.
 
     ``shard`` (:class:`~.common.ShardCtx`): the C(z) partials of pass 1 and
     of the spill block -- the update's only sums over particles -- are
@@ -258,7 +259,6 @@ def measurement_update(particles, fovbin, obs, cfg: MapConfig,
 
     slot = torch.where(updated, fovbin.slot, total).reshape(-1)
     vals_w = new_w.reshape(-1)
-    n_updated = updated.sum()
     if have_psp:
         mr_sp = obs.max_range[sp_pyr_safe]
         occ_sp = (mr_sp > 0.0) & (fovbin.sp_rng > mr_sp + cfg.occlusion_slack)
@@ -266,11 +266,15 @@ def measurement_update(particles, fovbin, obs, cfg: MapConfig,
         slot = torch.cat([slot, torch.where(upd_sp, fovbin.sp_slot, total)])
         vals_w = torch.cat([vals_w, torch.where(
             upd_sp, fovbin.sp_weight * factor_sp, fovbin.sp_weight)])
-        n_updated = n_updated + upd_sp.sum()
 
     new = {"weight": pool_put(particles.weight, slot, vals_w)}
     if cfg.record_particle_time:
         new["t"] = pool_put(particles.t, slot, float(update_time))
-    stats = {"updated_particles": n_updated,
-             "obs_spill_overflow": obs.spill_overflow}
+    stats = {}
+    if with_metrics:
+        n_updated = updated.sum()
+        if have_psp:
+            n_updated = n_updated + upd_sp.sum()
+        stats = {"updated_particles": n_updated,
+                 "obs_spill_overflow": obs.spill_overflow}
     return dataclasses.replace(particles, **new), norm_coeff, stats

@@ -72,8 +72,15 @@ SEGSCAN_CALLS = (
 )
 #: matches every kernel and copy the card ran
 ANY_KERNEL = ("",)
+#: the ``record_function`` range around :func:`device_ms`'s timed calls
+_TIMED = "kernel_times.timed_calls"
 #: traces :func:`device_ms` takes before it gives up on a call
-DEVICE_MS_TRACES = 6
+DEVICE_MS_TRACES = 12
+
+
+class ProfilerLostEvents(RuntimeError):
+    """:func:`device_ms` found no whole number of kernels a call in any of
+    its traces."""
 
 
 def median_ms(fn, n: int = 20) -> float:
@@ -101,22 +108,35 @@ def device_ms(fn, n: int = 20, names=KERNEL_NAMES) -> float:
     (``torch.profiler``, device-side events).  The profiler now and then
     loses events (on an H100, of some 400 traces one came back without any
     device event and one with 139 kernels for 20 calls of 7; once three
-    traces in a row lost some): a trace that does not hold the same whole
-    number of such kernels for each call is reported on the standard error
-    and taken again, up to :data:`DEVICE_MS_TRACES` traces in all."""
+    traces in a row lost some, and ten in a row one of 20 JV launches, each
+    the only device work of its call): a trace that does not hold the same
+    whole number of such kernels for each call is reported on the standard
+    error and taken again, up to :data:`DEVICE_MS_TRACES` traces in all.
+    Each trace opens with one small fill on the card before the timed
+    calls, which run inside a ``record_function`` range; device events that
+    start before that range (the fill) are dropped."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
+    primer = torch.zeros(1, device="cuda")
     for attempt in range(DEVICE_MS_TRACES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
+            primer.zero_()
             torch.cuda.synchronize()
-        device = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            with record_function(_TIMED):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        start = next(e for e in events if e.name == _TIMED
+                     and e.device_type == torch.autograd.DeviceType.CPU
+                     ).time_range.start
+        device = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name != _TIMED and e.time_range.start >= start]
         own = sorted((e for e in device if any(k in e.name for k in names)),
                      key=lambda e: e.time_range.start)
         if own and len(own) % n == 0:
@@ -125,8 +145,8 @@ def device_ms(fn, n: int = 20, names=KERNEL_NAMES) -> float:
               f"of {len(device)} device events for {n} calls",
               file=sys.stderr, flush=True)
     else:
-        raise RuntimeError(f"{len(own)} kernel events in {n} calls, "
-                           f"{DEVICE_MS_TRACES} traces")
+        raise ProfilerLostEvents(f"{len(own)} kernel events in {n} calls, "
+                                 f"{DEVICE_MS_TRACES} traces")
     k = len(own) // n
     return statistics.median(
         sum(e.device_time_total for e in own[i * k:(i + 1) * k]) / 1e3
@@ -214,6 +234,66 @@ def segscan_case(P, types, max_run, device, seed=0):
         cols.append(torch.from_numpy(col).to(device))
     t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
     return cols, t(is_start), t(is_end), t(key < 1 << 30)
+
+
+#: the estimator's cost of an ungated pair at the default gate (1.5 m)
+JV_GATED_OUT = 1.5 * 5000.0
+
+
+def jv_case(N, rng):
+    """A tie-heavy square cost ``[N, N]`` (numpy float32) for the JV solve:
+    integers in {0, 1, 2, 3} on a third of the pairs and the estimator's
+    cost of an ungated pair on the rest, so equal minima meet on most
+    path steps."""
+    import numpy as np
+
+    small = rng.integers(0, 4, (N, N)).astype(np.float32)
+    return np.where(rng.random((N, N)) < 1 / 3, small,
+                    np.float32(JV_GATED_OUT)).astype(np.float32)
+
+
+def jv_numpy(a, n_rows, R):
+    """The JV solve of ``ops/assignment.py`` in numpy float32, its loops
+    ending where the ``while_loop``s end: ``(p [N+1], path steps, unwind
+    steps)``.  The steps are the work the kernel does for this cost,
+    which ``chip_smoke.py`` counts into the kernel's bound."""
+    import numpy as np
+
+    N = a.shape[0]
+    inf = np.float32(1.0e12)
+    u = np.zeros(N + 1, np.float32)
+    v = np.zeros(N + 1, np.float32)
+    p = np.zeros(N + 1, np.int64)
+    n_path = n_unwind = 0
+    for i in range(1, min(int(n_rows), R) + 1):
+        p[0] = i
+        m_abs = np.full(N, inf, np.float32)
+        way = np.zeros(N + 1, np.int64)
+        used = np.zeros(N + 1, bool)
+        d_use = np.zeros(N + 1, np.float32)
+        j0, d_now = 0, np.float32(0.0)
+        for _ in range(i):
+            used[j0], d_use[j0] = True, d_now
+            i0 = p[j0]
+            cand = ((a[i0 - 1] - u[i0]) - v[1:]) + d_now
+            better = ~used[1:] & (cand < m_abs)
+            m_abs = np.where(better, cand, m_abs)
+            way[1:] = np.where(better, j0, way[1:])
+            masked = np.where(used[1:], inf, m_abs)
+            j0 = int(np.argmin(masked)) + 1
+            d_now = masked[j0 - 1]
+            n_path += 1
+            if p[j0] == 0:
+                break
+        amt = d_now - d_use[used]
+        u[p[used]] += amt
+        v[used] -= amt
+        for _ in range(i):
+            if j0 == 0:
+                break
+            p[j0], j0 = p[way[j0]], way[j0]
+            n_unwind += 1
+    return p, n_path, n_unwind
 
 
 def main(argv) -> int:

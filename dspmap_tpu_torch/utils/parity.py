@@ -1,15 +1,19 @@
 """One step on the card held against the same step on the CPU.
 
-The newborn weight ``w_b * sum 1/C(z)`` of a card step and of a CPU step
-differ in their last bit (the CPU's pair passes use the ``|a|^2 + |b|^2 -
-2ab`` form, the kernels coordinate differences), and that bit decides
-which copies survive the resample of voxels full of equal-weight newborns.
-So a CPU step is held to a card step given the card's ``norm_coeff``:
-:func:`births_recorded` keeps each birth's ``norm_coeff`` of the card step,
-:func:`births_pinned` hands them, in the same order, to the births of the
-CPU step, and :func:`agreement` measures the two results, which
+The updated weights and the newborn weight ``w_b * sum 1/C(z)`` of a card
+step and of a CPU step differ in their last bits (the CPU's pair passes
+use the ``|a|^2 + |b|^2 - 2ab`` form, the kernels coordinate
+differences): the newborn weight's last bit decides which copies survive
+the resample of voxels full of equal-weight newborns, and an updated weight
+on the other side of the cull threshold reorders the compact layout's
+sorted rows.  So a CPU step is held to a card step given the card's
+update: :func:`updates_recorded` keeps the particles and ``norm_coeff``
+that each ``measurement_update`` of the card step returns, and
+:func:`updates_pinned` hands them, in the same order, to the CPU step in
+place of its own, so that the comparison holds birth and occupancy alone.
+:func:`agreement` measures the two results, which
 :func:`missed_bars` holds to :data:`PINNED_BARS` (or to
-:func:`free_bars` where the CPU step keeps its own newborn weight).
+:func:`free_bars` where the CPU step keeps its own update).
 :func:`placed_alike` reads the compact layout's population by voxel, and
 :func:`rows_parted` where two such populations part, row by row;
 :func:`particles_recorded` keeps the particles that given stages of a step
@@ -20,24 +24,21 @@ take in, so that the rows can be compared stage by stage;
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
 
 from .. import geometry
 from ..models import pipeline
+from ..ops.common import padded_buffer
 from ..state import FLAG_DEAD, state_to_numpy
 
-#: the bars of a card step against a CPU step given the card's norm_coeff:
+#: the bars of a card step against a CPU step given the card's update:
 #: the least shares of equal particle flags and of ``weight_sum`` and the
 #: future grid within rtol 1e-4, and the most relative alive difference
 PINNED_BARS = dict(flags_equal=0.999, weight_sum_close=0.999,
                    future_close=0.999, alive_rel=0.005)
-
-
-def _birth_name(cfg) -> str:
-    return ("particle_birth_compact" if cfg.layout == "compact"
-            else "particle_birth")
 
 
 @contextlib.contextmanager
@@ -50,31 +51,43 @@ def _stage_wrapped(name, wrap):
         setattr(pipeline, name, stage)
 
 
-def _births_wrapped(cfg, wrap):
-    return _stage_wrapped(_birth_name(cfg), wrap)
-
-
-def births_recorded(cfg, sink: list):
-    """Within the block, each birth of a step of ``cfg`` appends its
-    ``norm_coeff`` to ``sink`` (one a sensor, in sensor order)."""
-    def wrap(birth):
+def updates_recorded(sink: list):
+    """Within the block, each ``measurement_update`` of a step appends a
+    copy of its particles and ``norm_coeff`` to ``sink`` (one a sensor, in
+    sensor order)."""
+    def wrap(update):
         def recorded(*a, **kw):
-            sink.append(kw["norm_coeff"])
-            return birth(*a, **kw)
+            p, norm_coeff, stats = update(*a, **kw)
+            sink.append((p.clone(), norm_coeff.clone()))
+            return p, norm_coeff, stats
         return recorded
-    return _births_wrapped(cfg, wrap)
+    return _stage_wrapped("measurement_update", wrap)
 
 
-def births_pinned(cfg, pending: list):
-    """Within the block, each birth of a step of ``cfg`` takes the next
-    ``norm_coeff`` of ``pending`` (removed from it), moved to the step's
-    device, in place of its own."""
-    def wrap(birth):
+def updates_pinned(pending: list):
+    """Within the block, each ``measurement_update`` of a step runs, then
+    returns the next particles and ``norm_coeff`` of ``pending`` (removed
+    from it), moved to the step's device, in place of its own; its
+    counters stay its own.  Birth takes that ``norm_coeff``.  A plane the
+    update returns as a working buffer (``ops/common.py::padded_buffer``)
+    takes the pinned plane in place, so that the later stages write into
+    it as they would."""
+    def wrap(update):
         def pinned(*a, **kw):
-            kw["norm_coeff"] = pending.pop(0).to(kw["norm_coeff"].device)
-            return birth(*a, **kw)
+            p, norm_coeff, stats = update(*a, **kw)
+            q, nc = pending.pop(0)
+            planes = {}
+            for f in dataclasses.fields(p):
+                mine = getattr(p, f.name)
+                theirs = getattr(q, f.name).to(mine.device)
+                if padded_buffer(mine) is not None:
+                    mine.copy_(theirs)
+                else:
+                    planes[f.name] = theirs
+            return (dataclasses.replace(p, **planes),
+                    nc.to(norm_coeff.device), stats)
         return pinned
-    return _births_wrapped(cfg, wrap)
+    return _stage_wrapped("measurement_update", wrap)
 
 
 @contextlib.contextmanager

@@ -15,6 +15,9 @@ it runs three frames, then
   the two states differ (none: no stage reads memory that the mode fills);
 * four frames twice from one state with the same draws: the leaves and the
   outputs in which the two runs differ (none: the step repeats its bits),
+  and ``repeat_digest``, a SHA-256 of the first run's last state and
+  outputs (two checkouts whose steps give the same bits on these frames
+  and draws print the same digest),
 
 and prints one JSON line.  The mode is global, so the probe sets it only
 around those three frames.  The probe reads only the package's public
@@ -25,6 +28,7 @@ power limit.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -84,6 +88,16 @@ def _output_bytes(out) -> dict:
     got.update({k: torch.as_tensor(v).cpu().numpy().tobytes()
                 for k, v in out.metrics.items()})
     return got
+
+
+def _digest(state, outs) -> str:
+    h = hashlib.sha256()
+    for k, v in sorted(_leaves(state).items()):
+        h.update(k.encode() + str(v.dtype).encode() + v.tobytes())
+    for out in outs:
+        for k in sorted(out):
+            h.update(k.encode() + out[k])
+    return h.hexdigest()
 
 
 def probe(cfg, n_sensors=None, device="cuda", warm=3, watched=3,
@@ -147,7 +161,8 @@ def probe(cfg, n_sensors=None, device="cuda", warm=3, watched=3,
             "repeat_leaves_differing": _differing(a, b),
             "repeat_outputs_differing": sorted(
                 {k for x, y in zip(outs_a, outs_b) for k in x
-                 if x[k] != y[k]})}
+                 if x[k] != y[k]}),
+            "repeat_digest": _digest(a, outs_a)}
 
 
 def main(argv=None) -> int:

@@ -58,7 +58,7 @@ WARMUP, TIMED = 5, 8
 #: the ``__global__`` functions of ``csrc/*.cu``
 OWN_KERNELS = ("occupancy_tile_kernel", "sweep_kernel", "pass1_kernel",
                "pass2_kernel", "segscan_warp_kernel", "segscan_tile_kernel",
-               "copy16_kernel")
+               "copy16_kernel", "jv_kernel")
 
 
 def configs() -> dict:

@@ -15,10 +15,12 @@ import torch
 
 import dspmap_tpu_torch as T
 from dspmap_tpu_torch import kernels
-from dspmap_tpu_torch.ops import compact, occupancy, relayout, sweep, update
+from dspmap_tpu_torch.ops import (assignment, compact, occupancy, relayout,
+                                  sweep, update)
 from dspmap_tpu_torch.ops.common import padded_buffer
 from dspmap_tpu_torch.utils import sim
-from dspmap_tpu_torch.utils.kernel_times import pair_operands, segscan_case
+from dspmap_tpu_torch.utils.kernel_times import (jv_case, jv_numpy,
+                                                 pair_operands, segscan_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -556,7 +558,8 @@ def test_preset_frames_on_the_card(device, preset):
     """Three frames of the full-width preset through ``make_step`` on the
     card: one launch of K1, K2, K3a and K3b a frame, the relayout kernels
     only where the planes reach 16 MiB (multi: one launch in, one out a
-    frame), a finite map with live particles, the input state left as it
+    frame), the JV solve once a frame where the estimator runs (not on
+    static), a finite map with live particles, the input state left as it
     was."""
     cfg = _preset(preset)
     state = T.init_state(cfg, seed=0)
@@ -575,7 +578,8 @@ def test_preset_frames_on_the_card(device, preset):
     assert kernels.LAUNCHES == {
         "occupancy_pool_pass": 3, "sweep": 3, "update_pass1": 3,
         "update_pass2": 3, "seg_scans": 0,
-        "to_flat": 3 if big else 0, "from_flat": 3 if big else 0}
+        "to_flat": 3 if big else 0, "from_flat": 3 if big else 0,
+        "jv_solve": 0 if preset == "static" else 3}
     assert int(out.metrics["alive"]) > 0 and int(out.metrics["born"]) > 0
     assert state.particles.flags.shape == (cfg.slots_per_voxel,
                                            cfg.storage_voxels)
@@ -889,3 +893,90 @@ def test_step_repeats_its_bits_on_the_card(device, case):
     for x, y in zip(outs_a, outs_b):
         _outputs_bit_equal(x, y)
     assert int(outs_a[-1].metrics["alive"]) > 0
+
+
+#: tie-heavy JV instances a size: (N, costs), each solved at every n_rows
+#: from 0 to N -- 2,019 instances in all
+JV_CASES = {8: 100, 16: 50, 33: 6, 64: 1}
+
+
+def test_jv_kernel_bit_equal_to_plain_on_tie_heavy_costs(device):
+    """``jv_solve`` gives ``_jv_plain``'s bits (every entry of ``p``) on
+    tie-heavy costs at N = 8, 16, 33 and 64 with every ``n_rows`` from 0
+    to R = N: one launch a solve, ``n_rows`` read on the card.  The plain
+    version runs on the CPU (its adds, subtracts, compares and argmin give
+    the same bits on either device; one cost a size is also solved by it
+    on the card), and the numpy form of ``kernel_times.jv_numpy`` agrees."""
+    rng = np.random.default_rng(20)
+    n = 0
+    for N, n_costs in JV_CASES.items():
+        for k in range(n_costs):
+            a_np = jv_case(N, rng)
+            a, a_cpu = torch.from_numpy(a_np).to(device), torch.from_numpy(a_np)
+            for n_rows in range(N + 1):
+                nr = torch.tensor(n_rows, dtype=torch.int64, device=device)
+                n0 = kernels.LAUNCHES["jv_solve"]
+                got = assignment.jv_solve_cuda(a, nr, N)
+                assert kernels.LAUNCHES["jv_solve"] == n0 + 1
+                want = assignment._jv_plain(a_cpu, nr.cpu(), N)
+                assert torch.equal(got.cpu(), want), (N, k, n_rows)
+                if k == 0 and n_rows in (N // 2, N):
+                    assert torch.equal(assignment._jv_plain(a, nr, N), got)
+                    assert np.array_equal(jv_numpy(a_np, n_rows, N)[0],
+                                          want.numpy())
+                n += 1
+    assert n >= 2000
+
+
+def test_jv_kernel_bit_equal_to_plain_on_flagship_costs(device, monkeypatch):
+    """The cost matrices of 30 flagship frames, recorded by wrapping the
+    estimator's ``solve_assignment`` on the card: each solve launches
+    ``jv_solve`` once and never ``_jv_plain`` (made to raise), its ``p``
+    bit-equal to the plain version's on the same squared-up cost, and the
+    assignment equal to the CPU's."""
+    from dspmap_tpu_torch import estimator
+    from dspmap_tpu_torch.models import pipeline
+
+    recorded, solves = [], []
+    solve, jv = estimator.solve_assignment, assignment._jv
+
+    def record(cost, row_valid, col_valid):
+        recorded.append((cost.cpu(), row_valid.cpu(), col_valid.cpu()))
+        return solve(cost, row_valid, col_valid)
+
+    def record_jv(a, n_rows, R):
+        p = jv(a, n_rows, R)
+        solves.append((a.cpu(), n_rows.cpu(), R, p.cpu()))
+        return p
+
+    def no_plain(*args):
+        raise AssertionError("_jv_plain ran on a CUDA tensor")
+
+    plain = assignment._jv_plain
+    monkeypatch.setattr(estimator, "solve_assignment", record)
+    monkeypatch.setattr(assignment, "_jv", record_jv)
+    monkeypatch.setattr(assignment, "_jv_plain", no_plain)
+    cfg = T.example_node_settings(T.dsp_dynamic())
+    state = T.init_state(cfg, seed=0, device=device)
+    est = state.estimator
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    n0 = kernels.LAUNCHES["jv_solve"]
+    for pts, n, pos, quat, _ in sim.generate_sequence(30, cfg, seed=0):
+        obs, _ = pipeline._observe(pts, n, pos, quat, cfg, state.params,
+                                   device)
+        fresh = torch.rand(cfg.max_clusters, device=device, generator=g)
+        _, est = estimator.estimate_velocities(
+            obs.cloud_world, obs.cloud_valid, est, cfg, 0.1, fresh)
+    assert len(recorded) == len(solves) == 30
+    assert kernels.LAUNCHES["jv_solve"] == n0 + 30
+    monkeypatch.undo()
+    n_matched = 0
+    for (cost, rv, cv), (a, n_rows, R, p) in zip(recorded, solves):
+        assert torch.equal(plain(a, n_rows, R), p)
+        card = assignment.solve_assignment(cost.to(device), rv.to(device),
+                                           cv.to(device))
+        cpu = assignment.solve_assignment(cost, rv, cv)
+        assert torch.equal(card.cpu(), cpu)
+        n_matched += int((cpu >= 0).sum())
+    assert n_matched > 0

@@ -25,7 +25,8 @@ from dspmap_tpu.ops.occupancy import _pool_pass_xla
 from dspmap_tpu.ops.sweep import sweep_reference as jax_sweep
 from dspmap_tpu.ops.update import _pair_g as jax_pair_g
 from dspmap_tpu_torch import kernels
-from dspmap_tpu_torch.ops import compact, occupancy, relayout, sweep, update
+from dspmap_tpu_torch.ops import (assignment, compact, occupancy, relayout,
+                                  sweep, update)
 
 torch.set_num_threads(2)
 
@@ -261,14 +262,15 @@ def test_kernel_build_targets_hopper_only():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert set(kernels.LAUNCHES) == {"occupancy_pool_pass", "sweep",
                                      "update_pass1", "update_pass2",
-                                     "seg_scans", "to_flat", "from_flat"}
+                                     "seg_scans", "to_flat", "from_flat",
+                                     "jv_solve"}
     text = "".join((kernels.CSRC / name).read_text()
                    for name in kernels.SOURCES)
     for name in kernels.ENTRY_POINTS:
         assert f"DSPMAP_API int {name}(" in text, name
         assert name[len("dspmap_"):] in kernels.LAUNCHES
     import inspect
-    for mod in (occupancy, sweep, update, compact, relayout):
+    for mod in (occupancy, sweep, update, compact, relayout, assignment):
         assert "use_pallas" not in inspect.getsource(mod)
 
 
@@ -297,3 +299,45 @@ def test_segscan_wrapper_takes_plain_on_cpu():
     with pytest.raises(ValueError):
         compact.seg_scans_cuda(cols, st, en, compact.KERNEL_MAX_REACH + 1, 0)
     assert kernels.LAUNCHES == before
+
+
+def test_jv_dispatcher_takes_plain_on_cpu(monkeypatch):
+    """On CPU tensors ``solve_assignment``'s JV is ``_jv_plain`` and never
+    the kernel; ``jv_solve_cuda`` refuses a CPU, float64 or non-contiguous
+    cost (and a cost past the kernel's width) without building or
+    launching anything."""
+    rng = np.random.default_rng(12)
+    cost = torch.from_numpy(rng.integers(0, 4, (16, 16)).astype(np.float32))
+    rv = torch.ones(16, dtype=torch.bool)
+    cv = torch.ones(16, dtype=torch.bool)
+    called = []
+    plain = assignment._jv_plain
+
+    def recorded(a, n_rows, R):
+        called.append((tuple(a.shape), int(n_rows), R))
+        return plain(a, n_rows, R)
+
+    def refused(*args):
+        raise AssertionError("the kernel was reached from a CPU tensor")
+
+    built = []
+    monkeypatch.setattr(assignment, "_jv_plain", recorded)
+    monkeypatch.setattr(assignment, "jv_solve_cuda", refused)
+    monkeypatch.setattr(kernels, "lib", lambda: built.append(1))
+    before = dict(kernels.LAUNCHES)
+    got = assignment.solve_assignment(cost, rv, cv)
+    assert called == [((16, 16), 16, 16)]
+    assert sorted(got.tolist()) == list(range(16))
+    monkeypatch.undo()
+    monkeypatch.setattr(kernels, "lib", lambda: built.append(1))
+    a = torch.zeros((16, 16))
+    n_rows = torch.tensor(16)
+    for bad in (lambda: assignment.jv_solve_cuda(a, n_rows, 16),
+                lambda: assignment.jv_solve_cuda(a.double(), n_rows, 16),
+                lambda: assignment.jv_solve_cuda(a.t(), n_rows, 16),
+                lambda: assignment.jv_solve_cuda(
+                    torch.zeros((1024, 1024)), n_rows, 16)):
+        with pytest.raises((RuntimeError, AssertionError, ValueError,
+                            TypeError)):
+            bad()
+    assert not built and kernels.LAUNCHES == before

@@ -259,19 +259,63 @@ def test_euclidean_cluster_matches_jax():
     assert len(np.unique(want[valid])) > 12
 
 
-@pytest.mark.parametrize("n_rows,n_cols", [(3, 5), (7, 7), (12, 9), (16, 16)])
-def test_solve_assignment_matches_jax(n_rows, n_cols):
+#: the estimator's cost of an ungated pair (``assoc_distance_gate * 5000``
+#: at the default gate of 1.5 m): every such pair costs the same
+GATED_OUT = np.float32(1.5 * 5000.0)
+
+
+def _assignment_costs(kind, rng, R, C):
+    """``uniform``: distinct floats; ``ties``: integers in {0, 1, 2, 3} on
+    a third of the pairs and the gate's constant on the rest, so equal
+    minima meet on almost every path step."""
+    if kind == "uniform":
+        return rng.uniform(0, 2000, (R, C)).astype(np.float32)
+    small = rng.integers(0, 4, (R, C)).astype(np.float32)
+    return np.where(rng.random((R, C)) < 1 / 3, small, GATED_OUT)
+
+
+def _valid(rng, n, size, first):
+    """``n`` valid entries of ``size``: the first ``n`` (``first``), else
+    drawn from the leading 8 when ``n <= 8`` (the exhaustive 8x8 arm) and
+    from all ``size`` otherwise."""
+    v = np.zeros(size, bool)
+    if first:
+        v[:n] = True
+    else:
+        v[rng.choice(size if n > 8 else 8, n, replace=False)] = True
+    return v
+
+
+@pytest.mark.parametrize("n_rows,n_cols,size,kind,first", [
+    pytest.param(3, 5, 16, "uniform", False, id="3-5"),
+    pytest.param(7, 7, 16, "uniform", False, id="7-7"),
+    pytest.param(12, 9, 16, "uniform", False, id="12-9"),
+    pytest.param(16, 16, 16, "uniform", False, id="16-16"),
+    pytest.param(12, 16, 16, "ties", False, id="ties-12-16"),
+    pytest.param(16, 16, 16, "ties", False, id="ties-16-16"),
+    pytest.param(33, 33, 33, "ties", False, id="ties-33-33"),
+    pytest.param(64, 64, 64, "ties", False, id="ties-64-64"),
+    pytest.param(40, 29, 64, "uniform", False, id="64-scattered"),
+    pytest.param(20, 33, 33, "ties", True, id="ties-33-n_rows-20"),
+    pytest.param(11, 30, 33, "uniform", True, id="33-n_rows-11"),
+    pytest.param(0, 16, 16, "ties", False, id="no-rows"),
+    pytest.param(16, 0, 16, "ties", False, id="no-columns"),
+    pytest.param(0, 0, 33, "uniform", False, id="33-empty"),
+])
+def test_solve_assignment_matches_jax(n_rows, n_cols, size, kind, first):
     """The assignment equals the JAX solve: the exhaustive 8x8 path when
-    every valid row and column lies in the leading 8, the fixed-trip JV
-    otherwise."""
-    rng = np.random.default_rng(n_rows * 100 + n_cols)
-    R = C = 16
-    for trial in range(4):
-        cost = rng.uniform(0, 2000, (R, C)).astype(np.float32)
-        rv = np.zeros(R, bool)
-        cv = np.zeros(C, bool)
-        rv[rng.choice(R if n_rows > 8 else 8, n_rows, replace=False)] = True
-        cv[rng.choice(C if n_cols > 8 else 8, n_cols, replace=False)] = True
+    every valid row and column lies in the leading 8, the JV otherwise
+    (the plain version on the CPU, whose bits the card's kernel is held
+    to).  Tie-heavy costs pin its choice among equal minima to JAX's;
+    ``first`` makes the valid rows a prefix, so the JV augments
+    ``n_rows < R`` rows."""
+    rng = np.random.default_rng(n_rows * 100 + n_cols + size * 10000
+                                * (kind == "ties" or size != 16))
+    R = C = size
+    for trial in range(4 if size <= 33 else 2):
+        cost = _assignment_costs(kind, rng, R, C)
+        rv = _valid(rng, n_rows, R, first)
+        cv = _valid(rng, n_cols, C, False)
         want = np.asarray(jax_solve(jnp.asarray(cost), jnp.asarray(rv),
                                     jnp.asarray(cv)))
         got = _n(solve_assignment(torch.from_numpy(cost), torch.from_numpy(rv),

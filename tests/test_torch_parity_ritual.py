@@ -496,6 +496,103 @@ def test_a_cull_flip_moves_the_rows_after_it():
     assert w["cell_differing"] + w["payload_differing"] > 20
 
 
+# ---- the update pinned -------------------------------------------------------------
+
+def _frame_and_draws(cfg, n_sensors=None, frame_at=3):
+    import dspmap_tpu_torch as dm
+
+    f = pt.make_frames(frame_at + 1, cfg.max_input_points, seed=3,
+                       dense=False, cfg=cfg)[frame_at]
+    frame = dm.Frame(*f[:4], np.float32(f[4]))
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    if n_sensors is None:
+        return frame, dm.make_draws(cfg, gen, "cpu")
+    return (dm.stack_frames([frame] * n_sensors),
+            dm.make_multisensor_draws(cfg, n_sensors, gen, "cpu"))
+
+
+@pytest.mark.parametrize("case", ["pool_working_buffers", "compact",
+                                  "two_cameras"])
+def test_updates_pinned_to_their_own_results_change_no_bit(case,
+                                                           monkeypatch):
+    """``updates_recorded`` keeps each ``measurement_update``'s particles
+    and ``norm_coeff`` (one a camera), and ``updates_pinned`` hands them
+    back in order: the step gives the same state bit for bit, also where
+    the update returns working buffers that birth writes in place
+    (``state._DMA_RELAYOUT_BYTES`` patched to 0)."""
+    import dspmap_tpu_torch as dm
+    from dspmap_tpu_torch import state as state_mod
+    from dspmap_tpu_torch.utils import parity
+
+    n_sensors = 2 if case == "two_cameras" else None
+    if case == "compact":
+        cfg, state = _compact_state()
+    else:
+        if case == "pool_working_buffers":
+            monkeypatch.setattr(state_mod, "_DMA_RELAYOUT_BYTES", 0)
+        cfg = dm.example_node_settings(dm.dsp_dynamic(**SMALL))
+        state = (dm.init_state(cfg, seed=1, device="cpu",
+                               init_particle_num=2000) if n_sensors is None
+                 else dm.init_multisensor_state(cfg, n_sensors, seed=1,
+                                                device="cpu"))
+    step = (dm.make_step(cfg) if n_sensors is None
+            else dm.make_multisensor_step(cfg, n_sensors))
+    first = 3 if case == "compact" else 0  # the frames after the state's
+    frame, draws = _frame_and_draws(cfg, n_sensors, frame_at=first)
+    state, _ = step(state, frame, draws)
+    frame, draws = _frame_and_draws(cfg, n_sensors, frame_at=first + 1)
+    seen = []
+    with parity.updates_recorded(seen):
+        plain, _ = step(state, frame, draws)
+    assert len(seen) == (n_sensors or 1)
+    if case == "pool_working_buffers":
+        assert seen[0][0].flags.dim() == 1  # the flat working phase
+    pending = list(seen)
+    with parity.updates_pinned(pending):
+        again, _ = step(state, frame, draws)
+    assert not pending
+    assert not parity.differing_leaves(again, plain)
+
+
+def test_a_pinned_weight_across_the_cull_threshold_moves_the_rows():
+    """One recorded weight of the update set one ulp under
+    ``weight_cull_threshold`` and pinned: the particles the step's
+    occupancy takes in carry that weight, the cull takes that row on this
+    side only (``rows_parted``'s ``cull_differing``), and the result's rows
+    follow it -- as a CPU step pinned to the card's update follows the
+    card's weights."""
+    import dspmap_tpu_torch as dm
+    from dspmap_tpu_torch.utils import parity
+
+    cfg, state = _compact_state()
+    frame, draws = _frame_and_draws(cfg)
+    step = dm.make_step(cfg)
+    seen, into = [], {}
+    with parity.updates_recorded(seen), parity.particles_recorded(
+            ("occupancy_compact",), into):
+        plain, _ = step(state, frame, draws)
+    (p, norm_coeff), = seen
+    thr = torch.tensor(cfg.weight_cull_threshold, dtype=torch.float32)
+    alive = torch.nonzero((p.flags != 0) & (p.weight > 2 * thr)).flatten()
+    i = int(alive[len(alive) // 3])
+    nudged = p.clone()
+    nudged.weight[i] = torch.nextafter(thr, torch.tensor(0.0))
+    into_pinned = {}
+    with parity.updates_pinned([(nudged, norm_coeff)]), \
+            parity.particles_recorded(("occupancy_compact",), into_pinned):
+        new, _ = step(state, frame, draws)
+    q, q_plain = into_pinned["occupancy_compact"][0], into["occupancy_compact"][0]
+    assert torch.equal(q.weight[i].view(torch.int32),
+                       nudged.weight[i].view(torch.int32))
+    w_in = parity.rows_parted(q, q_plain, cfg)
+    assert w_in["cull_differing"] == 1 and w_in["cull_rows"][0][0] == i
+    assert w_in["cell_differing"] == 0 and w_in["n_cells_off"] == 0
+    w = parity.rows_parted(new.particles, plain.particles, cfg)
+    assert w["n_cells_off"] >= 1 and w["cpu_only"] - w["card_only"] >= 1
+    assert w["cell_differing"] + w["payload_differing"] > 0
+
+
 # ---- the repeat probe ---------------------------------------------------------------
 
 @pytest.mark.parametrize("layout,n_sensors", [("pool", None),
@@ -514,6 +611,7 @@ def test_repeat_probe_on_the_cpu(layout, n_sensors):
     assert got["det_mode_vs_plain_differing"] == []
     assert got["repeat_leaves_differing"] == []
     assert got["repeat_outputs_differing"] == []
+    assert len(got["repeat_digest"]) == 64
     assert not torch.are_deterministic_algorithms_enabled()
     assert set(repeat_probe.configs()) == {
         "flagship", "large_urban", "static", "multi", "noisy",

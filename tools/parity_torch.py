@@ -26,8 +26,8 @@ JAX's).
 :data:`CARD_PATHS` starts from one state made by 10 CPU frames, saved and
 loaded into a card template and a CPU template, then runs 30 frames on
 draws made on the CPU and copied to the card: (i) teacher-forced, the CPU
-stepping each frame from the card's state with the card's ``norm_coeff``,
-every frame held to ``utils/parity.py::PINNED_BARS``, the bars of
+stepping each frame from the card's state with the card's result of each
+``measurement_update`` (particles and ``norm_coeff``), every frame held to ``utils/parity.py::PINNED_BARS``, the bars of
 ``chip_smoke.py``'s card against CPU (a compact frame also records, for the
 particles that :data:`COMPACT_STAGES` take in and for the step's result,
 where the card's rows and the CPU's part: ``rows_parted``); (ii)
@@ -408,9 +408,9 @@ def card_job(name: str, out: Path | None, device="cuda", cfg=None,
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch.io import load_state, save_state
     from dspmap_tpu_torch.utils.parity import (
-        PINNED_BARS, agreement, births_pinned, births_recorded,
-        differing_leaves, missed_bars, particles_recorded, placed_alike,
-        rows_parted)
+        PINNED_BARS, agreement, differing_leaves, missed_bars,
+        particles_recorded, placed_alike, rows_parted, updates_pinned,
+        updates_recorded)
 
     if cfg is None:
         cfg, n_sensors = card_config(name)
@@ -451,17 +451,16 @@ def card_job(name: str, out: Path | None, device="cuda", cfg=None,
     null_draws = [_draws(cfg, n_sensors, null_gen, "cpu")[0] for _ in frames]
     tol = cfg.voxel_resolution * 1.6
 
-    # (i) teacher-forced: the CPU from the card's state, given its norm_coeff
+    # (i) teacher-forced: the CPU from the card's state, given its update
     teacher = []
     card = card0
     stages = COMPACT_STAGES if cfg.layout == "compact" else ()
     for f, (d_cpu, d_card) in zip(frames, draws):
         seen, into_card, into_cpu = [], {}, {}
-        with births_recorded(cfg, seen), particles_recorded(stages,
-                                                            into_card):
+        with updates_recorded(seen), particles_recorded(stages, into_card):
             new, out_c = step(card, f, d_card)
-        with births_pinned(cfg, list(seen)), particles_recorded(stages,
-                                                                into_cpu):
+        with updates_pinned(list(seen)), particles_recorded(stages,
+                                                            into_cpu):
             ref = step(card.to("cpu"), f, d_cpu)
         m = agreement((new, out_c), ref)
         m["met"] = not missed_bars(m, PINNED_BARS)
@@ -661,7 +660,9 @@ def card_report(runs) -> tuple:
         f"then {CARD_FRAMES} frames of `make_frames`' sequence at the "
         "configuration's own points a frame, on draws made on the CPU and "
         "copied to the card. (i) Teacher-forced: each frame the CPU steps "
-        "from the card's state with the card's `norm_coeff`; bars "
+        "from the card's state with the card's result of each "
+        "`measurement_update` (particles and `norm_coeff`: birth and "
+        "occupancy alone); bars "
         f"(`utils/parity.py::PINNED_BARS`) flags >= {bar['flags_equal']:.1%}"
         f", alive within {bar['alive_rel']:.1%}, `weight_sum` and future grid "
         f"within rtol 1e-4 on >= {bar['weight_sum_close']:.1%} and >= "
