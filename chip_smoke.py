@@ -11,8 +11,10 @@ Phases (each prints one line; any failure raises and exits nonzero):
 1. the card: CUDA present, compute capability 9.x, name and power limit;
 2. build the port's CUDA kernels from ``dspmap_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes its paths give it (K2 also on the upper half of the flagship
-   pool, a slab of the sharded step, with ``cell_base = V/2``), with
+   shapes its paths give it (K2 reading the frame's values from the frame
+   blocks, as the step hands them, and bit-equal to a launch given the
+   host values; also on the upper half of the flagship pool, a slab of the
+   sharded step, with ``cell_base = V/2``), with
    inputs made from a numpy seed, plus the
    median time of each over 20 runs (``ms``: CUDA events around the
    wrapper; ``device_ms``: the kernel's own duration from the profiler's
@@ -54,12 +56,18 @@ Phases (each prints one line; any failure raises and exits nonzero):
    every sensor's birth is pinned to the card's ``norm_coeff`` in turn),
    then ``repeat`` (:func:`check_repeat`): from the path's last state,
    four more frames twice over with the same draws, every leaf of the two
-   states and every output bit-equal;
+   states and every output bit-equal; then, on the six single-camera
+   paths, ``graph`` (:func:`check_graph`): eight more frames through
+   ``make_step`` and through ``make_graphed_step`` (one CUDA graph a
+   frame) on the same draws, with a rejected frame and a live setter among
+   them, every leaf and output bit-equal frame by frame, one capture, no
+   kernel launched from the host during a replay, and both frame times;
 6. the caller's TF32 matmul setting, True through phases 4 and 5, is
    still True after them;
 7. ``io``, in a temporary directory (see :func:`check_io`): the replay
-   entry point as a user runs it (``dspmap_tpu_torch.io.replay.main``) on
-   the flagship and the multi-neighbor preset; checkpoints saved and loaded
+   entry point as a user runs it (``dspmap_tpu_torch.io.replay.main``,
+   which runs the graphed step on the card) on the flagship and the
+   multi-neighbor preset; checkpoints saved and loaded
    on the card for the flagship and large_urban, resumed (bit-equal to the
    run without a break), and loaded on the CPU; the particle CSV of a card state against the CPU's; a
    ``torch.profiler`` trace of two flagship frames and its summary.  Each
@@ -303,12 +311,19 @@ def check_kernels(label, cfg, device):
     yaw = 0.3
     quat = np.asarray([np.cos(yaw / 2), 0, 0, np.sin(yaw / 2)], np.float32)
     origin = geometry.window_origin_np(sensor, cfg)
-    got = sweep.sweep_cuda(pool, cfg, dt, origin, sensor, quat)
-    ref = sweep.sweep_reference(pool, cfg, dt, origin, sensor, quat)
+    # the frame's values as the step hands them: views of its frame blocks
+    args, kw = _frame_block_args(cfg, dt, sensor, quat, device)
+    got = sweep.sweep_cuda(pool, cfg, *args, **kw)
+    ref = sweep.sweep_reference(pool, cfg, *args, **kw)
+    host = sweep.sweep_cuda(pool, cfg, dt, origin, sensor, quat)
     torch.cuda.synchronize()
     k2_err = max(float((got.px - ref.px).abs().max()),
                  float((got.py - ref.py).abs().max()))
     _require(k2_err <= 1e-5, f"K2 {label} positions differ by {k2_err}")
+    for n in ("px", "py", "flags", "new_cell", "tags"):
+        _require(torch.equal(getattr(got, n), getattr(host, n)),
+                 f"K2 {label} {n}: the blocks' launch differs from the host "
+                 "values'")
     if cfg.motion_model == "static":  # no advance: positions pass through
         _require(torch.equal(got.px, pool.px) and torch.equal(got.py, pool.py),
                  f"K2 {label} moved a static particle")
@@ -319,10 +334,10 @@ def check_kernels(label, cfg, device):
              f"K2 {label} input has no FOV slots")
     # in: flags px py pz vx vy; out: px py flags new_cell tags
     rows["sweep"] = _row(
-        k2_err, lambda: sweep.sweep_cuda(pool, cfg, dt, origin, sensor, quat),
-        lambda: sweep.sweep_reference(pool, cfg, dt, origin, sensor, quat),
+        k2_err, lambda: sweep.sweep_cuda(pool, cfg, *args, **kw),
+        lambda: sweep.sweep_reference(pool, cfg, *args, **kw),
         4 * 11 * S * V, K2_FLOPS_PER_SLOT * S * V, shape=f"S={S} V={V}",
-        flips=flips)
+        flips=flips, scalars="frame blocks")
     _say(f"K2_{label}", **rows["sweep"])
 
     # K3: pair passes at [n_pyr, S_t] x [n_pyr, CK] ----------------------
@@ -334,6 +349,19 @@ def check_kernels(label, cfg, device):
     return rows
 
 
+def _frame_block_args(cfg, dt, sensor, quat, device):
+    """K2's per-frame operands as the step hands them -- views of the frame
+    blocks on the card (``dspmap_tpu_torch/scalars.py``) -- as ``(args,
+    kwargs)`` of ``sweep_cuda`` / ``sweep_reference`` after ``(particles,
+    cfg)``."""
+    from dspmap_tpu_torch import scalars
+
+    fs = scalars.frame_scalars(cfg, device, dt=dt, sensor_pos=sensor,
+                               quat=quat)
+    return (fs.dt, fs.origin, fs.sensor_pos), {
+        "origin_mod": fs.origin_mod, "R": fs.R}
+
+
 def check_sweep_slab(cfg, device):
     """Phase 3, K2 on a slab of the sharded step: the upper half of
     ``cfg``'s pool (``[S, V/2]``, ``cell_base = V/2``) against the plain
@@ -342,7 +370,7 @@ def check_sweep_slab(cfg, device):
     Returns ``{kernel name: measurements}``."""
     import torch
     import dspmap_tpu_torch as dm
-    from dspmap_tpu_torch import geometry, kernels
+    from dspmap_tpu_torch import kernels
     from dspmap_tpu_torch.ops import sweep
     from dspmap_tpu_torch.utils.kernel_times import populated_pool
 
@@ -353,11 +381,11 @@ def check_sweep_slab(cfg, device):
                            for f in dataclasses.fields(dm.Particles)})
     sensor = np.asarray([0.35, -0.2, 1.0], np.float32)
     quat = np.asarray([np.cos(0.15), 0, 0, np.sin(0.15)], np.float32)
-    args = (cfg, np.float32(0.1), geometry.window_origin_np(sensor, cfg),
-            sensor, quat)
-    got = sweep.sweep_cuda(slab, *args, cell_base=base)
-    ref = sweep.sweep_reference(slab, *args, cell_base=base)
-    whole = sweep.sweep_cuda(pool, *args)
+    frame, kw = _frame_block_args(cfg, np.float32(0.1), sensor, quat, device)
+    args = (cfg, *frame)
+    got = sweep.sweep_cuda(slab, *args, cell_base=base, **kw)
+    ref = sweep.sweep_reference(slab, *args, cell_base=base, **kw)
+    whole = sweep.sweep_cuda(pool, *args, **kw)
     torch.cuda.synchronize()
     err = max(float((got.px - ref.px).abs().max()),
               float((got.py - ref.py).abs().max()))
@@ -370,8 +398,10 @@ def check_sweep_slab(cfg, device):
                  f"K2 slab {n} differs from the whole pool's columns")
     _require(float(got.mover.float().mean()) > 0.01, "K2 slab: no movers")
     n = S * (V - base)
-    row = _row(err, lambda: sweep.sweep_cuda(slab, *args, cell_base=base),
-               lambda: sweep.sweep_reference(slab, *args, cell_base=base),
+    row = _row(err, lambda: sweep.sweep_cuda(slab, *args, cell_base=base,
+                                             **kw),
+               lambda: sweep.sweep_reference(slab, *args, cell_base=base,
+                                             **kw),
                4 * 11 * n, K2_FLOPS_PER_SLOT * n,
                shape=f"S={S} V={V - base} cell_base={base}", flips=flips)
     _say("K2_slab_flagship", whole_pool_columns="bit-equal", **row)
@@ -905,13 +935,151 @@ def check_repeat(name, cfg, state, device) -> None:
     _require(not out_differ, f"repeat_{name}: outputs differ: {out_differ}")
 
 
+#: the ``graph`` phase: frames a path, the one rejected (a pose jump of
+#: 12 m), the one before which a live setter changes ``p_detection``, and
+#: the seed of the frames' draws
+GRAPH_FRAMES, GRAPH_REJECTED, GRAPH_SETTER, GRAPH_SEED = 8, 3, 5, 2
+
+
+def _differing_on_card(a, b) -> list:
+    """The leaves of two states that differ: tensors by their bits, compared
+    on the card; the host copies of pose and time and the runtime
+    parameters on the host."""
+    import torch
+    from dspmap_tpu_torch.state import HOST_LEAVES, tensor_leaves
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    x, y = tensor_leaves(a), tensor_leaves(b)
+    differ = [k for k in x if x[k].shape != y[k].shape
+              or x[k].dtype != y[k].dtype
+              or not torch.equal(bits(x[k]), bits(y[k]))]
+    for k in HOST_LEAVES:
+        if np.asarray(getattr(a, k)).tobytes() != np.asarray(
+                getattr(b, k)).tobytes():
+            differ.append(k)
+    if a.params != b.params:
+        differ.append("params")
+    return differ
+
+
+def _busy_ms(fn):
+    """``(ms, events)``: the card's busy time in one call of ``fn`` (the sum
+    of the profiler's device events) and the number of those events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.device_time_total for e in device) / 1e3, len(device)
+
+
+def check_graph(name, cfg, state, device, smi) -> None:
+    """The ``graph`` phase for one single-camera path: from ``state`` (the
+    path's state after phase 4; neither step modifies it) the next
+    :data:`GRAPH_FRAMES` frames of its sequence through ``make_step`` and,
+    frame by frame, through ``make_graphed_step``, each step drawing from
+    its own of two equal generators as replay and the ROS bridges run it
+    (so on the same draws, and the graphed step's own draw path held), frame
+    :data:`GRAPH_REJECTED` a pose jump that admission control rejects and a
+    live setter before frame :data:`GRAPH_SETTER`.  Every state leaf and
+    every output must be bit-equal after each frame, the graphed step must
+    capture once (its warm-up run and its capture call each wrapper once a
+    frame's worth) and launch no kernel from the host during a replay.
+    Prints the frame medians of both steps over the accepted frames after
+    the capture, the capture's own ms, the host launches a graphed frame
+    and the card's busy ms in one profiled graphed frame; then frees the
+    graph."""
+    import torch
+    import dspmap_tpu_torch as dm
+    from dspmap_tpu_torch import kernels
+    from dspmap_tpu_torch.utils import sim
+
+    warm, timed, _, per_frame, _ = PATHS[name]
+    n = warm + timed + REPEAT_FRAMES
+    frames = [dm.Frame(*f) for f in sim.generate_sequence(
+        n + GRAPH_FRAMES, cfg, seed=0)][n:]
+    jump = frames[GRAPH_REJECTED]
+    frames[GRAPH_REJECTED] = jump._replace(
+        sensor_pos=jump.sensor_pos + np.float32([12.0, 0.0, 0.0]))
+    def seeded():
+        gen = torch.Generator(device=device)
+        gen.manual_seed(GRAPH_SEED)
+        return gen
+
+    eager, graphed = dm.make_step(cfg), dm.make_graphed_step(cfg)
+    a = dataclasses.replace(state, gen=seeded())
+    b = dataclasses.replace(state, gen=seeded())
+    eager_ms, graphed_ms, host_launches = [], [], []
+    for k, frame in enumerate(frames):
+        if k == GRAPH_SETTER:
+            a = dm.set_detection_probability(a, 0.85)
+            b = dm.set_detection_probability(b, 0.85)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, out_a = eager(a, frame)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        kernels.reset_launch_counts()
+        b, out_b = graphed(b, frame)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launched = dict(kernels.LAUNCHES)
+        _require(out_a.accepted == (k != GRAPH_REJECTED),
+                 f"graph_{name} frame {k}: accepted {out_a.accepted}")
+        if k == 0:
+            capture_call_ms = (t2 - t1) * 1e3
+            _pinned(f"graph_{name} capture", launched,
+                    {key: 2 * v for key, v in per_frame.items()})
+        elif out_a.accepted:
+            eager_ms.append((t1 - t0) * 1e3)
+            graphed_ms.append((t2 - t1) * 1e3)
+            host_launches.append(sum(launched.values()))
+        differ = _differing_on_card(a, b)
+        if not torch.equal(a.gen.get_state(), b.gen.get_state()):
+            differ.append("gen")
+        _require(not differ, f"graph_{name} frame {k}: leaves differ: "
+                 f"{differ}")
+        out_differ = (_outputs_differing(out_a, out_b) if out_a.accepted
+                      else [])
+        _require(not out_differ, f"graph_{name} frame {k}: outputs differ: "
+                 f"{out_differ}")
+    _require(graphed.captures == 1, f"graph_{name}: {graphed.captures} "
+             "captures")
+    _require(not any(host_launches), f"graph_{name}: host launches during "
+             f"replays {host_launches}")
+    # one more frame, profiled: the last frame again (dt = 0 is admitted)
+    busy_ms, events = _busy_ms(lambda: graphed(b, frames[-1]))
+    capture_ms = graphed.capture_ms
+    graphed.release()
+    del a, b, out_a, out_b, graphed
+    torch.cuda.empty_cache()
+    _say(f"graph_{name}", frames=GRAPH_FRAMES, rejected=1, setter=1,
+         eager_frame_ms=statistics.median(eager_ms),
+         graphed_frame_ms=statistics.median(graphed_ms),
+         graphed_frame_ms_all=json.dumps([round(x, 3) for x in graphed_ms]),
+         capture_ms=capture_ms, capture_call_ms=capture_call_ms,
+         host_launches_per_graphed_frame=max(host_launches),
+         device_busy_ms=busy_ms if events else "not measured",
+         device_events=events, captures=1, leaves_differing=0,
+         outputs_differing=0, card=json.dumps(smi))
+
+
 def _pinned(name, launches, want) -> None:
     _require(launches == want, f"{name} launch counts {launches} != {want}")
 
 
 def _replay(name, args, frames, per_frame):
     """Phase 7: ``replay.main(args)`` as a user calls it, its standard output
-    captured, the launch counts set to 0 before and pinned after.  Returns
+    captured, the launch counts set to 0 before and pinned after: on the
+    card the replay runs the graphed step, whose warm-up run and capture
+    call each wrapper a frame's worth and whose replays none.  Returns
     ``(the JSON summary, the launches)``."""
     import contextlib
     import io
@@ -924,7 +1092,7 @@ def _replay(name, args, frames, per_frame):
     with contextlib.redirect_stdout(said):
         replay.main(args)
     launches = dict(kernels.LAUNCHES)
-    _pinned(name, launches, {k: v * frames for k, v in per_frame.items()})
+    _pinned(name, launches, {k: 2 * v for k, v in per_frame.items()})
     lines = said.getvalue().splitlines()
     _require(sum(line.startswith("frame ") for line in lines) == frames,
              f"{name}: {len(lines)} lines")
@@ -1521,6 +1689,8 @@ def main() -> int:
             _say(f"{name}_summary", median_frame_ms=frame_ms, alive=alive,
                  card=smi)
             check_repeat(name, c, state, device)
+            if PATHS[name][4] is None:  # the single-camera paths
+                check_graph(name, c, state, device, smi)
             del state
         _say("tf32_flag", set_before_the_paths=True,
              after_the_paths=flag.allow_tf32)

@@ -25,10 +25,14 @@ Quick start::
 
     cfg = dm.example_node_settings(dm.dsp_dynamic())
     state = dm.init_state(cfg, seed=0)  # on the card; device="cpu" for the CPU
-    step = dm.make_step(cfg)
+    step = dm.make_graphed_step(cfg)    # one CUDA graph a frame
     for pts, n, pos, quat, t in sim.generate_sequence(10, cfg, seed=0):
         state, out = step(state, dm.Frame(pts, n, pos, quat, t))
     occ, centers, future, state = dm.get_occupancy_map(state, cfg, 0.2)
+
+``make_graphed_step`` is the counterpart of the JAX package's
+``jax.jit(make_step(cfg), donate_argnums=0)``; a CPU state takes
+``make_step(cfg)``, the same step run op by op.
 """
 
 from .config import (  # noqa: F401
@@ -68,6 +72,7 @@ from .models.pipeline import (  # noqa: F401
     set_detection_probability,
     set_clutter_intensity,
 )
+from .models.graphed import make_graphed_step  # noqa: F401
 from .parallel import (  # noqa: F401
     make_mesh,
     state_shardings,

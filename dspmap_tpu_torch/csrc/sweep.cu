@@ -12,11 +12,15 @@
 // (~44 B/slot, ~140 MB per flagship sweep); the arithmetic (two atan2f) is
 // far below the card's float rate.  Design: one thread per slot over the
 // flat [S*V] planes, so neighbouring threads touch neighbouring addresses
-// and every load and store is coalesced; the frame's scalars ride in a
-// by-value struct.  vz is not read: under limit_motion_to_xy_plane (the
-// only configurations that take the fused sweep with a nonzero velocity)
-// vz is identically zero, so pz does not advance and the moving test
-// reduces to vx/vy -- as in the Pallas kernel.
+// and every load and store is coalesced.  The frame's values -- dt, the
+// sensor position, the rotation R, the window origin and origin % dims --
+// are read through pointers into the step's two device frame blocks (f32
+// and i32), as the Pallas kernel reads scal_ref / iscal_ref, so a launch
+// captured in a CUDA graph reads each replayed frame's; the configuration's
+// constants ride in the by-value struct.  vz is not read: under
+// limit_motion_to_xy_plane (the only configurations that take the fused
+// sweep with a nonzero velocity) vz is identically zero, so pz does not
+// advance and the moving test reduces to vx/vy -- as in the Pallas kernel.
 #include "common.cuh"
 
 namespace {
@@ -26,11 +30,13 @@ struct SweepArgs {
   const float *px, *py, *pz, *vx, *vy;
   float *opx, *opy;
   int *oflags, *ocell, *otags;
+  // the frame's values, in device memory
+  const float *dt, *spos, *R;
+  const int *origin, *origin_mod;
   long long n;  // S * V
   int V;
-  float dt, sx0, sy0, sz0, inv_res, half_h, half_v, res;
-  float R[9];
-  int ox, oy, oz, sox, soy, soz, nx, ny, nz, nph, npv, advance;
+  float inv_res, half_h, half_v, res;
+  int nx, ny, nz, nph, npv, advance;
   int cell_base;
 };
 
@@ -47,33 +53,44 @@ __global__ void sweep_kernel(SweepArgs a) {
   float px = a.px[i], py = a.py[i];
   const float pz = a.pz[i];
   const float vx = a.vx[i], vy = a.vy[i];
+  const float dt = __ldg(a.dt);
+  const float sx0 = __ldg(a.spos), sy0 = __ldg(a.spos + 1),
+              sz0 = __ldg(a.spos + 2);
+  float R[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) R[k] = __ldg(a.R + k);
+  const int ox = __ldg(a.origin), oy = __ldg(a.origin + 1),
+            oz = __ldg(a.origin + 2);
+  const int sox = __ldg(a.origin_mod), soy = __ldg(a.origin_mod + 1),
+            soz = __ldg(a.origin_mod + 2);
   if (a.advance && valid) {
-    px = addf(px, mulf(vx, a.dt));
-    py = addf(py, mulf(vy, a.dt));
+    px = addf(px, mulf(vx, dt));
+    py = addf(py, mulf(vy, dt));
   }
   const int wx = (int)floorf(mulf(px, a.inv_res));
   const int wy = (int)floorf(mulf(py, a.inv_res));
   const int wz = (int)floorf(mulf(pz, a.inv_res));
-  const int rx = wx - a.ox, ry = wy - a.oy, rz = wz - a.oz;
+  const int rx = wx - ox, ry = wy - oy, rz = wz - oz;
   const bool inside = rx >= 0 && rx < a.nx && ry >= 0 && ry < a.ny &&
                       rz >= 0 && rz < a.nz;
   const bool moved_out = valid && !inside;
 
   // floor-mod storage cell: mod(origin, dims) is precomputed on the host
-  // and folded back by one conditional subtract (C's % truncates)
-  int cx = a.sox + clampi(rx, 0, a.nx - 1);
-  int cy = a.soy + clampi(ry, 0, a.ny - 1);
-  int cz = a.soz + clampi(rz, 0, a.nz - 1);
+  // (the frame block's) and folded back by one conditional subtract (C's %
+  // truncates)
+  int cx = sox + clampi(rx, 0, a.nx - 1);
+  int cy = soy + clampi(ry, 0, a.ny - 1);
+  int cz = soz + clampi(rz, 0, a.nz - 1);
   if (cx >= a.nx) cx -= a.nx;
   if (cy >= a.ny) cy -= a.ny;
   if (cz >= a.nz) cz -= a.nz;
   const int cell = (cz * a.ny + cy) * a.nx + cx;
   const bool mover = valid && inside && cell != a.cell_base + col;
 
-  const float ex = subf(px, a.sx0), ey = subf(py, a.sy0), ez = subf(pz, a.sz0);
-  const float fx = addf(addf(mulf(a.R[0], ex), mulf(a.R[1], ey)), mulf(a.R[2], ez));
-  const float fy = addf(addf(mulf(a.R[3], ex), mulf(a.R[4], ey)), mulf(a.R[5], ez));
-  const float fz = addf(addf(mulf(a.R[6], ex), mulf(a.R[7], ey)), mulf(a.R[8], ez));
+  const float ex = subf(px, sx0), ey = subf(py, sy0), ez = subf(pz, sz0);
+  const float fx = addf(addf(mulf(R[0], ex), mulf(R[1], ey)), mulf(R[2], ez));
+  const float fy = addf(addf(mulf(R[3], ex), mulf(R[4], ey)), mulf(R[5], ez));
+  const float fz = addf(addf(mulf(R[6], ex), mulf(R[7], ey)), mulf(R[8], ez));
   const float az = atan2f(fy, fx);
   const float el = atan2f(fz, fx);
   const bool in_fov = fabsf(az) <= a.half_h && fabsf(el) <= a.half_v && fx > 0.0f;
@@ -94,9 +111,10 @@ __global__ void sweep_kernel(SweepArgs a) {
 
 }  // namespace
 
-// ptrs: flags px py pz vx vy | opx opy oflags ocell otags
-// fparams: dt sx0 sy0 sz0 inv_res half_h half_v res R[9]
-// iparams: S V ox oy oz sox soy soz nx ny nz nph npv advance cell_base
+// ptrs: flags px py pz vx vy | opx opy oflags ocell otags |
+//       dt sensor_pos[3] R[9] (f32), origin[3] origin_mod[3] (i32)
+// fparams: inv_res half_h half_v res
+// iparams: S V nx ny nz nph npv advance cell_base
 DSPMAP_API int dspmap_sweep(const uint64_t* ptrs, const float* f,
                             const int* ip, void* stream) {
   SweepArgs a;
@@ -111,16 +129,17 @@ DSPMAP_API int dspmap_sweep(const uint64_t* ptrs, const float* f,
   a.oflags = dptr<int>(ptrs, 8);
   a.ocell = dptr<int>(ptrs, 9);
   a.otags = dptr<int>(ptrs, 10);
-  a.dt = f[0]; a.sx0 = f[1]; a.sy0 = f[2]; a.sz0 = f[3];
-  a.inv_res = f[4]; a.half_h = f[5]; a.half_v = f[6]; a.res = f[7];
-  for (int k = 0; k < 9; ++k) a.R[k] = f[8 + k];
+  a.dt = dptr<const float>(ptrs, 11);
+  a.spos = dptr<const float>(ptrs, 12);
+  a.R = dptr<const float>(ptrs, 13);
+  a.origin = dptr<const int>(ptrs, 14);
+  a.origin_mod = dptr<const int>(ptrs, 15);
+  a.inv_res = f[0]; a.half_h = f[1]; a.half_v = f[2]; a.res = f[3];
   const int S = ip[0];
   a.V = ip[1];
-  a.ox = ip[2]; a.oy = ip[3]; a.oz = ip[4];
-  a.sox = ip[5]; a.soy = ip[6]; a.soz = ip[7];
-  a.nx = ip[8]; a.ny = ip[9]; a.nz = ip[10];
-  a.nph = ip[11]; a.npv = ip[12]; a.advance = ip[13];
-  a.cell_base = ip[14];
+  a.nx = ip[2]; a.ny = ip[3]; a.nz = ip[4];
+  a.nph = ip[5]; a.npv = ip[6]; a.advance = ip[7];
+  a.cell_base = ip[8];
   a.n = (long long)S * a.V;
   if (a.n == 0) return 0;
   const int threads = 256;

@@ -7,14 +7,14 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .config import MapConfig
 from .state import EstimatorState
 from .ops.assignment import solve_assignment
 from .ops.cluster import euclidean_cluster
-from .ops.common import compact_mask, scatter_set, segment_sum
+from .ops.common import (compact_mask, div_frame, frame_float, scatter_set,
+                         segment_sum)
 
 
 class EstimatorOutput(NamedTuple):
@@ -31,10 +31,10 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
 def estimate_velocities(cloud_world: torch.Tensor, cloud_valid: torch.Tensor,
                         est_state: EstimatorState, cfg: MapConfig, dt,
                         fresh_intensity: torch.Tensor | None):
-    """Returns ``(EstimatorOutput, new EstimatorState)``.  ``dt`` is a host
-    float; ``fresh_intensity [C]`` is the uniform [0.1, 1) draw for new
-    tracks' visualization ids (``estimator.py:177-178`` of the JAX
-    package)."""
+    """Returns ``(EstimatorOutput, new EstimatorState)``.  ``dt`` is the
+    frame block's 0-d tensor or a host float; ``fresh_intensity [C]`` is
+    the uniform [0.1, 1) draw for new tracks' visualization ids
+    (``estimator.py:177-178`` of the JAX package)."""
     if not cfg.estimator_enabled:
         return EstimatorOutput(
             points=cloud_world, vel=torch.zeros_like(cloud_world),
@@ -88,8 +88,8 @@ def estimate_velocities(cloud_world: torch.Tensor, cloud_valid: torch.Tensor,
                <= cfg.assoc_point_num_gate))
     cost = torch.where(gate, dist / cfg.assoc_distance_gate * 1000.0,
                        cfg.assoc_distance_gate * 5000.0)
-    dt = float(np.float32(dt))
-    dt_ok = (dt > 1e-5) and (dt < 10.0)
+    dt = frame_float(dt)
+    dt_ok = (dt > 1e-5) & (dt < 10.0)
     any_pairs = (n_clusters > 0) & prev.prev_valid.any() & dt_ok
     assigned = torch.where(any_pairs,
                            solve_assignment(cost, slot_valid, prev.prev_valid),
@@ -99,7 +99,10 @@ def estimate_velocities(cloud_world: torch.Tensor, cloud_valid: torch.Tensor,
     safe_col = assigned.clamp(min=0).to(torch.int64)
     matched = matched & gate[torch.arange(C, device=dev), safe_col]
     c_vel = torch.where(matched[:, None],
-                        (c_centers - prev.prev_centers[safe_col]) / max(dt, 1e-6),
+                        div_frame(c_centers - prev.prev_centers[safe_col],
+                                  torch.clamp(dt, min=1e-6)
+                                  if isinstance(dt, torch.Tensor)
+                                  else max(dt, 1e-6)),
                         -10000.0)
     speed = _norm(torch.where(matched[:, None], c_vel, 0.0))
     c_vel = torch.where(((speed > cfg.max_cluster_velocity) & matched)[:, None],

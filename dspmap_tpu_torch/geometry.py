@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .config import MapConfig
-from .ops.common import to_device
+from .ops.common import frame_ints, frame_tensor, to_device
 
 # ------------------------------------------------------------- host scalars
 
@@ -64,9 +64,30 @@ def quaternion_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + w * t + torch.linalg.cross(u, t, dim=-1)
 
 
+def frame_rotation(quat=None, R=None):
+    """The frame's world-to-sensor rotation, from exactly one of: ``quat``,
+    a host wxyz quaternion (the matrix made on the host, numpy float32),
+    or ``R``, the frame block's ``[3, 3]`` tensor (returned as it is)."""
+    if (quat is None) == (R is None):
+        raise TypeError("give the host quaternion quat or the frame "
+                        "block's rotation R, one of them")
+    if R is not None:
+        if not isinstance(R, torch.Tensor) or tuple(R.shape) != (3, 3):
+            raise ValueError("R is the frame block's [3, 3] tensor")
+        return R
+    if isinstance(quat, torch.Tensor):
+        raise TypeError("quat is a host quaternion; the frame block's "
+                        "rotation goes in as R=")
+    return rotation_matrix_np(quaternion_conjugate_np(quat))
+
+
 def rotate_planar(R, px, py, pz):
-    """Apply a 3x3 matrix (numpy or nested floats) to coordinate planes."""
-    R = [[float(R[i][j]) for j in range(3)] for i in range(3)]
+    """Apply a 3x3 matrix (numpy, nested floats or a ``[3, 3]`` tensor) to
+    coordinate planes."""
+    if isinstance(R, torch.Tensor):
+        R = [list(row.unbind(0)) for row in R.unbind(0)]
+    else:
+        R = [[float(R[i][j]) for j in range(3)] for i in range(3)]
     return (
         R[0][0] * px + R[0][1] * py + R[0][2] * pz,
         R[1][0] * px + R[1][1] * py + R[1][2] * pz,
@@ -77,20 +98,16 @@ def rotate_planar(R, px, py, pz):
 # ------------------------------------------------------- voxel addressing
 
 
-def _origin_tensor(origin, device) -> torch.Tensor:
-    """The host window origin as an int32 ``[3]`` tensor on ``device``."""
-    return to_device(np.asarray(origin, np.int32), torch.int32, device)
-
-
 def world_voxel(pos: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
     return torch.floor(pos / cfg.voxel_resolution).to(torch.int32)
 
 
 def in_window(wv: torch.Tensor, origin, cfg: MapConfig) -> torch.Tensor:
-    o = _origin_tensor(origin, wv.device)
-    dims = to_device([cfg.nx, cfg.ny, cfg.nz], torch.int32, wv.device)
-    rel = wv - o
-    return ((rel >= 0) & (rel < dims)).all(dim=-1)
+    """Whether world voxels ``wv [..., 3]`` lie in the window at
+    ``origin`` (the frame block's ``[3]`` tensor, or a host origin)."""
+    rel = wv - frame_tensor(origin, torch.int32, wv.device)
+    return ((rel >= 0).all(dim=-1) & (rel[..., 0] < cfg.nx)
+            & (rel[..., 1] < cfg.ny) & (rel[..., 2] < cfg.nz))
 
 
 def storage_index(wv: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
@@ -104,7 +121,7 @@ def storage_to_world_voxel(origin, cfg: MapConfig, device) -> torch.Tensor:
     v = torch.arange(cfg.voxel_num, dtype=torch.int32, device=device)
     s = torch.stack([v % cfg.nx, (v // cfg.nx) % cfg.ny,
                      v // (cfg.nx * cfg.ny)], dim=-1)
-    o = _origin_tensor(origin, device)
+    o = frame_tensor(origin, torch.int32, device)
     dims = to_device([cfg.nx, cfg.ny, cfg.nz], torch.int32, device)
     return o + torch.remainder(s - o, dims)
 
@@ -117,7 +134,7 @@ def ego_grid_gather_indices(origin, cfg: MapConfig, device) -> torch.Tensor:
     v = torch.arange(cfg.voxel_num, dtype=torch.int32, device=device)
     e = torch.stack([v % cfg.nx, (v // cfg.nx) % cfg.ny,
                      v // (cfg.nx * cfg.ny)], dim=-1)
-    o = _origin_tensor(origin, device)
+    o = frame_tensor(origin, torch.int32, device)
     return storage_index(o + e, cfg)
 
 
@@ -154,7 +171,9 @@ def world_voxel_planar(px, py, pz, cfg: MapConfig):
 
 
 def in_window_planar(wx, wy, wz, origin, cfg: MapConfig):
-    o = [int(x) for x in np.asarray(origin)]
+    """:func:`in_window` of coordinate planes; ``origin`` the frame
+    block's ``[3]`` tensor or a host origin."""
+    o = frame_ints(origin)
     rx, ry, rz = wx - o[0], wy - o[1], wz - o[2]
     return ((rx >= 0) & (rx < cfg.nx) & (ry >= 0) & (ry < cfg.ny)
             & (rz >= 0) & (rz < cfg.nz))
@@ -165,11 +184,16 @@ def storage_index_planar(wx, wy, wz, cfg: MapConfig):
             + torch.remainder(wy, cfg.ny)) * cfg.nx + torch.remainder(wx, cfg.nx)
 
 
-def storage_index_from_rel(rx, ry, rz, origin, cfg: MapConfig):
+def storage_index_from_rel(rx, ry, rz, origin, cfg: MapConfig,
+                           origin_mod=None):
     """Storage cell from window-relative voxel coords (valid where
-    0 <= r < dims), by the scalar ``mod(origin, dims)`` fold-back."""
-    o = [int(x) for x in np.asarray(origin)]
-    sox, soy, soz = o[0] % cfg.nx, o[1] % cfg.ny, o[2] % cfg.nz
+    0 <= r < dims), by the scalar ``mod(origin, dims)`` fold-back;
+    ``origin_mod`` hands in that mod (the frame block's ``[3]`` tensor),
+    else it is taken of the host ``origin``."""
+    if origin_mod is None:
+        o = [int(x) for x in np.asarray(origin)]
+        origin_mod = (o[0] % cfg.nx, o[1] % cfg.ny, o[2] % cfg.nz)
+    sox, soy, soz = frame_ints(origin_mod)
     cx = sox + torch.clamp(rx, 0, cfg.nx - 1)
     cy = soy + torch.clamp(ry, 0, cfg.ny - 1)
     cz = soz + torch.clamp(rz, 0, cfg.nz - 1)

@@ -23,7 +23,7 @@ import torch
 
 from .. import (Frame, dsp_dynamic, dsp_dynamic_multi_neighbors, dsp_static,
                 example_node_settings, get_occupancy_map, init_state,
-                make_step)
+                make_graphed_step, make_step)
 from ..utils import sim
 from ..utils.profiling import force_sync
 from .checkpoint import save_state
@@ -65,8 +65,10 @@ def save_npz_frames(path, frames) -> None:
 def replay(cfg, frames, device, draws=None, threshold: float = 0.2,
            keep_centers: bool = False):
     """Run ``frames`` (items ``(points, n, sensor_pos, quat, t)`` of numpy
-    values) through ``make_step(cfg)`` from ``init_state(cfg, seed=0)`` on
-    ``device``, printing one line a frame.  ``draws``, one entry a frame
+    values) from ``init_state(cfg, seed=0)`` on ``device``, printing one
+    line a frame: through ``make_graphed_step(cfg)`` on a CUDA card (one
+    captured graph a frame, where the JAX replay runs ``jax.jit``), through
+    ``make_step(cfg)`` on the CPU.  ``draws``, one entry a frame
     (see ``make_step``), injects the random numbers; ``None`` draws them
     from the state's generator.
 
@@ -78,7 +80,8 @@ def replay(cfg, frames, device, draws=None, threshold: float = 0.2,
     ``{"n_occupied": int}`` with ``"occupied_centers"`` (``[n, 3]``) when
     ``keep_centers``."""
     state = init_state(cfg, seed=0, device=device)
-    step = make_step(cfg)
+    step = (make_graphed_step(cfg) if state.device.type == "cuda"
+            else make_step(cfg))
     walls, outputs = [], []
     for i, (pts, n, pos, quat, t) in enumerate(frames):
         frame = Frame(np.asarray(pts, np.float32), int(n),

@@ -26,7 +26,7 @@ import time
 import numpy as np
 
 from .. import (Frame, dsp_dynamic, example_node_settings, init_state,
-                make_step, read_occupancy)
+                make_graphed_step, make_step, read_occupancy)
 
 
 def _require_rclpy():
@@ -92,7 +92,11 @@ class DspMapRos2Node:
         self.cfg = cfg or example_node_settings(dsp_dynamic())
         self.threshold = threshold
         self.state = init_state(self.cfg, seed=0, device=device)
-        self.step = make_step(self.cfg)
+        # one captured CUDA graph a frame on the card (the JAX node's
+        # jax.jit), the eager step on the CPU
+        self.step = (make_graphed_step(self.cfg)
+                     if self.state.device.type == "cuda"
+                     else make_step(self.cfg))
         self._pose = None
 
         self.pub_cloud = node.create_publisher(PointCloud2, "cloud_ob", 1)

@@ -20,8 +20,9 @@ numpy fallback of ``io/rosbag.py``.
 The port's counterpart of ``dspmap_tpu/io/ros_bridge.py``: the same topics
 and callbacks; the state is built by ``init_state(cfg, seed=0,
 device=device)`` (the card unless ``device`` names another; no card raises)
-and the step is ``make_step(cfg)``.  The occupancy readout is copied to the
-host once a frame for publishing, inside the timed span.
+and the step is ``make_graphed_step(cfg)`` on the card (the JAX node's
+``jax.jit``), ``make_step(cfg)`` on the CPU.  The occupancy readout is
+copied to the host once a frame for publishing, inside the timed span.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import time
 import numpy as np
 
 from .. import (Frame, dsp_dynamic, example_node_settings, init_state,
-                make_step, read_occupancy)
+                make_graphed_step, make_step, read_occupancy)
 
 
 def _require_rospy():
@@ -88,7 +89,11 @@ class DspMapRosNode:
         self.cfg = cfg or example_node_settings(dsp_dynamic())
         self.threshold = threshold
         self.state = init_state(self.cfg, seed=0, device=device)
-        self.step = make_step(self.cfg)
+        # one captured CUDA graph a frame on the card (the JAX node's
+        # jax.jit), the eager step on the CPU
+        self.step = (make_graphed_step(self.cfg)
+                     if self.state.device.type == "cuda"
+                     else make_step(self.cfg))
         self._pose = None
 
         self.pub_cloud = rospy.Publisher("~cloud_ob", PointCloud2,

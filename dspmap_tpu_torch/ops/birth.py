@@ -18,13 +18,14 @@ import torch
 from ..config import MapConfig
 from .. import geometry
 from ..state import FLAG_NEWBORN
-from .common import pool_sv, to_device
+from .common import device_constant, frame_float, pool_sv
 from .insert import insert_particles
 
 
 def birth_table(cfg: MapConfig, est_points, est_vel, est_dynamic, w_static,
                 w_mid, w_dyn, rt, noise_p, noise_v, noise_u):
     """DS arbitration + the newborn candidate table (``dsp_dynamic.h:850-907``).
+    ``rt``'s fields are host floats or the frame block's 0-d tensors.
     Returns ``(pos [P, n_b, 3], vel [P, n_b, 3])``."""
     n_b = cfg.newborn_particles_per_point
     dev = est_points.device
@@ -38,16 +39,19 @@ def birth_table(cfg: MapConfig, est_points, est_vel, est_dynamic, w_static,
                            min=cfg.min_static_newborns)
 
     b = torch.arange(n_b, dtype=torch.int32, device=dev)[None, :]
-    pos = est_points[:, None, :] + noise_p * rt.position_noise_std
+    pos = est_points[:, None, :] + noise_p * frame_float(
+        rt.position_noise_std)
     if cfg.motion_model == "static":
         return pos, torch.zeros_like(pos)
     vel_known = est_vel[:, 0] > -100.0
-    gain = float(np.float32(cfg.estimator_newborn_noise_gain)
-                 * np.float32(rt.velocity_noise_std))
+    # the float32 product: exact in a Python float before an operation
+    # rounds it, as on the device
+    gain = frame_float(rt.velocity_noise_std) * float(
+        np.float32(cfg.estimator_newborn_noise_gain))
     dyn = est_dynamic[:, None, None]
     v_model = torch.where(dyn, est_vel[:, None, :] + gain * noise_v, 0.0)
-    span = to_device([cfg.random_newborn_vxy, cfg.random_newborn_vxy,
-                      cfg.random_newborn_vz], torch.float32, dev)
+    span = device_constant([cfg.random_newborn_vxy, cfg.random_newborn_vxy,
+                            cfg.random_newborn_vz], torch.float32, dev)
     v_random = torch.where(dyn, noise_u * span, 0.0)
     is_static_b = b < n_static[:, None]
     is_model_b = (~is_static_b) & vel_known[:, None] & (b < n_model)

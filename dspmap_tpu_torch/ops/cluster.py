@@ -9,6 +9,7 @@ sweep is monotone and idempotent at convergence, so the labels are equal.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .common import full_f32_matmul
@@ -23,7 +24,7 @@ def euclidean_cluster(points: torch.Tensor, valid: torch.Tensor,
     n = points.shape[0]
     dev = points.device
     sq = (points * points).sum(-1)
-    tol2 = float(torch.tensor(tolerance * tolerance, dtype=torch.float32))
+    tol2 = float(np.float32(tolerance * tolerance))
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     labels = torch.where(valid, iota, n)
     d2 = sq[:, None] + sq[None, :] - 2.0 * (points @ points.T)

@@ -43,6 +43,67 @@ def to_device(x, dtype, device) -> torch.Tensor:
     return t
 
 
+# --------------------------------------------------- per-frame scalars
+#
+# A stage takes each per-frame value (the time step, the update time, the
+# sensor pose, the window origin, the runtime parameters) either as a
+# tensor -- a view of the step's frame blocks (``scalars.py``), the
+# form the step passes, so that a captured CUDA graph reads each frame's
+# values where the frame's copy puts them -- or as a host value, the form
+# of a caller that runs one stage.  The two give the same bits.  The
+# attitude is the one value whose forms differ in kind: a stage takes the
+# host wxyz quaternion as ``quat`` and the block's rotation matrix as the
+# keyword ``R=`` (``geometry.frame_rotation``).  Host values become blocks
+# in one place, ``scalars.host_blocks``; the helpers below only read either
+# form.
+
+
+def frame_float(x):
+    """A per-frame float: a tensor as it is; a host value rounded to
+    float32, as a Python float (an operation reads either as a float32)."""
+    return x if isinstance(x, torch.Tensor) else float(np.float32(x))
+
+
+def frame_floats(x, n: int = 3) -> list:
+    """The ``n`` components of a per-frame float vector: 0-d views of a
+    tensor, or the host values rounded to float32 as Python floats."""
+    if isinstance(x, torch.Tensor):
+        return list(x.unbind(0))
+    return [float(v) for v in np.asarray(x, np.float32)[:n]]
+
+
+def frame_ints(x, n: int = 3) -> list:
+    """The ``n`` components of a per-frame int vector (the window origin):
+    0-d views of a tensor, or Python ints."""
+    if isinstance(x, torch.Tensor):
+        return list(x.unbind(0))
+    return [int(v) for v in np.asarray(x)[:n]]
+
+
+def frame_tensor(x, dtype, device) -> torch.Tensor:
+    """A per-frame value as a tensor: a tensor as it is, a host value
+    copied by :func:`to_device`."""
+    return x if isinstance(x, torch.Tensor) else to_device(x, dtype, device)
+
+
+def div_frame(x: torch.Tensor, d) -> torch.Tensor:
+    """``x / d`` for a per-frame divisor ``d``, with the bits of ``x /
+    float(d)`` on either form: PyTorch's CUDA division by a host scalar
+    multiplies by its float32 reciprocal, so a tensor divisor on the card
+    does the same; the CPU divides."""
+    if isinstance(d, torch.Tensor) and x.is_cuda:
+        return x * (1.0 / d)
+    return x / d
+
+
+def device_constant(values, dtype, device) -> torch.Tensor:
+    """A ``[len(values)]`` tensor of configuration constants made on
+    ``device`` by fills (no copy from host memory, which a captured graph
+    would read again on every replay)."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device)
+                        for v in values])
+
+
 @contextlib.contextmanager
 def full_f32_matmul():
     """Within the block, float32 matrix products on the card run in full

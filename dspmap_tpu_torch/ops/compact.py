@@ -31,15 +31,15 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..config import MapConfig
 from .. import geometry, kernels
 from ..state import FLAG_NEWBORN, FLAG_VALID
 from .common import (DROP_ROWS, I32_MAX, add_at, compact_and_group,
-                     compact_mask, drop_rows, scatter_add, scatter_max,
-                     scatter_set, sort_by_destination, to_device)
+                     compact_mask, device_constant, drop_rows, frame_float,
+                     frame_floats, scatter_add, scatter_max, scatter_set,
+                     sort_by_destination)
 from .fov import _bin_candidates, fov_jitter
 from .propagate import propagate
 
@@ -226,15 +226,17 @@ def segment_table(cell, valid, cols, n_cells, max_run: int = 64):
     return list(_ends_table(hi, key, is_end, n_cells).unbind(0))
 
 
-def sweep_compact(particles, cfg: MapConfig, dt, origin, sensor_pos, quat,
-                  noise=None, rt=None):
+def sweep_compact(particles, cfg: MapConfig, dt, origin, sensor_pos,
+                  quat=None, noise=None, rt=None, *, R=None):
     """Prediction advance + window test + cell/pyramid geometry, one [P]
-    pass.  Returns ``(new_particles, CompactSweep)``.  The velocity noise
-    follows ``ops/propagate.py`` (``noise [3, P]`` on the noisy arm, none
-    under limit-xy; the static model does not advance)."""
+    pass.  Returns ``(new_particles, CompactSweep)``.  The frame's values
+    are the frame block's tensors (its rotation as ``R=``) or host
+    values, as ``ops/sweep.py::sweep_reference`` takes them.  The velocity
+    noise follows ``ops/propagate.py`` (``noise [3, P]`` on the noisy arm,
+    none under limit-xy; the static model does not advance)."""
     valid = particles.valid
     vx, vy, vz = particles.vx, particles.vy, particles.vz
-    dt = float(np.float32(dt))
+    dt = frame_float(dt)
     if cfg.motion_model == "static":
         px, py, pz = particles.px, particles.py, particles.pz
     elif cfg.limit_motion_to_xy_plane:
@@ -258,9 +260,9 @@ def sweep_compact(particles, cfg: MapConfig, dt, origin, sensor_pos, quat,
     cur_cell = geometry.storage_index_planar(owx, owy, owz, cfg)
     mover = alive & (new_cell != cur_cell)
 
-    R = geometry.rotation_matrix_np(geometry.quaternion_conjugate_np(quat))
-    s = [float(x) for x in np.asarray(sensor_pos, np.float32)]
-    sx, sy, sz = geometry.rotate_planar(R, px - s[0], py - s[1], pz - s[2])
+    s = frame_floats(sensor_pos)
+    sx, sy, sz = geometry.rotate_planar(geometry.frame_rotation(quat, R),
+                                        px - s[0], py - s[1], pz - s[2])
     pyr, in_fov = geometry.pyramid_index_planar(sx, sy, sz, cfg)
     fov = alive & in_fov
     moving = alive & ((vx != 0.0) | (vy != 0.0) | (vz != 0.0))
@@ -411,13 +413,15 @@ def rebin_exchange_compact(particles, sw: CompactSweep, cfg: MapConfig,
     return dataclasses.replace(particles, **new), stats
 
 
-def fov_geometry_compact(particles, cfg: MapConfig, sensor_pos, quat):
+def fov_geometry_compact(particles, cfg: MapConfig, sensor_pos, quat=None,
+                         *, R=None):
     """``(pyramid cell [P], in-FOV mask [P])`` of the compact set for one
-    sensor pose (host arrays): the per-sensor half of
+    sensor pose (the frame block's ``sensor_pos`` and ``R=``, or host
+    arrays and the wxyz quaternion ``quat``): the per-sensor half of
     :func:`sweep_compact`'s geometry, for the multi-sensor step."""
-    R = geometry.rotation_matrix_np(geometry.quaternion_conjugate_np(quat))
-    s = [float(x) for x in np.asarray(sensor_pos, np.float32)]
-    sx, sy, sz = geometry.rotate_planar(R, particles.px - s[0],
+    s = frame_floats(sensor_pos)
+    sx, sy, sz = geometry.rotate_planar(geometry.frame_rotation(quat, R),
+                                        particles.px - s[0],
                                         particles.py - s[1],
                                         particles.pz - s[2])
     pyr, in_fov = geometry.pyramid_index_planar(sx, sy, sz, cfg)
@@ -492,7 +496,7 @@ def insert_compact(particles, cfg: MapConfig, *, pos, vel, weight, valid,
     for k, name in enumerate(("px", "py", "pz", "vx", "vy", "vz", "weight")):
         new[name] = put(getattr(particles, name), pay[:, k])
     if t is not None:
-        new["t"] = put(particles.t, float(t))
+        new["t"] = put(particles.t, frame_float(t))
     n_landed = land.sum()
     return (dataclasses.replace(particles, **new), n_landed,
             eligible.sum() - n_landed)
@@ -580,7 +584,7 @@ def occupancy_compact(particles, cfg: MapConfig, origin, future_in,
 
     # ---- future grid ---------------------------------------------------
     future = future_in + static_contrib[None, :]
-    taus = to_device(cfg.prediction_horizons, f32, dev)[:, None]
+    taus = device_constant(cfg.prediction_horizons, f32, dev)[:, None]
     fx = m[0][None, :] + m[3][None, :] * taus
     fy = m[1][None, :] + m[4][None, :] * taus
     fz = m[2][None, :] + m[5][None, :] * taus

@@ -30,14 +30,14 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..config import MapConfig
 from .. import geometry
-from .common import (compact_and_group, compact_mask, group_ranks,
-                     inverse_ranks, pool_fill, pool_put, pool_sv, pool_take,
-                     scatter_set, sort_by_destination)
+from .common import (compact_and_group, compact_mask, frame_float,
+                     frame_floats, group_ranks, inverse_ranks, pool_fill,
+                     pool_put, pool_sv, pool_take, scatter_set,
+                     sort_by_destination)
 from .insert import allocate_slots, scatter_candidates
 from .propagate import jitter_mask
 
@@ -74,7 +74,7 @@ def _bin_candidates(cfg: MapConfig, total: int, sensor_pos, idx, cand_pyr,
     kill = sel_valid & (ranks >= s_pyr)
 
     px, py, pz, w = cols
-    s = [float(x) for x in np.asarray(sensor_pos, np.float32)]
+    s = frame_floats(sensor_pos)
     rng_c = torch.sqrt((px - s[0]) ** 2 + (py - s[1]) ** 2 + (pz - s[2]) ** 2)
 
     cell = torch.where(keep, cand_pyr * S_t + ranks, grid_cap)
@@ -136,26 +136,28 @@ def fov_jitter(particles, cfg: MapConfig, alive_fov, noise, rt=None):
         raise ValueError("the noisy arm of FOV registration takes a [2, ...] "
                          "standard-normal draw")
     sigma = cfg.velocity_noise_std if rt is None else rt.velocity_noise_std
-    n = noise * float(np.float32(sigma))
+    n = noise * frame_float(sigma)
     jitter = jitter_mask(vx, vy, vz, alive_fov)
     return (torch.where(jitter, vx + n[0], vx),
             torch.where(jitter, vy + n[1], vy),
             torch.where(jitter, 0.0, vz))
 
 
-def register_fov(particles, cfg: MapConfig, sensor_pos, quat, noise=None,
-                 rt=None, with_metrics=True):
-    """FOV registration of ``[S, V]`` planes for one sensor pose (host
-    arrays): every slot rotated into the sensor frame, in-FOV valid slots
-    compacted and grouped by pyramid cell, ranks beyond the per-cell
-    capacity killed, the rest binned; then the in-FOV velocity jitter
-    (:func:`fov_jitter`; ``noise [2, S, V]`` on the noisy arm).  Returns
-    ``(new_particles, FovBinning, stats)``; the binning indexes into
-    ``new_particles``, and ``stats`` is empty without ``with_metrics``."""
+def register_fov(particles, cfg: MapConfig, sensor_pos, quat=None,
+                 noise=None, rt=None, with_metrics=True, *, R=None):
+    """FOV registration of ``[S, V]`` planes for one sensor pose (the
+    frame block's ``sensor_pos`` and its rotation ``R=``; or host arrays
+    and the wxyz quaternion ``quat``): every slot rotated into the
+    sensor frame, in-FOV valid slots compacted and grouped by pyramid
+    cell, ranks beyond the per-cell capacity killed, the rest binned; then
+    the in-FOV velocity jitter (:func:`fov_jitter`; ``noise [2, S, V]`` on
+    the noisy arm).  Returns ``(new_particles, FovBinning, stats)``; the
+    binning indexes into ``new_particles``, and ``stats`` is empty without
+    ``with_metrics``."""
     S, V = particles.flags.shape
-    R = geometry.rotation_matrix_np(geometry.quaternion_conjugate_np(quat))
-    s = [float(x) for x in np.asarray(sensor_pos, np.float32)]
-    sx, sy, sz = geometry.rotate_planar(R, particles.px - s[0],
+    s = frame_floats(sensor_pos)
+    sx, sy, sz = geometry.rotate_planar(geometry.frame_rotation(quat, R),
+                                        particles.px - s[0],
                                         particles.py - s[1],
                                         particles.pz - s[2])
     pyr, in_fov = geometry.pyramid_index_planar(sx, sy, sz, cfg)

@@ -20,7 +20,8 @@ import torch
 
 from ..config import MapConfig
 from .. import geometry
-from .common import inverse_ranks, pool_put, pool_sv, sort_by_destination
+from .common import (frame_float, inverse_ranks, pool_put, pool_sv,
+                     sort_by_destination)
 
 
 def empty_slot_lookup(flags: torch.Tensor, cell: torch.Tensor,
@@ -52,7 +53,8 @@ def scatter_candidates(particles, flat, payload_cols, flag, t,
     """Write ``payload_cols = (px, py, pz, vx, vy, vz, weight)`` at their
     allocated flat positions.  ``flag`` is a scalar or per-candidate
     array; ``flag_extra = (idx, vals)`` adds rows to the flags scatter
-    only (disjoint from ``flat``); ``t=None`` skips the time plane."""
+    only (disjoint from ``flat``); ``t`` is the update time (a 0-d tensor
+    or a host float), ``None`` skips the time plane."""
     s_flat = flat
     vals = (flag.to(torch.int32) if isinstance(flag, torch.Tensor)
             else torch.full((), flag, dtype=torch.int32, device=flat.device)
@@ -65,7 +67,7 @@ def scatter_candidates(particles, flat, payload_cols, flag, t,
     new = {n: pool_put(getattr(p, n), flat, c)
            for n, c in zip(names, payload_cols)}
     if t is not None:
-        new["t"] = pool_put(p.t, flat, float(t))
+        new["t"] = pool_put(p.t, flat, frame_float(t))
     return dataclasses.replace(p, flags=pool_put(p.flags, s_flat, vals), **new)
 
 
@@ -88,7 +90,8 @@ def insert_particles(particles, cfg: MapConfig, *, pos, vel, weight, valid,
     (``dsp_dynamic.h:875,1062-1074``).  ``cell_base`` is the global storage
     cell of pool column 0 (a slab of the sharded step): candidates whose
     destination falls outside the slab are dropped here and inserted by the
-    rank that owns it."""
+    rank that owns it.  ``origin`` is the frame block's int32 ``[3]`` or a
+    host origin."""
     S, V = pool_sv(particles.flags, cfg)
     wv = geometry.world_voxel(pos, cfg)
     inside = geometry.in_window(wv, origin, cfg)

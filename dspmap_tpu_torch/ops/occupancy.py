@@ -31,7 +31,7 @@ import torch
 from ..config import MapConfig
 from .. import geometry, kernels
 from ..state import unflatten_pool
-from .common import compact_mask, pool_take, scatter_add, to_device
+from .common import compact_mask, device_constant, pool_take, scatter_add
 
 #: slot depths the CUDA kernel is instantiated for: the flagship's, the
 #: static preset's and the multi-neighbor preset's
@@ -231,7 +231,8 @@ def occupancy_pool_pass(particles, cfg: MapConfig, with_moving: bool = True):
 def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
                            future_movers, shard=None, with_metrics=True):
     """Returns ``(new_particles, weight_sum[V], vel_avg[V, 3], future[T, V],
-    stats)``.  ``future_movers = (flat, valid, n_dropped)`` is the
+    stats)``; ``origin`` is the frame block's int32 ``[3]`` or a host
+    origin.  ``future_movers = (flat, valid, n_dropped)`` is the
     pre-compacted nonzero-velocity candidate set from
     :func:`~.fov.rebin_and_register`; ``None`` (the noisy-prediction and
     multi-sensor paths) asks the pool pass for its ``[S, V]`` moving mask
@@ -289,7 +290,8 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin, future_in,
     if shard is not None:
         *m, m_w, sel = shard.exchange(m + [m_w, sel])
 
-    taus = to_device(cfg.prediction_horizons, torch.float32, dev)[:, None]
+    taus = device_constant(cfg.prediction_horizons, torch.float32,
+                           dev)[:, None]
     fx = m[0][None, :] + m[3][None, :] * taus
     fy = m[1][None, :] + m[4][None, :] * taus
     fz = m[2][None, :] + m[5][None, :] * taus

@@ -10,8 +10,8 @@ import torch
 
 from ..config import MapConfig
 from .. import geometry
-from .common import (compact_mask, scatter_max, scatter_set, segment_counts,
-                     sort_by_destination, to_device)
+from .common import (compact_mask, frame_tensor, scatter_max, scatter_set,
+                     segment_counts, sort_by_destination)
 
 
 class Observation(NamedTuple):
@@ -32,7 +32,8 @@ class Observation(NamedTuple):
 def project_points(points_body: torch.Tensor, point_valid: torch.Tensor,
                    sensor_pos, quat, cfg: MapConfig) -> Observation:
     """Bin one frame's body-frame cloud into FOV pyramid cells.
-    ``sensor_pos`` / ``quat`` are host float32 arrays."""
+    ``sensor_pos`` / ``quat`` are the frame block's ``[3]`` / ``[4]``
+    tensors or host float32 arrays."""
     dev = points_body.device
     n_pyr, K = cfg.n_pyramids, cfg.max_obs_points_per_pyramid
     Ko, Yc = cfg.obs_dense, cfg.obs_spill_capacity
@@ -41,8 +42,8 @@ def project_points(points_body: torch.Tensor, point_valid: torch.Tensor,
     valid = point_valid & in_fov
     n_valid = valid.sum().to(torch.int32)
 
-    q = to_device(quat, torch.float32, dev)
-    s = to_device(sensor_pos, torch.float32, dev)
+    q = frame_tensor(quat, torch.float32, dev)
+    s = frame_tensor(sensor_pos, torch.float32, dev)
     world = s + geometry.quaternion_rotate(q, points_body)
     rng = torch.linalg.vector_norm(points_body, dim=-1)
 

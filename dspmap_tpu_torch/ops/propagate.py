@@ -22,10 +22,10 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from ..config import MapConfig
+from .common import frame_float
 
 
 def jitter_mask(vx, vy, vz, mask):
@@ -38,9 +38,10 @@ def propagate(particles, cfg: MapConfig, noise, dt, rt=None):
     """Advance every valid particle one frame; returns the new planes.
 
     ``noise`` is the standard-normal ``[3, ...]`` draw of the noisy arm
-    (``None`` on the other two); ``dt`` a host float; ``rt`` the state's
-    :class:`~dspmap_tpu_torch.state.RuntimeParams` (``None``: the
-    configuration's sigma)."""
+    (``None`` on the other two); ``dt`` the frame block's 0-d tensor or a
+    host float; ``rt`` the state's
+    :class:`~dspmap_tpu_torch.state.RuntimeParams` (host floats or the
+    frame block's tensors; ``None``: the configuration's sigma)."""
     valid = particles.valid
     if cfg.motion_model == "static":
         zeros = torch.zeros_like(particles.vx)
@@ -52,7 +53,7 @@ def propagate(particles, cfg: MapConfig, noise, dt, rt=None):
             raise ValueError("the noisy prediction arm takes a [3, ...] "
                              "standard-normal draw")
         sigma = cfg.velocity_noise_std if rt is None else rt.velocity_noise_std
-        n = noise * float(np.float32(sigma))
+        n = noise * frame_float(sigma)
         jitter = jitter_mask(vx, vy, vz, valid)
         vx = torch.where(jitter, vx + n[0], vx)
         vy = torch.where(jitter, vy + n[1], vy)
@@ -60,7 +61,7 @@ def propagate(particles, cfg: MapConfig, noise, dt, rt=None):
     else:
         vz = torch.where(valid, 0.0, vz)
 
-    dt = float(np.float32(dt))
+    dt = frame_float(dt)
     px = torch.where(valid, particles.px + vx * dt, particles.px)
     py = torch.where(valid, particles.py + vy * dt, particles.py)
     pz = torch.where(valid, particles.pz + vz * dt, particles.pz)

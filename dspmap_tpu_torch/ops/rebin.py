@@ -32,8 +32,9 @@ def rebin(particles, cfg: MapConfig, origin, t, shard=None,
           with_metrics=True):
     """Re-home particles whose storage cell changed; kill window leavers.
     ``particles`` are ``[S, V]`` planes, ``origin`` the window origin and
-    ``t`` the update time (host values).  Returns ``(new_particles,
-    stats)``; ``stats`` is empty without ``with_metrics``.
+    ``t`` the update time (the frame block's tensors, or host values).
+    Returns ``(new_particles, stats)``; ``stats`` is empty without
+    ``with_metrics``.
 
     ``shard`` (:class:`~.common.ShardCtx`): the planes are this rank's slab
     and mover destinations are global; the compacted movers (payload and

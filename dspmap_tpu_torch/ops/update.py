@@ -28,7 +28,8 @@ import torch
 
 from ..config import MapConfig
 from .. import kernels
-from .common import full_f32_matmul, pool_put, to_device
+from .common import (device_constant, div_frame, frame_float,
+                     full_f32_matmul, pool_put)
 
 REF_PDF_CONST = 1.0 / math.sqrt(math.pi)
 
@@ -70,18 +71,19 @@ def neighbor_cells(pyr: torch.Tensor, cfg: MapConfig):
     """``[M]`` pyramid ids -> ``([M, C] neighbour ids, [M, C] valid)``."""
     W, H = cfg.n_pyramids_v, cfg.n_pyramids_h
     offs = _offsets(cfg)
-    dh = to_device([o[0] for o in offs], torch.int32, pyr.device)
-    dv = to_device([o[1] for o in offs], torch.int32, pyr.device)
+    dh = device_constant([o[0] for o in offs], torch.int32, pyr.device)
+    dv = device_constant([o[1] for o in offs], torch.int32, pyr.device)
     nh = (pyr // W)[:, None] + dh[None, :]
     nv = (pyr % W)[:, None] + dv[None, :]
     ok = (nh >= 0) & (nh < H) & (nv >= 0) & (nv < W)
     return torch.where(ok, nh * W + nv, 0), ok
 
 
-def _pair_g(ppos: torch.Tensor, pts: torch.Tensor, sigma: float):
-    """``g`` for ppos ``[B, S, 3]`` x pts ``[B, M, 3]`` -> ``[B, S, M]``."""
-    a = ppos / sigma
-    b = pts / sigma
+def _pair_g(ppos: torch.Tensor, pts: torch.Tensor, sigma):
+    """``g`` for ppos ``[B, S, 3]`` x pts ``[B, M, 3]`` -> ``[B, S, M]``;
+    ``sigma`` a 0-d tensor or a host float."""
+    a = div_frame(ppos, sigma)
+    b = div_frame(pts, sigma)
     d2 = ((a * a).sum(-1)[:, :, None] + (b * b).sum(-1)[:, None, :]
           - 2.0 * torch.bmm(a, b.transpose(1, 2)))
     return (REF_PDF_CONST ** 3) * torch.exp(-0.5 * torch.clamp(d2, min=0.0))
@@ -90,27 +92,29 @@ def _pair_g(ppos: torch.Tensor, pts: torch.Tensor, sigma: float):
 # ------------------------------------------------------- K3: pair passes
 
 
-def update_pass1_plain(pos, w, nbr_pts, sigma: float):
+def update_pass1_plain(pos, w, nbr_pts, sigma):
     """``C_partial[r, m] = sum_s w[r, s] g(pos[r, s], nbr_pts[r, m])``."""
     g = _pair_g(pos, nbr_pts, sigma)
     return torch.bmm(w[:, None, :], g)[:, 0, :]
 
 
-def update_pass2_plain(pos, cinv, nbr_pts, sigma: float):
+def update_pass2_plain(pos, cinv, nbr_pts, sigma):
     """``sum_dense[r, s] = sum_m g(pos[r, s], nbr_pts[r, m]) cinv[r, m]``."""
     g = _pair_g(pos, nbr_pts, sigma)
     return torch.bmm(g, cinv[:, :, None])[:, :, 0]
 
 
-def prescale_pairs(pos, nbr_pts, sigma: float):
+def prescale_pairs(pos, nbr_pts, sigma):
     """``(pos / sigma, nbr_pts / sigma)`` as contiguous f32 tensors: the
     pair kernels' operands, scaled once for both passes of a frame so that
-    sigma never enters the kernel (as the Pallas kernel's caller does)."""
-    inv = float(np.float32(1.0) / np.float32(sigma))
+    sigma never enters the kernel (as the Pallas kernel's caller does).
+    ``sigma`` is the frame block's 0-d tensor or a host float."""
+    inv = (1.0 / sigma if isinstance(sigma, torch.Tensor)
+           else float(np.float32(1.0) / np.float32(sigma)))
     return (pos * inv).contiguous(), (nbr_pts * inv).contiguous()
 
 
-def _pair_cuda(name: str, pos, vec, nbr_pts, sigma: float, out_cols: int,
+def _pair_cuda(name: str, pos, vec, nbr_pts, sigma, out_cols: int,
                scaled=None):
     rows, st, _ = pos.shape
     ck = nbr_pts.shape[1]
@@ -128,7 +132,7 @@ def _pair_cuda(name: str, pos, vec, nbr_pts, sigma: float, out_cols: int,
     return out
 
 
-def update_pass1(pos, w, nbr_pts, sigma: float, scaled=None):
+def update_pass1(pos, w, nbr_pts, sigma, scaled=None):
     """Pass-1 dense block: kernel K3a on CUDA tensors, plain on the CPU.
     ``scaled`` optionally carries :func:`prescale_pairs` of the same
     operands, shared by both passes."""
@@ -138,7 +142,7 @@ def update_pass1(pos, w, nbr_pts, sigma: float, scaled=None):
     return update_pass1_plain(pos, w, nbr_pts, sigma)
 
 
-def update_pass2(pos, cinv, nbr_pts, sigma: float, scaled=None):
+def update_pass2(pos, cinv, nbr_pts, sigma, scaled=None):
     """Pass-2 dense block: kernel K3b on CUDA tensors, plain on the CPU."""
     if pos.is_cuda:
         return _pair_cuda("update_pass2", pos, cinv, nbr_pts, sigma,
@@ -154,8 +158,9 @@ def measurement_update(particles, fovbin, obs, cfg: MapConfig,
                        expected_newborn: torch.Tensor, update_time, rt,
                        shard=None, with_metrics=True):
     """Returns ``(new_particles, norm_coeff, stats)``; ``rt`` is the
-    state's :class:`~dspmap_tpu_torch.state.RuntimeParams`; ``stats`` is
-    empty without ``with_metrics``.
+    state's :class:`~dspmap_tpu_torch.state.RuntimeParams` (host floats,
+    or the frame block's 0-d tensors) and ``update_time`` a 0-d tensor or
+    a host float; ``stats`` is empty without ``with_metrics``.
 
     ``shard`` (:class:`~.common.ShardCtx`): the C(z) partials of pass 1 and
     of the spill block -- the update's only sums over particles -- are
@@ -166,10 +171,11 @@ def measurement_update(particles, fovbin, obs, cfg: MapConfig,
     total = particles.flags.numel()
     n_pyr, S_t = cfg.n_pyramids, cfg.dense_slots
     C = cfg.neighbor_cells
-    sigma = rt.sigma_ob
-    p_d = rt.p_detection
-    one_minus_pd = float(np.float32(1.0) - np.float32(p_d))
-    e_birth = expected_newborn + rt.kappa
+    sigma = frame_float(rt.sigma_ob)
+    p_d = frame_float(rt.p_detection)
+    one_minus_pd = (1.0 - p_d if isinstance(p_d, torch.Tensor)
+                    else float(np.float32(1.0) - np.float32(p_d)))
+    e_birth = expected_newborn + frame_float(rt.kappa)
     arange_pyr = torch.arange(n_pyr, dtype=torch.int32, device=dev)
 
     nbr_pts = gather_neighbors(obs.points, cfg, 0.0)  # [n_pyr, CK, 3]
@@ -269,7 +275,7 @@ def measurement_update(particles, fovbin, obs, cfg: MapConfig,
 
     new = {"weight": pool_put(particles.weight, slot, vals_w)}
     if cfg.record_particle_time:
-        new["t"] = pool_put(particles.t, slot, float(update_time))
+        new["t"] = pool_put(particles.t, slot, frame_float(update_time))
     stats = {}
     if with_metrics:
         n_updated = updated.sum()

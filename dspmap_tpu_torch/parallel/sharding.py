@@ -24,7 +24,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import MapConfig
-from ..state import EstimatorState, MapState, Particles
+from ..state import HOST_LEAVES, MapState, Particles, tensor_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,14 +55,8 @@ def make_mesh(n: int | None = None, group=None) -> Mesh:
 
 def _leaves(state: MapState) -> dict:
     """The state's arrays and tensors by their path in the JAX state."""
-    out = {f"particles.{f.name}": getattr(state.particles, f.name)
-           for f in dataclasses.fields(Particles)}
-    out.update({f"estimator.{f.name}": getattr(state.estimator, f.name)
-                for f in dataclasses.fields(EstimatorState)})
-    for name in ("weight_sum", "vel_avg", "future", "sensor_pos",
-                 "last_sensor_pos", "origin", "update_time",
-                 "last_timestamp", "update_counter", "initialized"):
-        out[name] = getattr(state, name)
+    out = tensor_leaves(state)
+    out.update({name: getattr(state, name) for name in HOST_LEAVES})
     return out
 
 

@@ -177,6 +177,24 @@ class MapState:
         )
 
 
+#: the host values of a :class:`MapState` that the step updates
+HOST_LEAVES = ("sensor_pos", "last_sensor_pos", "origin", "update_time",
+               "last_timestamp", "update_counter", "initialized")
+
+
+def tensor_leaves(state) -> dict:
+    """The tensors of a :class:`MapState` (or of anything with its tensor
+    fields, as the step body's output) by their path in the JAX state:
+    ``particles.<plane>``, ``estimator.<field>``, ``weight_sum``,
+    ``vel_avg``, ``future``."""
+    out = {f"particles.{n}": getattr(state.particles, n) for n in _PLANES}
+    out.update({f"estimator.{f.name}": getattr(state.estimator, f.name)
+                for f in dataclasses.fields(EstimatorState)})
+    out.update(weight_sum=state.weight_sum, vel_avg=state.vel_avg,
+               future=state.future)
+    return out
+
+
 #: planes of this many bytes or more (with ``V % 1024 == 0``) change form
 #: through the relayout kernels (the JAX package's line, ``state.py:88``)
 _DMA_RELAYOUT_BYTES = 16 << 20

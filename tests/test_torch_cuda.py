@@ -7,6 +7,7 @@ present.  On a machine with an H100 (and without jax, which
 ``chip_smoke.py`` runs the same checks at the full-width shapes of every
 path."""
 
+import dataclasses
 import hashlib
 
 import numpy as np
@@ -980,3 +981,102 @@ def test_jv_kernel_bit_equal_to_plain_on_flagship_costs(device, monkeypatch):
         assert torch.equal(card.cpu(), cpu)
         n_matched += int((cpu >= 0).sum())
     assert n_matched > 0
+
+
+@pytest.mark.parametrize("preset", ["flagship", "static", "multi"])
+def test_sweep_kernel_reads_the_frame_blocks(device, preset):
+    """K2 with its per-frame values read from the frame blocks on the card
+    (as the step and a captured graph hand them) against the plain version
+    on the same views, at the full-width pool of each path that takes it:
+    positions within 1e-5, under 0.1% of the discrete fields flipped; and
+    the same bits as K2 handed the host values."""
+    from dspmap_tpu_torch import scalars
+    from dspmap_tpu_torch.utils.kernel_times import populated_pool
+
+    cfg = (_preset(preset) if preset in PRESETS
+           else T.example_node_settings(T.dsp_dynamic()))
+    p = populated_pool(cfg, np.random.default_rng(3), device)
+    dt, sensor = np.float32(0.1), np.asarray([0.35, -0.2, 1.0], np.float32)
+    quat = np.asarray([np.cos(0.15), 0, 0, np.sin(0.15)], np.float32)
+    fs = scalars.frame_scalars(cfg, device, dt=dt, sensor_pos=sensor,
+                               quat=quat)
+    args = (fs.dt, fs.origin, fs.sensor_pos)
+    kw = dict(origin_mod=fs.origin_mod, R=fs.R)
+    got = sweep.sweep_cuda(p, cfg, *args, **kw)
+    want = sweep.sweep_reference(p, cfg, *args, **kw)
+    torch.testing.assert_close(got.px, want.px, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got.py, want.py, atol=1e-5, rtol=0)
+    for name in ("flags", "new_cell", "tags"):
+        assert (getattr(got, name) != getattr(want, name)).float().mean() < 1e-3
+    assert bool(got.fov.any())
+    host = sweep.sweep_cuda(p, cfg, dt, T.geometry.window_origin_np(
+        sensor, cfg), sensor, quat)
+    for name in ("px", "py", "flags", "new_cell", "tags"):
+        assert torch.equal(getattr(got, name), getattr(host, name)), name
+
+
+GRAPH_CASES = {"pool": {}, "compact": dict(layout="compact")}
+
+
+def _seeded(seed, device) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+@pytest.mark.parametrize("given_draws", [True, False],
+                         ids=["draws_given", "draws_from_gen"])
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graphed_step_bit_equal_to_eager(device, case, given_draws):
+    """``make_graphed_step`` against ``make_step`` on six frames from the
+    same state with the same draws -- handed in, or drawn by each step from
+    its own of two equal generators (the path of replay and the ROS
+    bridges) -- a rejected frame (a pose jump of 12 m) and a live setter
+    between frames, every state leaf, the generators and every output bit
+    for bit after each frame, one capture, and no kernel launched from the
+    host during a replay."""
+    cfg = _cfg(**GRAPH_CASES[case])
+    frames = [T.Frame(*f) for f in sim.generate_sequence(9, cfg, seed=0)]
+    frames[6] = frames[6]._replace(
+        sensor_pos=frames[6].sensor_pos + np.float32([12, 0, 0]))
+    eager, graphed = T.make_step(cfg), T.make_graphed_step(cfg)
+    state = T.init_state(cfg)
+    for f in frames[:3]:
+        state, _ = eager(state, f)
+    g = _seeded(4, device)
+    draws = ([T.make_draws(cfg, g, device) for _ in frames[3:]]
+             if given_draws else [None] * 6)
+    a = dataclasses.replace(state, gen=_seeded(5, device))
+    b = dataclasses.replace(state, gen=_seeded(5, device))
+    for k, (f, d) in enumerate(zip(frames[3:], draws)):
+        if k == 4:
+            a = T.set_detection_probability(a, 0.85)
+            b = T.set_detection_probability(b, 0.85)
+        a, out_a = eager(a, f, d)
+        n0 = dict(kernels.LAUNCHES)
+        b, out_b = graphed(b, f, d)
+        if k > 0:  # after the capture, a frame is one replay
+            assert kernels.LAUNCHES == n0
+        assert out_a.accepted == (k != 3)
+        _bit_equal_states(a, b)
+        assert torch.equal(a.gen.get_state(), b.gen.get_state())
+        if out_a.accepted:
+            _outputs_bit_equal(out_a, out_b)
+    assert graphed.captures == 1
+    assert int(out_b.metrics["alive"]) > 0
+    graphed.release()
+
+
+def test_graphed_step_refuses_a_cpu_state_and_other_shapes(device):
+    cfg = _cfg()
+    frame = T.Frame(*next(sim.generate_sequence(1, cfg, seed=0)))
+    step = T.make_graphed_step(cfg)
+    with pytest.raises(ValueError, match="CUDA card"):
+        step(T.init_state(cfg, device="cpu"), frame)
+    step(T.init_state(cfg), frame)
+    assert step.captures == 1
+    small = T.init_state(cfg)
+    small = dataclasses.replace(small, future=small.future[:, :-8])
+    with pytest.raises(ValueError, match="captured"):
+        step(small, frame)
+    step.release()
