@@ -56,12 +56,17 @@ Phases (each prints one line; any failure raises and exits nonzero):
    every sensor's birth is pinned to the card's ``norm_coeff`` in turn),
    then ``repeat`` (:func:`check_repeat`): from the path's last state,
    four more frames twice over with the same draws, every leaf of the two
-   states and every output bit-equal; then, on the six single-camera
-   paths, ``graph`` (:func:`check_graph`): eight more frames through
-   ``make_step`` and through ``make_graphed_step`` (one CUDA graph a
-   frame) on the same draws, with a rejected frame and a live setter among
-   them, every leaf and output bit-equal frame by frame, one capture, no
-   kernel launched from the host during a replay, and both frame times;
+   states and every output bit-equal; then ``graph``
+   (:func:`check_graph`): eight more frames through the eager step and
+   through its graphed form on the same draws -- ``make_graphed_step`` on
+   the six single-camera paths (one CUDA graph), and
+   ``make_graphed_multisensor_step`` on the two two-camera paths (one
+   graph a pattern of admitted cameras: a frame of camera 0 alone and one
+   of camera 1 alone among the eight, three captures) -- with a rejected
+   frame and a live setter among them, every leaf and output bit-equal
+   frame by frame, one capture a pattern, no kernel launched from the
+   host during a replay, both frame times, each capture's time and
+   memory pool;
 6. the caller's TF32 matmul setting, True through phases 4 and 5, is
    still True after them;
 7. ``io``, in a temporary directory (see :func:`check_io`): the replay
@@ -936,9 +941,17 @@ def check_repeat(name, cfg, state, device) -> None:
 
 
 #: the ``graph`` phase: frames a path, the one rejected (a pose jump of
-#: 12 m), the one before which a live setter changes ``p_detection``, and
-#: the seed of the frames' draws
+#: 12 m, camera 0's on the two-camera paths), the one before which a live
+#: setter changes ``p_detection``, and the seed of the frames' draws
 GRAPH_FRAMES, GRAPH_REJECTED, GRAPH_SETTER, GRAPH_SEED = 8, 3, 5, 2
+#: the two-camera paths' frames of one camera: frame -> the cameras
+#: admitted; the other camera's quaternion is NaN, which admission skips
+#: alone (a zero quaternion passes its test of every component within
+#: +-1.001)
+GRAPH_ONE_CAMERA = {2: (True, False), 6: (False, True)}
+#: the per-camera kernels: launches a frame for each camera admitted (the
+#: compact layout's birth table is a K4 launch a camera, too)
+_A_CAMERA = {"update_pass1": 1, "update_pass2": 1, "jv_solve": 1}
 
 
 def _differing_on_card(a, b) -> list:
@@ -980,43 +993,73 @@ def _busy_ms(fn):
     return sum(e.device_time_total for e in device) / 1e3, len(device)
 
 
+def _pattern_label(admitted) -> str:
+    return "".join("1" if a else "0" for a in admitted)
+
+
+def _pattern_frame(per_frame, admitted) -> dict:
+    """A path's launches a frame when only the cameras ``admitted`` run
+    (``per_frame`` is the frame of every camera)."""
+    skipped = len(admitted) - sum(admitted)
+    less = {**_A_CAMERA, "seg_scans": 1 if per_frame["seg_scans"] else 0}
+    return {k: v - skipped * less.get(k, 0) for k, v in per_frame.items()}
+
+
 def check_graph(name, cfg, state, device, smi) -> None:
-    """The ``graph`` phase for one single-camera path: from ``state`` (the
-    path's state after phase 4; neither step modifies it) the next
-    :data:`GRAPH_FRAMES` frames of its sequence through ``make_step`` and,
-    frame by frame, through ``make_graphed_step``, each step drawing from
-    its own of two equal generators as replay and the ROS bridges run it
-    (so on the same draws, and the graphed step's own draw path held), frame
-    :data:`GRAPH_REJECTED` a pose jump that admission control rejects and a
-    live setter before frame :data:`GRAPH_SETTER`.  Every state leaf and
+    """The ``graph`` phase for one path: from ``state`` (the path's state
+    after phase 4; neither step modifies it) the next :data:`GRAPH_FRAMES`
+    frames of its sequence through the eager step (``make_step`` or
+    ``make_multisensor_step``) and, frame by frame, through its graphed
+    form (``make_graphed_step`` or ``make_graphed_multisensor_step``), each
+    step drawing from its own of two equal generators as replay and the
+    ROS bridges run it (so on the same draws, and the graphed step's own
+    draw path held), frame :data:`GRAPH_REJECTED` a pose jump that admission
+    control rejects and a live setter before frame :data:`GRAPH_SETTER`; on
+    the two-camera paths the frames of :data:`GRAPH_ONE_CAMERA` admit one
+    camera each, camera 0 alone and camera 1 alone.  Every state leaf and
     every output must be bit-equal after each frame, the graphed step must
-    capture once (its warm-up run and its capture call each wrapper once a
-    frame's worth) and launch no kernel from the host during a replay.
-    Prints the frame medians of both steps over the accepted frames after
-    the capture, the capture's own ms, the host launches a graphed frame
-    and the card's busy ms in one profiled graphed frame; then frees the
-    graph."""
+    capture once a pattern of admitted cameras (one graph on a
+    single-camera path, three on a two-camera path; each capture's warm-up
+    run and capture call each wrapper once the pattern's frame's worth) and
+    launch no kernel from the host during a replay.  Prints the frame
+    medians of both steps over the frames of every camera after the first
+    capture, each capture's own ms and memory pool, the host launches a
+    graphed frame and the card's busy ms in one profiled graphed frame;
+    then frees the graphs."""
     import torch
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch import kernels
     from dspmap_tpu_torch.utils import sim
 
-    warm, timed, _, per_frame, _ = PATHS[name]
+    warm, timed, _, per_frame, n_sensors = PATHS[name]
     n = warm + timed + REPEAT_FRAMES
     frames = [dm.Frame(*f) for f in sim.generate_sequence(
         n + GRAPH_FRAMES, cfg, seed=0)][n:]
     jump = frames[GRAPH_REJECTED]
     frames[GRAPH_REJECTED] = jump._replace(
         sensor_pos=jump.sensor_pos + np.float32([12.0, 0.0, 0.0]))
+    if n_sensors is None:
+        eager, graphed = dm.make_step(cfg), dm.make_graphed_step(cfg)
+        patterns = [(True,)] * GRAPH_FRAMES
+    else:
+        eager = dm.make_multisensor_step(cfg, n_sensors)
+        graphed = dm.make_graphed_multisensor_step(cfg, n_sensors)
+        patterns = [GRAPH_ONE_CAMERA.get(k, (True,) * n_sensors)
+                    for k in range(GRAPH_FRAMES)]
+        skipped = np.full(4, np.nan, np.float32)
+        frames = [dm.stack_frames([f if ok else f._replace(quat=skipped)
+                                   for ok in admitted])
+                  for f, admitted in zip(frames, patterns)]
+
     def seeded():
         gen = torch.Generator(device=device)
         gen.manual_seed(GRAPH_SEED)
         return gen
 
-    eager, graphed = dm.make_step(cfg), dm.make_graphed_step(cfg)
     a = dataclasses.replace(state, gen=seeded())
     b = dataclasses.replace(state, gen=seeded())
     eager_ms, graphed_ms, host_launches = [], [], []
+    capture_call_ms = {}
     for k, frame in enumerate(frames):
         if k == GRAPH_SETTER:
             a = dm.set_detection_probability(a, 0.85)
@@ -1033,14 +1076,17 @@ def check_graph(name, cfg, state, device, smi) -> None:
         launched = dict(kernels.LAUNCHES)
         _require(out_a.accepted == (k != GRAPH_REJECTED),
                  f"graph_{name} frame {k}: accepted {out_a.accepted}")
-        if k == 0:
-            capture_call_ms = (t2 - t1) * 1e3
-            _pinned(f"graph_{name} capture", launched,
-                    {key: 2 * v for key, v in per_frame.items()})
+        label = _pattern_label(patterns[k])
+        if out_a.accepted and label not in capture_call_ms:
+            capture_call_ms[label] = (t2 - t1) * 1e3
+            _pinned(f"graph_{name} capture {label}", launched,
+                    {key: 2 * v for key, v in _pattern_frame(
+                        per_frame, patterns[k]).items()})
         elif out_a.accepted:
-            eager_ms.append((t1 - t0) * 1e3)
-            graphed_ms.append((t2 - t1) * 1e3)
             host_launches.append(sum(launched.values()))
+            if all(patterns[k]):
+                eager_ms.append((t1 - t0) * 1e3)
+                graphed_ms.append((t2 - t1) * 1e3)
         differ = _differing_on_card(a, b)
         if not torch.equal(a.gen.get_state(), b.gen.get_state()):
             differ.append("gen")
@@ -1050,24 +1096,33 @@ def check_graph(name, cfg, state, device, smi) -> None:
                       else [])
         _require(not out_differ, f"graph_{name} frame {k}: outputs differ: "
                  f"{out_differ}")
-    _require(graphed.captures == 1, f"graph_{name}: {graphed.captures} "
-             "captures")
+    want = 1 if n_sensors is None else len(set(GRAPH_ONE_CAMERA.values())) + 1
+    _require(graphed.captures == len(capture_call_ms) == want,
+             f"graph_{name}: {graphed.captures} captures, {want} patterns")
     _require(not any(host_launches), f"graph_{name}: host launches during "
              f"replays {host_launches}")
     # one more frame, profiled: the last frame again (dt = 0 is admitted)
     busy_ms, events = _busy_ms(lambda: graphed(b, frames[-1]))
-    capture_ms = graphed.capture_ms
+    by_label = lambda d: json.dumps({_pattern_label(p): v  # noqa: E731
+                                     for p, v in d.items()})
+    capture_ms, pool_bytes, kept_bytes = (by_label(graphed.capture_ms),
+                                          by_label(graphed.pool_bytes),
+                                          by_label(graphed.kept_bytes))
+    captures = graphed.captures
     graphed.release()
     del a, b, out_a, out_b, graphed
     torch.cuda.empty_cache()
     _say(f"graph_{name}", frames=GRAPH_FRAMES, rejected=1, setter=1,
+         one_camera_frames=0 if n_sensors is None else len(GRAPH_ONE_CAMERA),
          eager_frame_ms=statistics.median(eager_ms),
          graphed_frame_ms=statistics.median(graphed_ms),
          graphed_frame_ms_all=json.dumps([round(x, 3) for x in graphed_ms]),
-         capture_ms=capture_ms, capture_call_ms=capture_call_ms,
+         capture_ms=capture_ms,
+         capture_call_ms=json.dumps(capture_call_ms),
+         pool_bytes=pool_bytes, kept_bytes=kept_bytes,
          host_launches_per_graphed_frame=max(host_launches),
          device_busy_ms=busy_ms if events else "not measured",
-         device_events=events, captures=1, leaves_differing=0,
+         device_events=events, captures=captures, leaves_differing=0,
          outputs_differing=0, card=json.dumps(smi))
 
 
@@ -1689,8 +1744,7 @@ def main() -> int:
             _say(f"{name}_summary", median_frame_ms=frame_ms, alive=alive,
                  card=smi)
             check_repeat(name, c, state, device)
-            if PATHS[name][4] is None:  # the single-camera paths
-                check_graph(name, c, state, device, smi)
+            check_graph(name, c, state, device, smi)
             del state
         _say("tf32_flag", set_before_the_paths=True,
              after_the_paths=flag.allow_tf32)

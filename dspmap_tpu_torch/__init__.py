@@ -31,8 +31,11 @@ Quick start::
     occ, centers, future, state = dm.get_occupancy_map(state, cfg, 0.2)
 
 ``make_graphed_step`` is the counterpart of the JAX package's
-``jax.jit(make_step(cfg), donate_argnums=0)``; a CPU state takes
-``make_step(cfg)``, the same step run op by op.
+``jax.jit(make_step(cfg), donate_argnums=0)`` and
+``make_graphed_multisensor_step(cfg, n)`` of ``jax.jit(
+make_multisensor_step(cfg, n), donate_argnums=0)``; a CPU state takes
+``make_step(cfg)`` or ``make_multisensor_step(cfg, n)``, the same steps
+run op by op.
 """
 
 from .config import (  # noqa: F401
@@ -72,7 +75,10 @@ from .models.pipeline import (  # noqa: F401
     set_detection_probability,
     set_clutter_intensity,
 )
-from .models.graphed import make_graphed_step  # noqa: F401
+from .models.graphed import (  # noqa: F401
+    make_graphed_step,
+    make_graphed_multisensor_step,
+)
 from .parallel import (  # noqa: F401
     make_mesh,
     state_shardings,

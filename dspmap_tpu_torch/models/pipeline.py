@@ -27,7 +27,10 @@ one copy (``scalars.py``).  The body takes only tensors: every
 per-frame value it uses comes from the blocks, and every Python scalar it
 hands an operation comes from the configuration, so one CUDA graph can be
 captured over it and replayed a frame (``models/graphed.py``).  Nothing in
-the step reads a device value on the host.
+the step reads a device value on the host.  The multi-sensor step's
+prologue (:func:`multisensor_prologue`) also decides which cameras are
+admitted, and its body (:func:`make_multisensor_body`) is built for one
+pattern of admitted cameras: a graph a pattern.
 
 ``make_step(cfg, shard=ShardCtx(...))`` and ``make_multisensor_step(cfg,
 n, shard=ShardCtx(...))`` build the step of one rank of the sharded step
@@ -193,7 +196,8 @@ def make_draws(cfg: MapConfig, gen: torch.Generator, device, shard=None,
 
 
 def make_multisensor_draws(cfg: MapConfig, n_sensors: int,
-                           gen: torch.Generator, device, shard=None):
+                           gen: torch.Generator, device, shard=None,
+                           out=None):
     """The multi-sensor step's random draws from ``gen``, in this order:
     ``prop_noise`` (``[3, S, V]`` or ``[3, P]``; noisy configurations
     only, else ``None``), then for each sensor ``(fresh, noise_p, noise_v,
@@ -207,21 +211,38 @@ def make_multisensor_draws(cfg: MapConfig, n_sensors: int,
     are replicated -- drawn from ``gen`` in sensor order, the same on every
     rank -- and the pool-shaped normals are the rank's own, at the slab's
     shape (``[3, S, V/n]`` and ``[2, S, V/n]``; ``[3, P/n]`` and ``[2,
-    P/n]``), drawn in the same order from one :func:`rank_generator`."""
+    P/n]``), drawn in the same order from one :func:`rank_generator`.
+
+    ``out`` (no ``shard``) is a structure of tensors as this returns (the
+    graphed step's draw buffers) that the draws are written into and
+    returned in."""
+    if out is not None and shard is not None:
+        raise ValueError("draws into given buffers are unsharded")
     noisy = is_noisy(cfg)
     n = 1 if shard is None else shard.n_shards
     own = gen if shard is None or not noisy else rank_generator(gen,
                                                                 shard.rank)
-    prop = _pool_normal(cfg, 3, own, device, n) if noisy else None
+    prop_out, sensor_out = ((None, ((None,) * 5,) * n_sensors) if out is None
+                            else out)
+    prop = _pool_normal(cfg, 3, own, device, n, prop_out) if noisy else None
     return prop, tuple(
-        _sensor_draws(cfg, gen, device)
-        + ((_pool_normal(cfg, 2, own, device, n),) if noisy else ())
-        for _ in range(n_sensors))
+        _sensor_draws(cfg, gen, device, tuple(o[:4]))
+        + ((_pool_normal(cfg, 2, own, device, n, o[4]),) if noisy else ())
+        for o in sensor_out)
 
 
 def _on_device(draws, dev) -> tuple:
     return tuple(d.to(dev) if isinstance(d, torch.Tensor)
                  else to_device(d, torch.float32, dev) for d in draws)
+
+
+def _map_draws(fn, draws):
+    """``fn`` of each draw in a nest of tuples of draws (``None`` kept)."""
+    if draws is None:
+        return None
+    if isinstance(draws, (tuple, list)):
+        return tuple(_map_draws(fn, d) for d in draws)
+    return fn(draws)
 
 
 def _pose_check(state: MapState, sensor_pos, ts):
@@ -548,6 +569,157 @@ def _sensor_estimator(est: EstimatorState, i: int) -> EstimatorState:
                              for f in dataclasses.fields(EstimatorState)})
 
 
+class MultisensorPrologue(NamedTuple):
+    """The host half of a multi-sensor step: the frame's admission and
+    values (:class:`Prologue` of camera 0's pose and time), the cameras
+    admitted, and one block pair a camera, stacked (``None`` on a rejected
+    frame)."""
+
+    frame: Prologue
+    admitted: tuple  # bool, one a camera
+    f: np.ndarray | None  # f32 [n_sensors, N_F]
+    i: np.ndarray | None  # i32 [n_sensors, N_I]
+
+    @property
+    def accepted(self) -> bool:
+        return self.frame.accepted
+
+    def advance(self, state: MapState, **tensors) -> MapState:
+        """:meth:`Prologue.advance`: camera 0's pose and the frame's time."""
+        return self.frame.advance(state, **tensors)
+
+
+def multisensor_prologue(state: MapState, frames: Frame, cfg: MapConfig,
+                         n_sensors: int) -> MultisensorPrologue:
+    """The host prologue of :func:`make_multisensor_step`'s step.  The
+    frame is rejected on camera 0's pose jump or time step, or when no
+    camera has a valid quaternion; a camera with an invalid quaternion is
+    left out of ``admitted`` alone.  Every camera shares camera 0's
+    timestamp, time step, window origin and update time; its block pair
+    carries its own pose and point count."""
+    quats = np.asarray(frames.quat, np.float32)
+    poses = np.asarray(frames.sensor_pos, np.float32)
+    if quats.shape[0] != n_sensors:
+        raise ValueError(f"{quats.shape[0]} sensor frames for a step of "
+                         f"{n_sensors} sensors")
+    admitted = tuple(bool(geometry.quaternion_is_valid_np(q)) for q in quats)
+    ts = np.float32(np.asarray(frames.timestamp, np.float32)[0])
+    dt, jump_ok = _pose_check(state, poses[0], ts)
+    pro = Prologue(any(admitted) and jump_ok, dt, ts, poses[0].copy(),
+                   quats[0], geometry.window_origin_np(poses[0], cfg),
+                   np.float32(np.float32(state.update_time) + dt))
+    if not pro.accepted:
+        return MultisensorPrologue(pro, admitted, None, None)
+    n_points = np.asarray(frames.n_points)
+    blocks = [scalars.host_blocks(
+        cfg, dt=dt, update_time=pro.update_time, sensor_pos=poses[k],
+        quat=quats[k], params=state.params, origin=pro.origin,
+        n_points=n_points[k]) for k in range(n_sensors)]
+    return MultisensorPrologue(pro, admitted,
+                               np.stack([b[0] for b in blocks]),
+                               np.stack([b[1] for b in blocks]))
+
+
+def make_multisensor_body(cfg: MapConfig, n_sensors: int, admitted,
+                          shard=None):
+    """The device body of :func:`make_multisensor_step`'s step for one
+    pattern of admitted cameras (``admitted``, a bool a camera, static to
+    the body as a ``static_argnames`` is to ``jit``): ``body(particles,
+    future, estimator, fs, points, draws) -> BodyOut`` with ``estimator``
+    the ``[n_sensors]``-stacked tracks, ``fs`` the stacked
+    :class:`~.scalars.FrameScalars` (``[n_sensors, N_F]``, ``[n_sensors,
+    N_I]``), ``points`` ``[n_sensors, P, 3]`` and ``draws``
+    :func:`make_multisensor_draws`' tensors on the device.  It takes only
+    tensors, reads no device value on the host and modifies none of its
+    inputs; its metrics are the occupancy stage's and its cloud ``()``.
+
+    The stages are looked up in this module when the body runs, so a
+    caller that replaces one here (a teacher-forced check) reaches it.
+    The per-camera stages skip the counters the step discards
+    (``with_metrics=False``); the mover exchange and occupancy keep
+    theirs."""
+    compact = cfg.layout == "compact"
+    admitted = tuple(bool(a) for a in admitted)
+    if len(admitted) != n_sensors or not any(admitted):
+        raise ValueError(f"admitted {admitted} for {n_sensors} sensors: one "
+                         "flag a sensor, at least one set")
+
+    def body(particles, future_in, estimator, fs, points, draws) -> BodyOut:
+        dev = points.device
+        prop_noise, sensor_draws = draws
+        fss = [scalars.FrameScalars(fs.f[k], fs.i[k])
+               for k in range(n_sensors)]
+        fs0 = fss[0]
+        rt = fs0.params
+
+        p = particles
+        if compact:
+            p, sw = sweep_compact(_clamp_velocities(p, cfg), cfg, fs0.dt,
+                                  fs0.origin, fs0.sensor_pos, R=fs0.R,
+                                  noise=prop_noise, rt=rt)
+            if shard is None:
+                p, _, _ = rebin_compact(p, sw, cfg)
+            else:
+                p, _ = rebin_exchange_compact(p, sw, cfg, shard)
+        else:
+            p = propagate(p, cfg, prop_noise, fs0.dt, rt)
+            p, _ = rebin(p, cfg, fs0.origin, fs0.update_time, shard)
+
+        tracks = []
+        for i in range(n_sensors):
+            est = _sensor_estimator(estimator, i)
+            if not admitted[i]:  # skipped: its measurement stage is the identity
+                tracks.append(est)
+                continue
+            fs = fss[i]
+            fresh, noise_p, noise_v, noise_u, *fov_noise = sensor_draws[i]
+            fov_noise = fov_noise[0] if fov_noise else None
+            obs, expected_newborn = _observe(
+                points[i], fs.n_points, fs.sensor_pos, fs.quat, cfg, rt, dev)
+            est_out, est = estimate_velocities(
+                obs.cloud_world, obs.cloud_valid, est, cfg, fs.dt, fresh)
+            tracks.append(est)
+            if compact:
+                pyr, fov_mask = fov_geometry_compact(p, cfg, fs.sensor_pos,
+                                                     R=fs.R)
+                p, fovbin, _ = register_fov_compact(
+                    p, cfg, pyr, fov_mask, fs.sensor_pos, fov_noise, rt,
+                    with_metrics=False)
+            else:
+                p, fovbin, _ = register_fov(p, cfg, fs.sensor_pos,
+                                            noise=fov_noise, rt=rt,
+                                            with_metrics=False, R=fs.R)
+            p, norm_coeff, _ = measurement_update(
+                p, fovbin, obs, cfg, expected_newborn, fs.update_time, rt,
+                shard, with_metrics=False)
+            birth = particle_birth_compact if compact else particle_birth
+            p, _ = birth(
+                p, cfg, (noise_p, noise_v, noise_u),
+                est_points=est_out.points, est_vel=est_out.vel,
+                est_dynamic=est_out.dynamic, est_valid=est_out.valid,
+                norm_coeff=norm_coeff, origin=fs.origin,
+                update_time=fs.update_time, rt=rt, shard=shard,
+                with_metrics=False)
+
+        if compact:
+            p, weight_sum, vel_avg, future, occ_stats = occupancy_compact(
+                p, cfg, fs0.origin, future_in, shard)
+        else:
+            p, weight_sum, vel_avg, future, occ_stats = occupancy_and_resample(
+                p, cfg, fs0.origin, future_in, None, shard)
+        if shard is not None:
+            occ_stats = _sum_counters(occ_stats, shard)
+        # a fresh tensor a field, a skipped camera's track (a view of the
+        # input) copied too
+        estimator = EstimatorState(**{
+            f.name: torch.stack([getattr(e, f.name) for e in tracks])
+            for f in dataclasses.fields(EstimatorState)})
+        return BodyOut(p, weight_sum, vel_avg, future, estimator, occ_stats,
+                       ())
+
+    return body
+
+
 def make_multisensor_step(cfg: MapConfig, n_sensors: int, shard=None):
     """Build ``step(state, frames, draws=None) -> (state, StepOutput)`` for
     one map fed by ``n_sensors`` depth cameras (mirrors the JAX package's
@@ -564,13 +736,16 @@ def make_multisensor_step(cfg: MapConfig, n_sensors: int, shard=None):
     ``[n_sensors]`` axis (:func:`stack_frames`); all sensors share sensor
     0's timestamp.
 
-    Admission has two levels, decided on the host: the frame is rejected
-    (the state returned unchanged) on sensor 0's pose jump or time step,
-    or when no sensor has a valid quaternion; a sensor with an invalid
-    quaternion is skipped alone.  ``draws`` (see
+    The step is :func:`multisensor_prologue` on the host, the frame staged
+    in one copy, then :func:`make_multisensor_body`'s body for the admitted
+    pattern.  Admission has two levels, decided on the host: the frame is
+    rejected (the state returned unchanged) on sensor 0's pose jump or
+    time step, or when no sensor has a valid quaternion; a sensor with an
+    invalid quaternion is skipped alone.  ``draws`` (see
     :func:`make_multisensor_draws`) injects the random numbers; ``None``
-    draws them from ``state.gen``.  The metrics are the occupancy stage's
-    and ``estimator_cloud`` is ``()``.
+    draws them from ``state.gen``, every sensor's whether it is admitted
+    or not.  The metrics are the occupancy stage's and ``estimator_cloud``
+    is ``()``.
 
     ``shard`` (a :class:`~..ops.common.ShardCtx`) builds one rank's step of
     the sharded multi-sensor step (``parallel.make_shardmap_step(...,
@@ -588,116 +763,36 @@ def make_multisensor_step(cfg: MapConfig, n_sensors: int, shard=None):
     if shard is not None and not isinstance(shard, ShardCtx):
         raise TypeError(
             f"shard must be a ShardCtx, got {type(shard).__name__}")
-    compact = cfg.layout == "compact"
     layout = scalars.layout(cfg, n_sensors)
 
     def step(state: MapState, frames: Frame, draws=None):
         dev = state.device
-        quats = np.asarray(frames.quat, np.float32)
-        poses = np.asarray(frames.sensor_pos, np.float32)
-        if quats.shape[0] != n_sensors:
-            raise ValueError(f"{quats.shape[0]} sensor frames for a step of "
-                             f"{n_sensors} sensors")
-        q_ok = [bool(geometry.quaternion_is_valid_np(q)) for q in quats]
-        ts = np.float32(np.asarray(frames.timestamp, np.float32)[0])
-        dt, jump_ok = _pose_check(state, poses[0], ts)
-        if not (any(q_ok) and jump_ok):
-            names = MULTISENSOR_METRIC_NAMES + (
-                ("pool_overflow",) if compact else ())
-            return state, StepOutput(False, state.weight_sum, {
-                k: torch.zeros((), dtype=torch.int64, device=dev)
-                for k in names}, ())
-
+        pro = multisensor_prologue(state, frames, cfg, n_sensors)
+        if not pro.accepted:
+            return state, _rejected_multisensor(state, cfg)
         if draws is None:
             draws = make_multisensor_draws(cfg, n_sensors, state.gen, dev,
                                            shard)
-        prop_noise, sensor_draws = draws
-        if prop_noise is not None:
-            (prop_noise,) = _on_device((prop_noise,), dev)
-        origin = geometry.window_origin_np(poses[0], cfg)
-        update_time = np.float32(np.float32(state.update_time) + dt)
-        # one frame-block pair a sensor (its pose; the time step, origin
-        # and runtime parameters shared), staged with the clouds in one copy
-        blocks = [scalars.host_blocks(
-            cfg, dt=dt, update_time=update_time, sensor_pos=poses[k],
-            quat=quats[k], params=state.params, origin=origin,
-            n_points=np.asarray(frames.n_points)[k])
-            for k in range(n_sensors)]
-        f, iblk, points = scalars.stage(
-            layout, np.stack([b[0] for b in blocks]),
-            np.stack([b[1] for b in blocks]), frames.points, dev)
-        fss = [scalars.FrameScalars(f[k], iblk[k]) for k in range(n_sensors)]
-        fs0 = fss[0]
-        rt = fs0.params
-
-        p = state.particles
-        if compact:
-            p, sw = sweep_compact(_clamp_velocities(p, cfg), cfg, fs0.dt,
-                                  fs0.origin, fs0.sensor_pos, R=fs0.R,
-                                  noise=prop_noise, rt=rt)
-            if shard is None:
-                p, _, _ = rebin_compact(p, sw, cfg)
-            else:
-                p, _ = rebin_exchange_compact(p, sw, cfg, shard)
-        else:
-            p = propagate(p, cfg, prop_noise, fs0.dt, rt)
-            p, _ = rebin(p, cfg, fs0.origin, fs0.update_time, shard)
-
-        tracks = []
-        for i in range(n_sensors):
-            est = _sensor_estimator(state.estimator, i)
-            if not q_ok[i]:  # skipped: its measurement stage is the identity
-                tracks.append(est)
-                continue
-            fs = fss[i]
-            fresh, noise_p, noise_v, noise_u, *fov_noise = _on_device(
-                sensor_draws[i], dev)
-            fov_noise = fov_noise[0] if fov_noise else None
-            obs, expected_newborn = _observe(
-                points[i], fs.n_points, fs.sensor_pos, fs.quat, cfg, rt, dev)
-            est_out, est = estimate_velocities(
-                obs.cloud_world, obs.cloud_valid, est, cfg, fs.dt, fresh)
-            tracks.append(est)
-            if compact:
-                pyr, fov_mask = fov_geometry_compact(p, cfg, fs.sensor_pos,
-                                                     R=fs.R)
-                p, fovbin, _ = register_fov_compact(
-                    p, cfg, pyr, fov_mask, fs.sensor_pos, fov_noise, rt)
-            else:
-                p, fovbin, _ = register_fov(p, cfg, fs.sensor_pos,
-                                            noise=fov_noise, rt=rt, R=fs.R)
-            p, norm_coeff, _ = measurement_update(
-                p, fovbin, obs, cfg, expected_newborn, fs.update_time, rt,
-                shard)
-            birth = particle_birth_compact if compact else particle_birth
-            p, _ = birth(
-                p, cfg, (noise_p, noise_v, noise_u),
-                est_points=est_out.points, est_vel=est_out.vel,
-                est_dynamic=est_out.dynamic, est_valid=est_out.valid,
-                norm_coeff=norm_coeff, origin=fs.origin,
-                update_time=fs.update_time, rt=rt, shard=shard)
-
-        if compact:
-            p, weight_sum, vel_avg, future, occ_stats = occupancy_compact(
-                p, cfg, fs0.origin, state.future, shard)
-        else:
-            p, weight_sum, vel_avg, future, occ_stats = occupancy_and_resample(
-                p, cfg, fs0.origin, state.future, None, shard)
-        if shard is not None:
-            occ_stats = _sum_counters(occ_stats, shard)
-        estimator = EstimatorState(**{
-            f.name: torch.stack([getattr(e, f.name) for e in tracks])
-            for f in dataclasses.fields(EstimatorState)})
-        new_state = dataclasses.replace(
-            state, particles=p, weight_sum=weight_sum, vel_avg=vel_avg,
-            future=future, sensor_pos=poses[0].copy(),
-            last_sensor_pos=poses[0].copy(), origin=origin,
-            update_time=update_time, last_timestamp=ts,
-            update_counter=state.update_counter + 1, initialized=True,
-            estimator=estimator)
-        return new_state, StepOutput(True, weight_sum, occ_stats, ())
+        draws = _map_draws(lambda d: _on_device((d,), dev)[0], draws)
+        f, i, points = scalars.stage(layout, pro.f, pro.i, frames.points,
+                                     dev)
+        body = make_multisensor_body(cfg, n_sensors, pro.admitted, shard)
+        out = body(state.particles, state.future, state.estimator,
+                   scalars.FrameScalars(f, i), points, draws)
+        new_state = pro.advance(
+            state, particles=out.particles, weight_sum=out.weight_sum,
+            vel_avg=out.vel_avg, future=out.future, estimator=out.estimator)
+        return new_state, StepOutput(True, out.weight_sum, out.metrics, ())
 
     return step
+
+
+def _rejected_multisensor(state: MapState, cfg: MapConfig) -> StepOutput:
+    names = MULTISENSOR_METRIC_NAMES + (
+        ("pool_overflow",) if cfg.layout == "compact" else ())
+    return StepOutput(False, state.weight_sum, {
+        k: torch.zeros((), dtype=torch.int64, device=state.device)
+        for k in names}, ())
 
 
 def _rejected(state: MapState, cfg: MapConfig,

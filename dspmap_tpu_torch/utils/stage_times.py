@@ -2,12 +2,13 @@
 
 Run on a machine with a CUDA card, from the root of a checkout::
 
-    python3 -m dspmap_tpu_torch.utils.stage_times [flagship large_urban static multi noisy multisensor_2cam]
+    python3 -m dspmap_tpu_torch.utils.stage_times [flagship large_urban static multi noisy multisensor_2cam multisensor_compact]
 
-For each named path (default: all six, at full width, on the synthetic
-street sequence, seed 0; ``multisensor_2cam`` runs ``make_multisensor_step``
-with two cameras that share each frame's cloud and pose, as ``bench.py``'s
-two-camera cell does) it prints one JSON line with
+For each named path (default: all seven, at full width, on the synthetic
+street sequence, seed 0; ``multisensor_2cam`` and ``multisensor_compact``
+run ``make_multisensor_step`` with two cameras that share each frame's
+cloud and pose, as ``bench.py``'s two-camera cell does, on the flagship's
+and on large_urban's configuration) it prints one JSON line with
 
 * ``frame_ms``: median frame time of the step as users run it (host clock
   around a step that ends in one ``torch.cuda.synchronize()``), over two
@@ -70,6 +71,7 @@ def configs() -> dict:
         "noisy": example_node_settings(
             dsp_dynamic(limit_motion_to_xy_plane=False)),
         "multisensor_2cam": example_node_settings(dsp_dynamic()),
+        "multisensor_compact": large_urban(),
     }
 
 

@@ -1080,3 +1080,100 @@ def test_graphed_step_refuses_a_cpu_state_and_other_shapes(device):
     with pytest.raises(ValueError, match="captured"):
         step(small, frame)
     step.release()
+
+
+MS_GRAPH_CASES = {"pool": {}, "noisy": dict(limit_motion_to_xy_plane=False),
+                  "compact": dict(layout="compact")}
+
+
+def _two_cameras(frame, admitted=(True, True)):
+    """Two cameras from one camera's frame: camera 1 shifted 0.3 m, its
+    point count 11 less; a camera not ``admitted`` has a NaN quaternion,
+    which admission skips alone."""
+    cam1 = frame._replace(n_points=int(frame.n_points) - 11,
+                          sensor_pos=frame.sensor_pos
+                          + np.float32([0.3, -0.2, 0.0]))
+    cams = [c if ok else c._replace(quat=np.full(4, np.nan, np.float32))
+            for c, ok in zip((frame, cam1), admitted)]
+    return T.stack_frames(cams)
+
+
+#: the six frames of the graphed multi-sensor test: (admitted pattern,
+#: camera 0 jumped 12 m); frame 4 follows a live setter
+MS_GRAPH_FRAMES = (((True, True), False), ((True, False), False),
+                   ((True, True), True), ((True, True), False),
+                   ((False, True), False), ((True, False), False))
+
+
+@pytest.mark.parametrize("given_draws", [True, False],
+                         ids=["draws_given", "draws_from_gen"])
+@pytest.mark.parametrize("case", sorted(MS_GRAPH_CASES))
+def test_graphed_multisensor_step_bit_equal_to_eager(device, case,
+                                                     given_draws):
+    """``make_graphed_multisensor_step`` against ``make_multisensor_step``
+    on six two-camera frames from the same state with the same draws --
+    handed in, or drawn by each step from its own of two equal generators
+    -- with every pattern of admitted cameras among them, a rejected frame
+    (camera 0 jumped 12 m) and a live setter: every state leaf, the
+    generators and every output bit for bit after each frame, one capture
+    a pattern seen, and no kernel launched from the host when a frame
+    replays a pattern's graph."""
+    cfg = _cfg(**MS_GRAPH_CASES[case])
+    frames = [T.Frame(*f) for f in sim.generate_sequence(9, cfg, seed=0)]
+    eager = T.make_multisensor_step(cfg, 2)
+    graphed = T.make_graphed_multisensor_step(cfg, 2)
+    state = T.init_multisensor_state(cfg, 2)
+    for f in frames[:3]:
+        state, _ = eager(state, _two_cameras(f))
+    g = _seeded(4, device)
+    draws = ([T.make_multisensor_draws(cfg, 2, g, device) for _ in frames[3:]]
+             if given_draws else [None] * 6)
+    a = dataclasses.replace(state, gen=_seeded(5, device))
+    b = dataclasses.replace(state, gen=_seeded(5, device))
+    seen = set()
+    for k, (f, d, (admitted, jump)) in enumerate(zip(frames[3:], draws,
+                                                     MS_GRAPH_FRAMES)):
+        if jump:
+            f = f._replace(sensor_pos=f.sensor_pos + np.float32([12, 0, 0]))
+        f = _two_cameras(f, admitted)
+        if k == 4:
+            a = T.set_detection_probability(a, 0.85)
+            b = T.set_detection_probability(b, 0.85)
+        a, out_a = eager(a, f, d)
+        n0 = dict(kernels.LAUNCHES)
+        b, out_b = graphed(b, f, d)
+        assert out_a.accepted == (not jump)
+        if out_a.accepted:
+            if admitted in seen:  # a pattern's later frame is one replay
+                assert kernels.LAUNCHES == n0
+            seen.add(admitted)
+            _outputs_bit_equal(out_a, out_b)
+        _bit_equal_states(a, b)
+        assert torch.equal(a.gen.get_state(), b.gen.get_state())
+    assert len(seen) == 3 and graphed.captures == 3
+    assert set(graphed.capture_ms) == set(graphed.pool_bytes) == seen
+    assert int(out_b.metrics["alive"]) > 0
+    graphed.release()
+
+
+def test_graphed_multisensor_step_refuses_a_cpu_state_and_other_shapes(
+        device):
+    cfg = _cfg()
+    frame = T.Frame(*next(sim.generate_sequence(1, cfg, seed=0)))
+    step = T.make_graphed_multisensor_step(cfg, 2)
+    with pytest.raises(ValueError, match="CUDA card"):
+        step(T.init_multisensor_state(cfg, 2, device="cpu"),
+             _two_cameras(frame))
+    with pytest.raises(ValueError, match="sensor frames"):
+        step(T.init_multisensor_state(cfg, 2),
+             T.stack_frames([frame] * 3))
+    with pytest.raises(ValueError, match="leading"):
+        step(T.init_state(cfg), _two_cameras(frame))
+    assert step.captures == 0
+    step(T.init_multisensor_state(cfg, 2), _two_cameras(frame))
+    assert step.captures == 1
+    small = T.init_multisensor_state(cfg, 2)
+    small = dataclasses.replace(small, future=small.future[:, :-8])
+    with pytest.raises(ValueError, match="captured"):
+        step(small, _two_cameras(frame))
+    step.release()
