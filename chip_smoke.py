@@ -58,7 +58,8 @@ Phases (each prints one line; any failure raises and exits nonzero):
    four more frames twice over with the same draws, every leaf of the two
    states and every output bit-equal; then ``graph``
    (:func:`check_graph`): eight more frames through the eager step and
-   through its graphed form on the same draws -- ``make_graphed_step`` on
+   through its graphed form on the same draws, by
+   ``dspmap_tpu_torch/utils/graph_ritual.py`` -- ``make_graphed_step`` on
    the six single-camera paths (one CUDA graph), and
    ``make_graphed_multisensor_step`` on the two two-camera paths (one
    graph a pattern of admitted cameras: a frame of camera 0 alone and one
@@ -77,7 +78,8 @@ Phases (each prints one line; any failure raises and exits nonzero):
    run without a break), and loaded on the CPU; the particle CSV of a card state against the CPU's; a
    ``torch.profiler`` trace of two flagship frames and its summary.  Each
    sub-path pins its kernel launches as phase 4 does;
-8. ``sharded`` (see :func:`check_sharded`): the sharded step of
+8. ``sharded`` (see :func:`check_sharded`; its ranks start, and wait off
+   the card, while the kernels build): the sharded step of
    ``dspmap_tpu_torch.parallel`` in two ranks that share the card (gloo:
    NCCL takes one rank a card) on the flagship with the ``all_gather``
    mover exchange and on large_urban with the ``ring`` exchange, six
@@ -90,7 +92,15 @@ Phases (each prints one line; any failure raises and exits nonzero):
    gathered states bit-equal, the gathered state held to the
    unsharded card step of as many cameras on the same frames and draws by
    phase 5's bars (large_urban at its own budgets, which the whole map
-   overflows, by what per-rank budgets imply: see :data:`SHARDED`).
+   overflows, by what per-rank budgets imply: see :data:`SHARDED`); every
+   gloo path handed to the graphed sharded constructor, which must refuse it;
+   then ``sharded_graph`` (:func:`_sharded_graph`) in the one-rank NCCL
+   group: ``make_graphed_shardmap_step`` against ``make_shardmap_step`` on
+   the flagship and on the two-camera flagship by
+   ``dspmap_tpu_torch/utils/shard_probe.py``'s ritual (eight frames in
+   turns on the same draws, a rejected frame, a setter and the
+   one-camera frames), every leaf and output bit-equal, one capture a
+   pattern with its launches pinned, none from the host in a replay.
 
 The second-to-last line is a JSON object with every kernel's measurements,
 the last ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -99,6 +109,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -112,7 +123,13 @@ import time
 import numpy as np
 
 
+#: the host clock when the script started (each line ends with its
+#: seconds since then, ``at_s``)
+_STARTED = time.perf_counter()
+
+
 def _say(phase: str, **kv) -> None:
+    kv["at_s"] = round(time.perf_counter() - _STARTED, 1)
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
 
@@ -656,23 +673,61 @@ def check_segscan(cfg, device):
 
 
 #: the JV solve's phase-3 instances: tie-heavy costs at the flagship's
-#: N = max_clusters = 16, n_rows cycling through 0..16; every
-#: JV_ON_CARD-th also solved by the plain version on the card
-JV_INSTANCES, JV_ON_CARD = 500, 25
+#: N = max_clusters = 16 from a generator of seed JV_SEED, n_rows cycling
+#: through 0..16; every JV_ON_CARD-th also solved by the plain version on
+#: the card; the plain version on the CPU runs in JV_WORKERS processes
+#: while the kernels build
+JV_INSTANCES, JV_ON_CARD, JV_SEED, JV_WORKERS = 500, 25, 16, 4
 #: float operations a JV path step takes per column (two subtracts, an
 #: add, the compare and the argmin's compare) and a row per used column
 #: (the two potential updates)
 JV_FLOPS_PER_COLUMN_STEP, JV_FLOPS_PER_USED = 5, 2
 
 
-def check_jv(cfg, device):
+def _jv_plain_share(n, r, part):
+    """``_jv_plain`` on the CPU of :func:`check_jv`'s instances ``part``,
+    ``part + JV_WORKERS``, ...: ``{k: p as numpy}`` (run in a worker
+    process of its own)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dspmap_tpu_torch.ops import assignment
+    from dspmap_tpu_torch.utils.kernel_times import jv_case
+
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(JV_SEED)
+    out = {}
+    for k in range(JV_INSTANCES):
+        a = jv_case(n, rng)
+        if k % JV_WORKERS == part:
+            out[k] = assignment._jv_plain(
+                torch.from_numpy(a), torch.tensor(k % (r + 1)), r).numpy()
+    return out
+
+
+def start_jv_plain(cfg):
+    """Start :func:`_jv_plain_share` in :data:`JV_WORKERS` processes for
+    :func:`check_jv` at ``cfg``'s ``N = max_clusters``.  Returns the pool
+    (the caller shuts it down) and the futures."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        JV_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    n = cfg.max_clusters
+    return pool, [pool.submit(_jv_plain_share, n, n, part)
+                  for part in range(JV_WORKERS)]
+
+
+def check_jv(cfg, device, on_cpu):
     """Phase 3, the JV solve (``jv_solve``) at the flagship's ``N =
     max_clusters``: the kernel's ``p`` bit-equal to ``_jv_plain``'s on
     :data:`JV_INSTANCES` tie-heavy costs (the plain version on the CPU,
-    whose adds, subtracts, compares and argmin give the card's bits, and
-    on the card for every :data:`JV_ON_CARD`-th).  Timed on one instance
-    with every row augmented; its bound counts the path steps that
-    instance takes (``kernel_times.jv_numpy``).  Returns ``{kernel name:
+    whose adds, subtracts, compares and argmin give the card's bits --
+    ``on_cpu``, by instance, from :func:`start_jv_plain` -- and on the card
+    for every :data:`JV_ON_CARD`-th).  Timed on one instance with every
+    row augmented; its bound counts the path steps that instance takes
+    (``kernel_times.jv_numpy``).  Returns ``{kernel name:
     measurements}``."""
     import torch
     from dspmap_tpu_torch import kernels
@@ -680,15 +735,14 @@ def check_jv(cfg, device):
     from dspmap_tpu_torch.utils.kernel_times import jv_case, jv_numpy
 
     N = R = cfg.max_clusters
-    rng = np.random.default_rng(16)
+    rng = np.random.default_rng(JV_SEED)
     equal = on_card = 0
     for k in range(JV_INSTANCES):
         a_np = jv_case(N, rng)
         a = torch.from_numpy(a_np).to(device)
         n_rows = torch.tensor(k % (R + 1), dtype=torch.int64, device=device)
         got = assignment.jv_solve_cuda(a, n_rows, R).cpu()
-        equal += torch.equal(got, assignment._jv_plain(
-            torch.from_numpy(a_np), n_rows.cpu(), R))
+        equal += torch.equal(got, torch.from_numpy(on_cpu[k]))
         if k % JV_ON_CARD == 0:
             on_card += torch.equal(got, assignment._jv_plain(
                 a, n_rows, R).cpu())
@@ -873,23 +927,6 @@ def run_path(name, cfg, device):
 REPEAT_FRAMES, REPEAT_SEED = 4, 1
 
 
-def _outputs_differing(a, b) -> list:
-    """The fields of two ``StepOutput``s that differ by bits."""
-    def fields(out):
-        got = {"accepted": np.asarray(out.accepted),
-               "weight_sum": out.weight_sum.cpu().numpy()}
-        got.update({f"metrics.{k}": v.cpu().numpy()
-                    for k, v in out.metrics.items()})
-        got.update({f"estimator_cloud.{i}": v.cpu().numpy()
-                    for i, v in enumerate(out.estimator_cloud)})
-        return got
-
-    x, y = fields(a), fields(b)
-    return sorted(k for k in x.keys() | y.keys()
-                  if k not in x or k not in y or x[k].dtype != y[k].dtype
-                  or x[k].tobytes() != y[k].tobytes())
-
-
 def check_repeat(name, cfg, state, device) -> None:
     """The ``repeat`` phase for one path: from ``state`` (the path's state
     after phase 4), the next :data:`REPEAT_FRAMES` frames of its sequence
@@ -901,7 +938,8 @@ def check_repeat(name, cfg, state, device) -> None:
     import torch
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch.utils import sim
-    from dspmap_tpu_torch.utils.parity import differing_leaves, leaves
+    from dspmap_tpu_torch.utils.parity import (differing_leaves,
+                                               differing_outputs, leaves)
 
     warm, timed, _, _, n_sensors = PATHS[name]
     n = warm + timed
@@ -931,7 +969,7 @@ def check_repeat(name, cfg, state, device) -> None:
     (a, outs_a), (b, outs_b) = runs
     differ = differing_leaves(a, b)
     out_differ = sorted({k for x, y in zip(outs_a, outs_b)
-                         for k in _outputs_differing(x, y)})
+                         for k in differing_outputs(x, y)})
     _say(f"repeat_{name}", frames=REPEAT_FRAMES, runs=2,
          leaves=len(leaves(a)), leaves_differing=json.dumps(differ),
          outputs_differing=json.dumps(out_differ),
@@ -940,61 +978,9 @@ def check_repeat(name, cfg, state, device) -> None:
     _require(not out_differ, f"repeat_{name}: outputs differ: {out_differ}")
 
 
-#: the ``graph`` phase: frames a path, the one rejected (a pose jump of
-#: 12 m, camera 0's on the two-camera paths), the one before which a live
-#: setter changes ``p_detection``, and the seed of the frames' draws
-GRAPH_FRAMES, GRAPH_REJECTED, GRAPH_SETTER, GRAPH_SEED = 8, 3, 5, 2
-#: the two-camera paths' frames of one camera: frame -> the cameras
-#: admitted; the other camera's quaternion is NaN, which admission skips
-#: alone (a zero quaternion passes its test of every component within
-#: +-1.001)
-GRAPH_ONE_CAMERA = {2: (True, False), 6: (False, True)}
 #: the per-camera kernels: launches a frame for each camera admitted (the
 #: compact layout's birth table is a K4 launch a camera, too)
 _A_CAMERA = {"update_pass1": 1, "update_pass2": 1, "jv_solve": 1}
-
-
-def _differing_on_card(a, b) -> list:
-    """The leaves of two states that differ: tensors by their bits, compared
-    on the card; the host copies of pose and time and the runtime
-    parameters on the host."""
-    import torch
-    from dspmap_tpu_torch.state import HOST_LEAVES, tensor_leaves
-
-    def bits(x):
-        return x.view(torch.int32) if x.dtype == torch.float32 else x
-
-    x, y = tensor_leaves(a), tensor_leaves(b)
-    differ = [k for k in x if x[k].shape != y[k].shape
-              or x[k].dtype != y[k].dtype
-              or not torch.equal(bits(x[k]), bits(y[k]))]
-    for k in HOST_LEAVES:
-        if np.asarray(getattr(a, k)).tobytes() != np.asarray(
-                getattr(b, k)).tobytes():
-            differ.append(k)
-    if a.params != b.params:
-        differ.append("params")
-    return differ
-
-
-def _busy_ms(fn):
-    """``(ms, events)``: the card's busy time in one call of ``fn`` (the sum
-    of the profiler's device events) and the number of those events."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.device_time_total for e in device) / 1e3, len(device)
-
-
-def _pattern_label(admitted) -> str:
-    return "".join("1" if a else "0" for a in admitted)
 
 
 def _pattern_frame(per_frame, admitted) -> dict:
@@ -1007,123 +993,79 @@ def _pattern_frame(per_frame, admitted) -> dict:
 
 def check_graph(name, cfg, state, device, smi) -> None:
     """The ``graph`` phase for one path: from ``state`` (the path's state
-    after phase 4; neither step modifies it) the next :data:`GRAPH_FRAMES`
+    after phase 4; neither step modifies it) the next ``graph_ritual.FRAMES``
     frames of its sequence through the eager step (``make_step`` or
-    ``make_multisensor_step``) and, frame by frame, through its graphed
-    form (``make_graphed_step`` or ``make_graphed_multisensor_step``), each
-    step drawing from its own of two equal generators as replay and the
-    ROS bridges run it (so on the same draws, and the graphed step's own
-    draw path held), frame :data:`GRAPH_REJECTED` a pose jump that admission
-    control rejects and a live setter before frame :data:`GRAPH_SETTER`; on
-    the two-camera paths the frames of :data:`GRAPH_ONE_CAMERA` admit one
-    camera each, camera 0 alone and camera 1 alone.  Every state leaf and
-    every output must be bit-equal after each frame, the graphed step must
-    capture once a pattern of admitted cameras (one graph on a
-    single-camera path, three on a two-camera path; each capture's warm-up
-    run and capture call each wrapper once the pattern's frame's worth) and
-    launch no kernel from the host during a replay.  Prints the frame
-    medians of both steps over the frames of every camera after the first
-    capture, each capture's own ms and memory pool, the host launches a
-    graphed frame and the card's busy ms in one profiled graphed frame;
-    then frees the graphs."""
+    ``make_multisensor_step``) and its graphed form (``make_graphed_step``
+    or ``make_graphed_multisensor_step``) in turns by
+    ``dspmap_tpu_torch/utils/graph_ritual.py``'s ``in_turns``, each step
+    drawing from its own of two equal generators as replay and the ROS
+    bridges run it (so on the same draws, and the graphed step's own draw
+    path held): a pose jump that admission control rejects, a live setter,
+    on the two-camera paths a frame of camera 0 alone and one of camera 1
+    alone.  Every state leaf and every output must be bit-equal after each
+    frame, the graphed step must capture once a pattern of admitted cameras
+    (one graph on a single-camera path, three on a two-camera path; each
+    capture's warm-up run and capture call each wrapper once the pattern's
+    frame's worth) and launch no kernel from the host during a replay.
+    Prints the frame medians of both steps over the frames of every camera
+    after the first capture, each capture's own ms and memory pool, the
+    host launches a graphed frame and the card's busy ms in one profiled
+    graphed frame; then frees the graphs."""
     import torch
     import dspmap_tpu_torch as dm
-    from dspmap_tpu_torch import kernels
+    from dspmap_tpu_torch.utils import graph_ritual as gr
     from dspmap_tpu_torch.utils import sim
 
     warm, timed, _, per_frame, n_sensors = PATHS[name]
     n = warm + timed + REPEAT_FRAMES
-    frames = [dm.Frame(*f) for f in sim.generate_sequence(
-        n + GRAPH_FRAMES, cfg, seed=0)][n:]
-    jump = frames[GRAPH_REJECTED]
-    frames[GRAPH_REJECTED] = jump._replace(
-        sensor_pos=jump.sensor_pos + np.float32([12.0, 0.0, 0.0]))
+    frames, patterns = gr.ritual_frames(
+        [dm.Frame(*f) for f in sim.generate_sequence(
+            n + gr.FRAMES, cfg, seed=0)][n:], n_sensors)
     if n_sensors is None:
         eager, graphed = dm.make_step(cfg), dm.make_graphed_step(cfg)
-        patterns = [(True,)] * GRAPH_FRAMES
     else:
         eager = dm.make_multisensor_step(cfg, n_sensors)
         graphed = dm.make_graphed_multisensor_step(cfg, n_sensors)
-        patterns = [GRAPH_ONE_CAMERA.get(k, (True,) * n_sensors)
-                    for k in range(GRAPH_FRAMES)]
-        skipped = np.full(4, np.nan, np.float32)
-        frames = [dm.stack_frames([f if ok else f._replace(quat=skipped)
-                                   for ok in admitted])
-                  for f, admitted in zip(frames, patterns)]
 
     def seeded():
         gen = torch.Generator(device=device)
-        gen.manual_seed(GRAPH_SEED)
+        gen.manual_seed(gr.SEED)
         return gen
 
-    a = dataclasses.replace(state, gen=seeded())
-    b = dataclasses.replace(state, gen=seeded())
-    eager_ms, graphed_ms, host_launches = [], [], []
-    capture_call_ms = {}
-    for k, frame in enumerate(frames):
-        if k == GRAPH_SETTER:
-            a = dm.set_detection_probability(a, 0.85)
-            b = dm.set_detection_probability(b, 0.85)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        a, out_a = eager(a, frame)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        kernels.reset_launch_counts()
-        b, out_b = graphed(b, frame)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        launched = dict(kernels.LAUNCHES)
-        _require(out_a.accepted == (k != GRAPH_REJECTED),
-                 f"graph_{name} frame {k}: accepted {out_a.accepted}")
-        label = _pattern_label(patterns[k])
-        if out_a.accepted and label not in capture_call_ms:
-            capture_call_ms[label] = (t2 - t1) * 1e3
-            _pinned(f"graph_{name} capture {label}", launched,
-                    {key: 2 * v for key, v in _pattern_frame(
-                        per_frame, patterns[k]).items()})
-        elif out_a.accepted:
-            host_launches.append(sum(launched.values()))
-            if all(patterns[k]):
-                eager_ms.append((t1 - t0) * 1e3)
-                graphed_ms.append((t2 - t1) * 1e3)
-        differ = _differing_on_card(a, b)
-        if not torch.equal(a.gen.get_state(), b.gen.get_state()):
-            differ.append("gen")
-        _require(not differ, f"graph_{name} frame {k}: leaves differ: "
-                 f"{differ}")
-        out_differ = (_outputs_differing(out_a, out_b) if out_a.accepted
-                      else [])
-        _require(not out_differ, f"graph_{name} frame {k}: outputs differ: "
-                 f"{out_differ}")
-    want = 1 if n_sensors is None else len(set(GRAPH_ONE_CAMERA.values())) + 1
-    _require(graphed.captures == len(capture_call_ms) == want,
-             f"graph_{name}: {graphed.captures} captures, {want} patterns")
-    _require(not any(host_launches), f"graph_{name}: host launches during "
-             f"replays {host_launches}")
+    turns = gr.in_turns(eager, graphed,
+                        dataclasses.replace(state, gen=seeded()),
+                        dataclasses.replace(state, gen=seeded()),
+                        frames, patterns)
+    _require(not turns.failed, f"graph_{name}: {turns.failed}")
+    for label, launched in turns.capture_launches.items():
+        _pinned(f"graph_{name} capture {label}", launched,
+                {key: 2 * v for key, v in _pattern_frame(
+                    per_frame, tuple(c == "1" for c in label)).items()})
     # one more frame, profiled: the last frame again (dt = 0 is admitted)
-    busy_ms, events = _busy_ms(lambda: graphed(b, frames[-1]))
-    by_label = lambda d: json.dumps({_pattern_label(p): v  # noqa: E731
+    busy = gr.busy(lambda: graphed(turns.b, frames[-1]))
+    by_label = lambda d: json.dumps({gr.pattern_label(p): v  # noqa: E731
                                      for p, v in d.items()})
     capture_ms, pool_bytes, kept_bytes = (by_label(graphed.capture_ms),
                                           by_label(graphed.pool_bytes),
                                           by_label(graphed.kept_bytes))
     captures = graphed.captures
     graphed.release()
-    del a, b, out_a, out_b, graphed
+    turns.a = turns.b = turns.out_a = turns.out_b = graphed = None
     torch.cuda.empty_cache()
-    _say(f"graph_{name}", frames=GRAPH_FRAMES, rejected=1, setter=1,
-         one_camera_frames=0 if n_sensors is None else len(GRAPH_ONE_CAMERA),
-         eager_frame_ms=statistics.median(eager_ms),
-         graphed_frame_ms=statistics.median(graphed_ms),
-         graphed_frame_ms_all=json.dumps([round(x, 3) for x in graphed_ms]),
+    _say(f"graph_{name}", frames=gr.FRAMES, rejected=1, setter=1,
+         one_camera_frames=0 if n_sensors is None else len(gr.ONE_CAMERA),
+         eager_frame_ms=statistics.median(turns.eager_ms),
+         graphed_frame_ms=statistics.median(turns.graphed_ms),
+         graphed_frame_ms_all=json.dumps([round(x, 3)
+                                          for x in turns.graphed_ms]),
          capture_ms=capture_ms,
-         capture_call_ms=json.dumps(capture_call_ms),
+         capture_call_ms=json.dumps(turns.capture_call_ms),
          pool_bytes=pool_bytes, kept_bytes=kept_bytes,
-         host_launches_per_graphed_frame=max(host_launches),
-         device_busy_ms=busy_ms if events else "not measured",
-         device_events=events, captures=captures, leaves_differing=0,
-         outputs_differing=0, card=json.dumps(smi))
+         host_launches_per_graphed_frame=max(turns.replay_launches),
+         device_busy_ms=(busy["device_busy_ms"] if busy["device_events"]
+                         else "not measured"),
+         device_events=busy["device_events"], captures=captures,
+         leaves_differing=0, outputs_differing=0, card=json.dumps(smi))
 
 
 def _pinned(name, launches, want) -> None:
@@ -1378,6 +1320,13 @@ SHARDED_WATCHED = 1
 #: the sharded paths run a second time from a fresh state, their gathered
 #: states bit-equal to the first run's
 SHARDED_REPEATED = ("sharded_flagship",)
+#: seconds a rank waits for phase 8 to start before it gives up
+SHARDED_WAIT_S = 900
+#: the ``sharded_graph`` phase: (label, path whose configuration and launches
+#: a frame) of the graphed sharded step at one NCCL rank, held to the eager
+#: one by ``utils/shard_probe.py``'s ritual
+SHARDED_GRAPH = (("sharded_graph_flagship_nccl", "flagship"),
+                 ("sharded_graph_multisensor_2cam_nccl", "multisensor_2cam"))
 
 
 def path_configs():
@@ -1397,44 +1346,6 @@ def path_configs():
     }
 
 
-def _sharded_agreement(cfg, whole, out, ref, ref_out) -> dict:
-    """Phase 8's measures of the gathered sharded state against the
-    unsharded step's, as phase 5's ``agreement`` takes them -- except
-    the compact layout's ``flags_equal``: its rows are arranged by slab
-    in the one and by cell in the other, so it is the share of the
-    unsharded population that the sharded one places in the same voxels
-    (one minus the summed per-voxel count differences over the unsharded
-    alive count)."""
-    from dspmap_tpu_torch.utils.parity import agreement, placed_alike
-
-    ref = ref.to("cpu")  # agreement's second state lies on the CPU
-    m = agreement((whole, out), (ref, ref_out))
-    if cfg.layout == "compact":
-        m["flags_equal"] = placed_alike(whole.particles, ref.particles, cfg)
-    m["alive_unsharded"] = m.pop("alive_cpu")
-    m["alive_sharded"] = m.pop("alive_card")
-    return m
-
-
-def _replicated_digests(state, out) -> dict:
-    """A digest of each replicated leaf of a rank's state (the estimator
-    tracks, the host scalars and runtime parameters), of its generator's
-    state and of each metric, by name."""
-    import hashlib
-
-    import dspmap_tpu_torch as dm
-    from dspmap_tpu_torch.utils.parity import leaves
-
-    axes = dm.state_shardings(state)
-    mine = {k: v for k, v in leaves(state).items() if axes.get(k) is None}
-    mine["gen"] = state.gen.get_state().numpy()
-    mine.update({f"metrics.{k}": v.cpu().numpy()
-                 for k, v in out.metrics.items()})
-    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()
-                              + str(v.dtype).encode()).hexdigest()
-            for k, v in mine.items()}
-
-
 def _sharded_path(label, cfg, mesh, n_frames, per_frame, n_sensors, bars,
                   device):
     """One path of phase 8 in this rank: the sharded step (of ``n_sensors``
@@ -1449,7 +1360,10 @@ def _sharded_path(label, cfg, mesh, n_frames, per_frame, n_sensors, bars,
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch import kernels
     from dspmap_tpu_torch.utils import sim
-    from dspmap_tpu_torch.utils.parity import differing_leaves
+    from dspmap_tpu_torch.utils.parity import differing_leaves, missed_bars
+    from dspmap_tpu_torch.utils.shard_probe import (replicated_digests,
+                                                    sharded_agreement,
+                                                    sharded_bars)
 
     step = dm.make_shardmap_step(cfg, mesh, device=device,
                                  n_sensors=n_sensors)
@@ -1487,7 +1401,7 @@ def _sharded_path(label, cfg, mesh, n_frames, per_frame, n_sensors, bars,
     # gloo stages a CUDA collective through the host on threads of its own,
     # which print their syncs and are not flagged here
     _require(not syncs, f"{label}: host syncs in rank 0's step: {syncs}")
-    mine = _replicated_digests(state, out)
+    mine = replicated_digests(state, out)
     every = [mine]
     if mesh.size > 1:
         every = [None] * mesh.size
@@ -1511,7 +1425,7 @@ def _sharded_path(label, cfg, mesh, n_frames, per_frame, n_sensors, bars,
         ref = fresh()
         for frame in frames:
             ref, ref_out = ustep(ref, frame)
-        m = _sharded_agreement(cfg, whole, out, ref, ref_out)
+        m = sharded_agreement(cfg, whole, out, ref, ref_out)
         w0, w1 = float(ref.weight_sum.sum()), float(whole.weight_sum.sum())
         m.update(weight_total_unsharded=w0, weight_total_sharded=w1,
                  **{f"{k}_sharded_unsharded": [int(out.metrics[k]),
@@ -1525,30 +1439,72 @@ def _sharded_path(label, cfg, mesh, n_frames, per_frame, n_sensors, bars,
                 got, want = m[f"{k}_sharded_unsharded"]
                 _require(got <= want, f"{label} {k} {m}")
         else:
-            flag_bar = 0.995 if cfg.layout == "compact" else 0.999
-            _require(m["flags_equal"] >= flag_bar, f"{label} flags {m}")
-            _require(m["alive_rel"] <= 0.005, f"{label} alive {m}")
-            _require(m["weight_sum_close"] >= 0.999,
-                     f"{label} weight_sum {m}")
-            _require(m["future_close"] >= 0.999, f"{label} future grid {m}")
+            missed = missed_bars(m, sharded_bars(cfg))
+            _require(not missed, f"{label} missed the bars of {missed}: {m}")
         rec.update(agreement=m, host_syncs_in_watched_frame=len(syncs),
                    replicated_compared=len(mine), replicated_differing=differ)
     return rec
+
+
+def _graphed_refusal(cfg, mesh, device, n_sensors):
+    """The message with which the graphed sharded constructor refuses ``mesh``
+    (a gloo group), or ``None`` if it builds."""
+    from dspmap_tpu_torch.parallel import make_graphed_shardmap_step
+
+    try:
+        make_graphed_shardmap_step(cfg, mesh, device=device,
+                                   n_sensors=n_sensors)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _sharded_graph(mesh, device, configs) -> dict:
+    """The ``sharded_graph`` phase in rank 0 of the one-rank NCCL group:
+    each path of :data:`SHARDED_GRAPH` through
+    ``shard_probe.ritual``'s light form (the eager and the graphed sharded
+    step in turns on the same draws, a rejected frame, a setter, on the
+    two-camera path a frame of each camera alone; bit for bit, no host
+    launch in a replay, one capture a pattern),
+    each capture's launches pinned at two of its pattern's frames' worth
+    (the warm-up run and the capture).  Returns the records by label."""
+    from dspmap_tpu_torch.utils.shard_probe import ritual
+
+    records = {}
+    for label, base in SHARDED_GRAPH:
+        cfg = dataclasses.replace(configs[base], mover_exchange="all_gather")
+        per_frame, n_sensors = PATHS[base][3], PATHS[base][4]
+        rec = ritual(cfg, n_sensors, mesh, device, light=True)
+        for pattern, launched in rec["capture_launches"].items():
+            want = {k: 2 * v for k, v in _pattern_frame(
+                per_frame, tuple(c == "1" for c in pattern)).items()}
+            if launched != want:
+                rec["failed"].append(f"capture {pattern} launch counts "
+                                     f"{launched} != {want}")
+        records[label] = rec
+    return records
 
 
 def _sharded_rank(rank, n, port, out_dir):
     """Phase 8 in rank ``rank`` of ``n`` (started by
     ``torch.multiprocessing.spawn``): a gloo group of the ``n`` ranks on
     ``cuda:0``, a one-rank NCCL group of rank 0 inside it, every path of
-    :data:`SHARDED` this rank takes part in; its records go to
-    ``out_dir/rank<r>.json``."""
+    :data:`SHARDED` this rank takes part in (a gloo path also handed to the
+    graphed sharded constructor, which must refuse it), then rank 0 the
+    ``sharded_graph`` phase (:func:`_sharded_graph`) in the NCCL group; its
+    records go to ``out_dir/rank<r>.json``."""
     import datetime
 
     import torch
     import torch.distributed as dist
     from dspmap_tpu_torch.parallel import make_mesh
 
-    torch.cuda.set_device(0)
+    deadline = time.monotonic() + SHARDED_WAIT_S
+    while not os.path.exists(os.path.join(out_dir, "go")):
+        if time.monotonic() > deadline:
+            raise TimeoutError("phase 8 was never started")
+        time.sleep(0.05)
+    torch.cuda.set_device(0)  # the card, once phase 8 has started
     device = torch.device("cuda", 0)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=n, rank=rank,
@@ -1566,6 +1522,12 @@ def _sharded_rank(rank, n, port, out_dir):
             per_frame, n_sensors = PATHS[base][3], PATHS[base][4]
             records[label] = _sharded_path(label, cfg, mesh, frames,
                                            per_frame, n_sensors, bars, device)
+            records[label]["graphed_refused"] = (
+                _graphed_refusal(cfg, mesh, device, n_sensors)
+                if backend == "gloo" else None)
+        if rank == 0:
+            records["sharded_graph"] = _sharded_graph(
+                make_mesh(1, group=nccl), device, configs)
         dist.barrier()
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(records, f)
@@ -1581,36 +1543,47 @@ def _sharded_rank(rank, n, port, out_dir):
         dist.destroy_process_group()
 
 
-def check_sharded(smi) -> dict:
-    """Phase 8: two ranks on the card run :data:`SHARDED`
-    (:func:`_sharded_rank`); a rank that fails fails the phase.  Prints a
-    line a path with each rank's launches, rank 0's frame median and its
-    agreement with the unsharded step.  Returns the launches by path and
-    rank."""
+def start_sharded(tmp):
+    """Start phase 8's ranks (:func:`_sharded_rank`) with ``tmp`` as their
+    directory: each starts its interpreter and imports torch and the port
+    while the kernels build, then waits, off the card, for
+    :func:`check_sharded`'s mark.  Returns the processes' context."""
     import torch.multiprocessing as mp
 
     n = max(path[4] for path in SHARDED)
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
+    return mp.spawn(_sharded_rank, args=(n, port, tmp), nprocs=n,
+                    join=False)
+
+
+def check_sharded(smi, procs, tmp) -> dict:
+    """Phase 8: the ranks of :func:`start_sharded` (``procs``) run
+    :data:`SHARDED` once this marks ``tmp``; a rank that fails fails the
+    phase.  Prints a line a path with each rank's launches, rank 0's frame
+    median and its agreement with the unsharded step.  Returns the
+    launches by path and rank."""
+    n = len(procs.processes)
     by_path = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        try:
-            mp.spawn(_sharded_rank, args=(n, port, tmp), nprocs=n, join=True)
-        except Exception:
-            for r in range(n):
-                path = os.path.join(tmp, f"error{r}.txt")
-                if os.path.exists(path):
-                    with open(path) as f:
-                        print(f"[sharded_rank{r}_error]\n{f.read()}",
-                              file=sys.stderr, flush=True)
-            raise
-        seconds = time.perf_counter() - t0
-        records = []
+    t0 = time.perf_counter()
+    open(os.path.join(tmp, "go"), "w").close()
+    try:
+        while not procs.join():
+            pass
+    except Exception:
         for r in range(n):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                records.append(json.load(f))
+            path = os.path.join(tmp, f"error{r}.txt")
+            if os.path.exists(path):
+                with open(path) as f:
+                    print(f"[sharded_rank{r}_error]\n{f.read()}",
+                          file=sys.stderr, flush=True)
+        raise
+    seconds = time.perf_counter() - t0
+    records = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            records.append(json.load(f))
     for (label, base, overrides, exchange, ranks, backend, frames,
          bars) in SHARDED:
         recs = [records[r][label] for r in range(ranks)]
@@ -1627,12 +1600,35 @@ def check_sharded(smi) -> dict:
              replicated_compared=recs[0]["replicated_compared"],
              replicated_differing=len(differ),
              replicated_differing_names=json.dumps(differ),
+             graphed_refused=json.dumps([rec["graphed_refused"] is not None
+                                         for rec in recs]),
              **recs[0]["agreement"], card=json.dumps(smi))
-    _say("sharded", seconds_with_spawn=seconds)
-    for label, *_ in SHARDED:  # after every path has printed its line
+    for label, rec in records[0]["sharded_graph"].items():
+        _say(label, ranks=1, backend="nccl", frames=rec["frames"],
+             warm=rec["warm"], rejected=1, setter=1,
+             bit_equal=all(rec["bit_equal_frames"]),
+             captures=rec["captures"],
+             host_launches_per_replay=rec["host_launches_per_replay"],
+             eager_frame_ms=rec["eager_frame_ms"],
+             graphed_frame_ms=rec["graphed_frame_ms"],
+             capture_ms=json.dumps(rec["capture_ms"]),
+             pool_bytes=json.dumps(rec["pool_bytes"]),
+             kept_bytes=json.dumps(rec["kept_bytes"]),
+             replicated_differing=len(rec["replicated_differing"]),
+             seconds=rec["seconds"],
+             failed=json.dumps(rec["failed"]), card=json.dumps(smi))
+    _say("sharded", seconds_after_start=seconds)
+    for label, _, _, _, ranks, backend, *_ in SHARDED:  # after every line
         differ = records[0][label]["replicated_differing"]
         _require(not differ, f"{label}: replicated leaves differ across the "
                  f"ranks: {differ}")
+        refused = [records[r][label]["graphed_refused"] for r in range(ranks)]
+        _require(backend != "gloo" or all(
+            msg is not None and "NCCL" in msg for msg in refused),
+            f"{label}: the graphed sharded constructor took a gloo group: "
+            f"{refused}")
+    for label, rec in records[0]["sharded_graph"].items():
+        _require(not rec["failed"], f"{label}: {rec['failed']}")
     for label in SHARDED_REPEATED:
         differ = records[0][label]["repeat_leaves_differing"]
         _say(f"{label}_repeat", runs=2, bit_equal=not differ,
@@ -1683,37 +1679,27 @@ def kernel_row(name, by_shape, by_path) -> dict:
             **{k: shapes[own][k] for k in keys}, "by_shape": shapes}
 
 
-def main() -> int:
-    import torch
+def _stop(procs) -> None:
+    """End phase 8's ranks: a phase that raised leaves them waiting."""
+    for proc in procs.processes:
+        if proc.is_alive():
+            proc.terminate()
+        proc.join()
 
-    started = time.perf_counter()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+def _phases(configs, device, smi, jv_cpu, procs, tmp):
+    """Phases 2-8 after the build (phase 8's ranks ``procs`` started in
+    ``tmp``, the JV check's plain solves ``jv_cpu`` done).  Returns the
+    kernels' measurements by shape and their launches by path."""
+    import torch
     from dspmap_tpu_torch import kernels
 
-    major, minor = torch.cuda.get_device_capability(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    _say("card", capability=f"{major}.{minor}", torch=torch.__version__,
-         cuda=torch.version.cuda, nvidia_smi=json.dumps(smi))
-    _require(major == 9, f"need compute capability 9.x, got {major}.{minor}")
-
-    t0 = time.perf_counter()
-    kernels.build(verbose=True)
-    kernels.lib()
-    _say("build", seconds=time.perf_counter() - t0)
-
-    device = torch.device("cuda", 0)
     check_cuda_cost(device)
-    configs = path_configs()
-    _require(list(configs) == list(PATHS), "a path without a configuration")
     by_shape = {label: check_kernels(label, configs[label], device)
                 for label in ("flagship", "static", "multi")}
     by_shape["flagship_slab"] = check_sweep_slab(configs["flagship"], device)
-    by_shape["flagship"].update(check_jv(configs["flagship"], device))
+    by_shape["flagship"].update(check_jv(configs["flagship"], device,
+                                         jv_cpu))
     # K1's moving mask, as the noisy and the two-camera pool paths take it,
     # and as a rank of the sharded two-camera path takes it on its slab
     for label in ("noisy", "multisensor_2cam"):
@@ -1752,7 +1738,51 @@ def main() -> int:
     finally:
         flag.allow_tf32 = saved
     by_path.update(check_io(configs, device, smi))
-    by_path.update(check_sharded(smi))
+    by_path.update(check_sharded(smi, procs, tmp))
+    return by_shape, by_path
+
+
+def main() -> int:
+    import torch
+
+    started = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dspmap_tpu_torch import kernels
+
+    configs = path_configs()
+    _require(list(configs) == list(PATHS), "a path without a configuration")
+    with contextlib.ExitStack() as stack:
+        # what needs neither the card nor a quiet host runs until the
+        # kernels are built: phase 8's ranks start up, and the JV check's
+        # plain solves run on the CPU; the timed checks start once both
+        # are done
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        procs = start_sharded(tmp)
+        stack.callback(_stop, procs)
+        jv_pool, jv_plain = start_jv_plain(configs["flagship"])
+        stack.callback(jv_pool.shutdown, cancel_futures=True)
+        major, minor = torch.cuda.get_device_capability(0)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        _say("card", capability=f"{major}.{minor}", torch=torch.__version__,
+             cuda=torch.version.cuda, nvidia_smi=json.dumps(smi))
+        _require(major == 9,
+                 f"need compute capability 9.x, got {major}.{minor}")
+        t0 = time.perf_counter()
+        kernels.build(verbose=True)
+        kernels.lib()
+        t1 = time.perf_counter()
+        jv_cpu = {k: v for f in jv_plain for k, v in f.result().items()}
+        _say("build", seconds=t1 - t0,
+             then_waited_for_the_plain_jv_s=time.perf_counter() - t1)
+        by_shape, by_path = _phases(configs, device=torch.device("cuda", 0),
+                                    smi=smi, jv_cpu=jv_cpu, procs=procs,
+                                    tmp=tmp)
 
     _say("total", seconds=time.perf_counter() - started)
     print(smi)

@@ -16,7 +16,9 @@ package's file format (they load in either package), the particle CSV, bag
 and native ingestion and the ROS bridges; ``utils`` the markers, PLY
 exports and ``torch.profiler`` tracing.  ``parallel`` splits the map over
 processes, a slab of the voxel grid each, on ``torch.distributed``
-(``make_shardmap_step``, ``shard_state``, ``gather_state``).
+(``make_shardmap_step``, ``shard_state``, ``gather_state``; on NCCL ranks,
+a card each, ``make_graphed_shardmap_step`` captures each rank's step as a
+CUDA graph).
 
 Quick start::
 
@@ -86,4 +88,6 @@ from .parallel import (  # noqa: F401
     gather_state,
     make_sharded_step,
     make_shardmap_step,
+    make_graphed_sharded_step,
+    make_graphed_shardmap_step,
 )

@@ -22,6 +22,14 @@ pool of its own (patterns replay in any order, and PyTorch keeps a shared
 pool safe only for graphs replayed in the order of their capture); all
 of them read and write the one set of static buffers.
 
+Both take a ``shard`` (a :class:`~..ops.common.ShardCtx`), which makes
+them one rank's step of the sharded step, the counterpart of
+``jax.jit(shard_map(body), donate_argnums=0)`` (built for a mesh by
+``make_graphed_shardmap_step`` in ``parallel/shard_step.py``): the static
+buffers are the rank's slab and draws, and each graph holds the rank's
+collectives, which therefore must be NCCL's (they run on the card's
+stream).
+
 What stays on the host each frame: the prologue (admission control, the
 window origin, the time step, the frame's rotation; ``pipeline.prologue``,
 ``pipeline.multisensor_prologue``), the draws from ``state.gen`` -- made
@@ -43,10 +51,10 @@ from ..config import MapConfig
 from .. import scalars
 from ..state import (EstimatorState, MapState, Particles, _PLANES,
                      tensor_leaves)
-from .pipeline import (Frame, StepOutput, _map_draws, _on_device, _rejected,
-                       _rejected_multisensor, make_body, make_draws,
-                       make_multisensor_body, make_multisensor_draws,
-                       multisensor_prologue, prologue)
+from .pipeline import (Frame, StepOutput, _map_draws, _on_device,
+                       _particle_shape, _rejected, _rejected_multisensor,
+                       make_body, make_draws, make_multisensor_body,
+                       make_multisensor_draws, multisensor_prologue, prologue)
 
 
 def _flat(x) -> list:
@@ -61,11 +69,17 @@ def _flat(x) -> list:
 class _GraphedBase:
     """What the graphed steps share: the static buffers, the frame's staged
     copy, the draws, one graph a pattern of admitted cameras (one camera:
-    the pattern ``(True,)``) and its capture."""
+    the pattern ``(True,)``) and its capture.  With ``shard`` (a
+    :class:`~..ops.common.ShardCtx`) it is one rank's step of the sharded
+    step: the state is the rank's slab and the graphs hold the rank's
+    collectives.  ``eager`` names the eager step a CPU state takes."""
 
-    def __init__(self, cfg: MapConfig, layout: scalars.FrameLayout):
+    def __init__(self, cfg: MapConfig, layout: scalars.FrameLayout,
+                 shard, eager: str):
         cfg.validate()
         self.cfg = cfg
+        self.shard = shard
+        self.eager = eager
         self._layout = layout
         #: graphs captured by this object (one a pattern seen)
         self.captures = 0
@@ -78,14 +92,21 @@ class _GraphedBase:
         self._graphs = {}  # pattern -> (CUDAGraph, the body's outputs)
         self._static = None
 
-    def _check_device(self, state: MapState, eager: str) -> None:
+    def _check_device(self, state: MapState) -> None:
         if state.device.type != "cuda":
             raise ValueError("the graphed step runs on the CUDA card; a CPU "
-                             f"state takes {eager}")
+                             f"state takes {self.eager}")
 
     # -- static buffers ----------------------------------------------------
     def _allocate(self, state: MapState) -> None:
         dev = state.device
+        if self.shard is not None:
+            want = _particle_shape(self.cfg, self.shard.n_shards)
+            got = tuple(state.particles.flags.shape)
+            if got != want:
+                raise ValueError(
+                    f"particle planes of {got}; a slab of "
+                    f"{self.shard.n_shards} ranks has {want} (shard_state)")
         self._static = {
             k: torch.empty_like(v, memory_format=torch.contiguous_format)
             for k, v in tensor_leaves(state).items()}
@@ -158,7 +179,10 @@ class _GraphedBase:
             run()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):  # a private memory pool of its own
+        # a private memory pool of its own; "thread_local": ProcessGroupNCCL's
+        # watchdog thread queries CUDA events while the capture is open, which
+        # the default "global" mode makes an error of
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             reserved = torch.cuda.memory_reserved()
             allocated = torch.cuda.memory_allocated()
             out = run()
@@ -207,8 +231,9 @@ class GraphedStep(_GraphedBase):
     graph a frame; see :func:`make_graphed_step`."""
 
     def __init__(self, cfg: MapConfig, with_metrics: bool = True,
-                 admission_control: bool = True):
-        super().__init__(cfg, scalars.layout(cfg))
+                 admission_control: bool = True, shard=None,
+                 eager: str = "make_step"):
+        super().__init__(cfg, scalars.layout(cfg), shard, eager)
         self.with_metrics = with_metrics
         self.admission_control = admission_control
 
@@ -216,11 +241,11 @@ class GraphedStep(_GraphedBase):
         return scalars.FrameScalars(f[0], i[0]), points[0]
 
     def _make_draws(self, gen, device, out=None):
-        return make_draws(self.cfg, gen, device, out=out)
+        return make_draws(self.cfg, gen, device, self.shard, out=out)
 
     # -- the step ----------------------------------------------------------
     def __call__(self, state: MapState, frame: Frame, draws=None):
-        self._check_device(state, "make_step")
+        self._check_device(state)
         cfg = self.cfg
         pro = prologue(state, frame, cfg)
         if self.admission_control and not pro.accepted:
@@ -228,7 +253,8 @@ class GraphedStep(_GraphedBase):
         out = self._replay(state, draws,
                            pro.blocks(cfg, state, frame.n_points),
                            frame.points, (True,),
-                           lambda: make_body(cfg, self.with_metrics))
+                           lambda: make_body(cfg, self.with_metrics,
+                                             self.shard))
         return self._advance(pro, state), StepOutput(
             pro.accepted, self._static["weight_sum"], out.metrics, out.cloud)
 
@@ -275,8 +301,9 @@ class GraphedMultisensorStep(_GraphedBase):
     graph a pattern of admitted cameras; see
     :func:`make_graphed_multisensor_step`."""
 
-    def __init__(self, cfg: MapConfig, n_sensors: int):
-        super().__init__(cfg, scalars.layout(cfg, n_sensors))
+    def __init__(self, cfg: MapConfig, n_sensors: int, shard=None,
+                 eager: str = "make_multisensor_step"):
+        super().__init__(cfg, scalars.layout(cfg, n_sensors), shard, eager)
         self.n_sensors = n_sensors
 
     def _frame_views(self, f, i, points):
@@ -284,10 +311,10 @@ class GraphedMultisensorStep(_GraphedBase):
 
     def _make_draws(self, gen, device, out=None):
         return make_multisensor_draws(self.cfg, self.n_sensors, gen, device,
-                                      out=out)
+                                      self.shard, out=out)
 
     def __call__(self, state: MapState, frames: Frame, draws=None):
-        self._check_device(state, "make_multisensor_step")
+        self._check_device(state)
         cfg, n = self.cfg, self.n_sensors
         pro = multisensor_prologue(state, frames, cfg, n)
         for f in dataclasses.fields(EstimatorState):
@@ -301,7 +328,8 @@ class GraphedMultisensorStep(_GraphedBase):
         out = self._replay(state, draws, (pro.f, pro.i), frames.points,
                            pro.admitted,
                            lambda: make_multisensor_body(cfg, n,
-                                                         pro.admitted))
+                                                         pro.admitted,
+                                                         self.shard))
         return self._advance(pro, state), StepOutput(
             True, self._static["weight_sum"], out.metrics, ())
 

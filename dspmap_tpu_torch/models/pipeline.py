@@ -180,11 +180,10 @@ def make_draws(cfg: MapConfig, gen: torch.Generator, device, shard=None,
     (``[3, S, V/n]``, ``[2, S, V/n]``; ``[3, P/n]``, ``[2, P/n]``), drawn
     from :func:`rank_generator`.
 
-    ``out`` (no ``shard``) is a tuple of tensors of these shapes on
-    ``device`` (the graphed step's draw buffers) that the draws are written
-    into and returned in."""
-    if out is not None and shard is not None:
-        raise ValueError("draws into given buffers are unsharded")
+    ``out`` is a tuple of tensors of these shapes on ``device`` (the
+    graphed step's draw buffers; a rank's, with ``shard``) that the draws
+    are written into and returned in, with the same numbers and the same
+    advance of ``gen``."""
     out = (None,) * 6 if out is None else tuple(out)
     draws = _sensor_draws(cfg, gen, device, out[:4])
     if not is_noisy(cfg):
@@ -213,11 +212,10 @@ def make_multisensor_draws(cfg: MapConfig, n_sensors: int,
     shape (``[3, S, V/n]`` and ``[2, S, V/n]``; ``[3, P/n]`` and ``[2,
     P/n]``), drawn in the same order from one :func:`rank_generator`.
 
-    ``out`` (no ``shard``) is a structure of tensors as this returns (the
-    graphed step's draw buffers) that the draws are written into and
-    returned in."""
-    if out is not None and shard is not None:
-        raise ValueError("draws into given buffers are unsharded")
+    ``out`` is a structure of tensors as this returns (the graphed step's
+    draw buffers; a rank's, with ``shard``) that the draws are written into
+    and returned in, with the same numbers and the same advance of
+    ``gen``."""
     noisy = is_noisy(cfg)
     n = 1 if shard is None else shard.n_shards
     own = gen if shard is None or not noisy else rank_generator(gen,

@@ -9,5 +9,9 @@ from .sharding import (  # noqa: F401
     shard_state,
     gather_state,
     make_sharded_step,
+    make_graphed_sharded_step,
 )
-from .shard_step import make_shardmap_step  # noqa: F401
+from .shard_step import (  # noqa: F401
+    make_shardmap_step,
+    make_graphed_shardmap_step,
+)

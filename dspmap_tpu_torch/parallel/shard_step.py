@@ -95,3 +95,49 @@ def make_shardmap_step(cfg: MapConfig, mesh: Mesh | None = None,
     if n_sensors is not None:
         return make_multisensor_step(cfg, n_sensors, shard=shard)
     return make_step(cfg, with_metrics=with_metrics, shard=shard)
+
+
+def make_graphed_shardmap_step(cfg: MapConfig, mesh: Mesh | None = None,
+                               with_metrics: bool = True, device=None,
+                               n_sensors: int | None = None):
+    """This rank's sharded step as CUDA graphs, the counterpart of the JAX
+    package's ``jax.jit(shard_map(body), donate_argnums=0)``: the step of
+    :func:`make_shardmap_step` (same arguments, same bits on the same frames
+    and draws) with the rank's body -- its collectives included -- captured
+    once and replayed, as :func:`~..models.graphed.make_graphed_step` (one
+    camera) and :func:`~..models.graphed.make_graphed_multisensor_step`
+    (``n_sensors``, one graph a pattern of admitted cameras) do on one
+    card.  The static buffers are the slab's, and so are the draw buffers
+    (a noisy configuration's pool-shaped noise drawn from the rank's own
+    generator into them).
+
+    Every rank captures a pattern at the same frame: admission is decided
+    on the host from the frames, which every rank shares, so every rank's
+    graph holds the same collectives in the same order.
+
+    The collectives must run on the card's stream, which only NCCL does:
+    a group of another backend (gloo runs its collectives on host threads,
+    which a graph cannot hold) raises, as does a ``device`` off the card or
+    a state off it; a capture that fails raises, and nothing falls back to
+    the eager step.  A mesh of one process without a process group makes
+    no collective and is the graphed step on the whole slab."""
+    from ..models.graphed import GraphedMultisensorStep, GraphedStep
+
+    mesh = mesh if mesh is not None else make_mesh()
+    if n_sensors is not None and not with_metrics:
+        raise ValueError("the multi-sensor step has no with_metrics option")
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise ValueError("the graphed sharded step runs on the CUDA card; "
+                         f"slabs on {device} take make_shardmap_step")
+    if dist.is_initialized() and dist.get_backend(mesh.group) != "nccl":
+        raise ValueError(
+            f"the graphed sharded step takes an NCCL group, not "
+            f"{dist.get_backend(mesh.group)}: a CUDA graph holds collectives "
+            "on the card's stream, and this backend runs them on host threads")
+    shard = shard_ctx(cfg, mesh, device)
+    if n_sensors is not None:
+        return GraphedMultisensorStep(cfg, n_sensors, shard=shard,
+                                      eager="make_shardmap_step")
+    return GraphedStep(cfg, with_metrics, shard=shard,
+                       eager="make_shardmap_step")

@@ -162,6 +162,33 @@ def _slab_shapes(cfg: MapConfig, n: int, n_sensors: int | None) -> dict:
     return out
 
 
+class _PinnedStep:
+    """A rank's step with its layout pinned: every split leaf of the state
+    in and out must have the slab's shape and every estimator leaf its own,
+    all on the state's device.  Other attributes are the step's."""
+
+    def __init__(self, step, want: dict):
+        self._step, self._want = step, want
+
+    def _check(self, state: MapState, where: str, dev) -> None:
+        leaves = _leaves(state)
+        for k, shape in self._want.items():
+            x = leaves[k]
+            if tuple(x.shape) != shape or x.device != dev:
+                raise ValueError(f"{where}: {k} is {tuple(x.shape)} on "
+                                 f"{x.device}, the slab's is {shape} on {dev}")
+
+    def __call__(self, state: MapState, frame, draws=None):
+        dev = state.device
+        self._check(state, "step input", dev)
+        new_state, out = self._step(state, frame, draws)
+        self._check(new_state, "step output", dev)
+        return new_state, out
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+
 def make_sharded_step(cfg: MapConfig, mesh: Mesh, with_metrics: bool = True,
                       device=None, n_sensors: int | None = None):
     """The sharded step with its layout pinned: ``step(state, frame,
@@ -181,23 +208,24 @@ def make_sharded_step(cfg: MapConfig, mesh: Mesh, with_metrics: bool = True,
     they are each rank's, as in the ``shard_map`` step."""
     from .shard_step import make_shardmap_step
 
-    step = make_shardmap_step(cfg, mesh, with_metrics, device, n_sensors)
-    want = _slab_shapes(cfg, mesh.size, n_sensors)
+    return _PinnedStep(
+        make_shardmap_step(cfg, mesh, with_metrics, device, n_sensors),
+        _slab_shapes(cfg, mesh.size, n_sensors))
 
-    def check(state: MapState, where: str, dev) -> None:
-        leaves = _leaves(state)
-        for k, shape in want.items():
-            x = leaves[k]
-            if tuple(x.shape) != shape or x.device != dev:
-                raise ValueError(f"{where}: {k} is {tuple(x.shape)} on "
-                                 f"{x.device}, the slab's is {shape} on "
-                                 f"{dev}")
 
-    def pinned(state: MapState, frame, draws=None):
-        dev = state.device
-        check(state, "step input", dev)
-        new_state, out = step(state, frame, draws)
-        check(new_state, "step output", dev)
-        return new_state, out
+def make_graphed_sharded_step(cfg: MapConfig, mesh: Mesh,
+                              with_metrics: bool = True, device=None,
+                              n_sensors: int | None = None):
+    """:func:`make_sharded_step` as CUDA graphs, the counterpart of the JAX
+    package's pinned-layout ``jax.jit(step, in_shardings=...,
+    donate_argnums=0)``: :func:`~.shard_step.make_graphed_shardmap_step`'s
+    graphed step with the slab checked in and out as
+    :func:`make_sharded_step` checks it.  Its ``captures``,
+    ``capture_ms``, ``pool_bytes`` and ``release()`` are the graphed
+    step's."""
+    from .shard_step import make_graphed_shardmap_step
 
-    return pinned
+    return _PinnedStep(
+        make_graphed_shardmap_step(cfg, mesh, with_metrics, device,
+                                   n_sensors),
+        _slab_shapes(cfg, mesh.size, n_sensors))

@@ -18,7 +18,9 @@ place of its own, so that the comparison holds birth and occupancy alone.
 :func:`rows_parted` where two such populations part, row by row;
 :func:`particles_recorded` keeps the particles that given stages of a step
 take in, so that the rows can be compared stage by stage;
-:func:`differing_leaves` compares two states bit for bit.
+:func:`differing_leaves` compares two states bit for bit and
+:func:`differing_outputs` two step outputs; :func:`counters_recorded`
+adds up what a step's budgets dropped.
 """
 
 from __future__ import annotations
@@ -106,6 +108,42 @@ def particles_recorded(names, sink: dict):
     with contextlib.ExitStack() as stack:
         for name in names:
             stack.enter_context(_stage_wrapped(name, wrap(name)))
+        yield
+
+
+#: the stages of ``models/pipeline.py`` that count what a budget drops
+COUNTING_STAGES = ("rebin", "rebin_compact", "rebin_exchange_compact",
+                   "rebin_and_register", "register_fov",
+                   "register_fov_compact", "measurement_update",
+                   "particle_birth", "particle_birth_compact",
+                   "occupancy_and_resample", "occupancy_compact")
+
+
+@contextlib.contextmanager
+def counters_recorded(sink: dict):
+    """Within the block, each counter of what a budget dropped (a stage's
+    counter with ``overflow`` or ``killed`` in its name) that a stage of
+    :data:`COUNTING_STAGES` returns is added to ``sink[name]`` (a 0-d tensor
+    on the step's device), summed over the stages and the cameras.  A stage
+    that the step calls with ``with_metrics=False`` (the two-camera step's
+    per-camera stages) counts for the sink alone: the step gets the empty
+    counters it asked for.  On a rank of the sharded step the counters are
+    the rank's."""
+    def wrap(stage):
+        def counted(*a, **kw):
+            asked = kw.get("with_metrics", True)
+            if "with_metrics" in kw:
+                kw = dict(kw, with_metrics=True)
+            out = stage(*a, **kw)
+            for k, v in out[-1].items():
+                if "overflow" in k or "killed" in k:
+                    sink[k] = sink.get(k, 0) + v
+            return out if asked else (*out[:-1], {})
+        return counted
+
+    with contextlib.ExitStack() as stack:
+        for name in COUNTING_STAGES:
+            stack.enter_context(_stage_wrapped(name, wrap))
         yield
 
 
@@ -240,4 +278,22 @@ def differing_leaves(a, b) -> list:
     return sorted(k for k in x.keys() | y.keys()
                   if k not in x or k not in y or x[k].dtype != y[k].dtype
                   or x[k].shape != y[k].shape
+                  or x[k].tobytes() != y[k].tobytes())
+
+
+def differing_outputs(a, b) -> list:
+    """The fields of two ``StepOutput``s that differ by bits (a field of
+    one output only among them)."""
+    def fields(out):
+        got = {"accepted": np.asarray(out.accepted),
+               "weight_sum": out.weight_sum.cpu().numpy()}
+        got.update({f"metrics.{k}": v.cpu().numpy()
+                    for k, v in out.metrics.items()})
+        got.update({f"estimator_cloud.{i}": v.cpu().numpy()
+                    for i, v in enumerate(out.estimator_cloud)})
+        return got
+
+    x, y = fields(a), fields(b)
+    return sorted(k for k in x.keys() | y.keys()
+                  if k not in x or k not in y or x[k].dtype != y[k].dtype
                   or x[k].tobytes() != y[k].tobytes())

@@ -1177,3 +1177,76 @@ def test_graphed_multisensor_step_refuses_a_cpu_state_and_other_shapes(
     with pytest.raises(ValueError, match="captured"):
         step(small, _two_cameras(frame))
     step.release()
+
+
+@pytest.fixture
+def nccl_mesh(device, tmp_path):
+    """A one-rank NCCL group (a ``file://`` rendezvous) and its mesh."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        yield T.make_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_graphed_sharded_step_bit_equal_to_eager_at_one_nccl_rank(
+        device, nccl_mesh):
+    """``make_graphed_sharded_step`` against ``make_shardmap_step`` in a
+    one-rank NCCL group on four frames from the same slab, each step
+    drawing from its own of two equal generators: every leaf, the
+    generators and every output bit for bit, one capture, no kernel
+    launched from the host during a replay."""
+    cfg = _cfg()
+    frames = [T.Frame(*f) for f in sim.generate_sequence(6, cfg, seed=0)]
+    eager = T.make_shardmap_step(cfg, nccl_mesh, device=device)
+    graphed = T.make_graphed_sharded_step(cfg, nccl_mesh, device=device)
+    state = T.shard_state(T.init_state(cfg), nccl_mesh)
+    for f in frames[:2]:
+        state, _ = eager(state, f)
+    a = dataclasses.replace(state, gen=_seeded(5, device))
+    b = dataclasses.replace(state, gen=_seeded(5, device))
+    for k, f in enumerate(frames[2:]):
+        a, out_a = eager(a, f)
+        n0 = dict(kernels.LAUNCHES)
+        b, out_b = graphed(b, f)
+        if k > 0:  # after the capture, a frame is one replay
+            assert kernels.LAUNCHES == n0
+        _bit_equal_states(a, b)
+        assert torch.equal(a.gen.get_state(), b.gen.get_state())
+        _outputs_bit_equal(out_a, out_b)
+    assert graphed.captures == 1
+    assert int(out_b.metrics["alive"]) > 0
+    graphed.release()
+
+
+def test_graphed_sharded_step_raises_when_its_capture_fails(
+        device, nccl_mesh, monkeypatch):
+    """A body that reads a device value on the host runs in the warm-up
+    and cannot be captured: the step raises, captures nothing and runs no
+    eager step in its place.  (Last in the file: a failed capture may
+    leave the card's allocator in a state the other tests should not
+    meet.)"""
+    from dspmap_tpu_torch.models import graphed as graphed_module
+
+    make_body = graphed_module.make_body
+
+    def reading(cfg, with_metrics=True, shard=None):
+        body = make_body(cfg, with_metrics, shard)
+
+        def read_then_body(particles, *args):
+            float(particles.weight.sum())
+            return body(particles, *args)
+
+        return read_then_body
+
+    monkeypatch.setattr(graphed_module, "make_body", reading)
+    cfg = _cfg()
+    frame = T.Frame(*next(sim.generate_sequence(1, cfg, seed=0)))
+    step = T.make_graphed_shardmap_step(cfg, nccl_mesh, device=device)
+    state = T.shard_state(T.init_state(cfg), nccl_mesh)
+    with pytest.raises(RuntimeError):
+        step(state, frame)
+    assert step.captures == 0 and not step.capture_ms

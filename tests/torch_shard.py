@@ -466,6 +466,220 @@ def layout(case, mesh):
                 draws_again=all(torch.equal(x, y) for x, y in zip(d1, d2)))
 
 
+def _graph_safety_imports():
+    """The CPU graph-safety tests' configurations, frames, setters and
+    recording mode (they import no jax); the rank keeps its one thread."""
+    import torch
+    import test_torch_graph_safety as single
+    import test_torch_graph_safety_multisensor as multi
+
+    torch.set_num_threads(1)
+    return single, multi
+
+
+def _record_collectives(sink: list):
+    """Wrap ``ShardCtx.psum``, ``_all_gather`` and ``gather_ring`` so that
+    each call appends ``(name, shape, dtype)`` of its operand to ``sink``.
+    Returns the function that puts them back."""
+    from dspmap_tpu_torch.ops.common import ShardCtx
+
+    saved = {k: getattr(ShardCtx, k) for k in ("psum", "_all_gather",
+                                               "gather_ring")}
+
+    def wrap(name, fn):
+        def recorded(self, x, *args):
+            sink.append((name, tuple(x.shape), str(x.dtype)) + args)
+            return fn(self, x, *args)
+        return recorded
+
+    for k, fn in saved.items():
+        setattr(ShardCtx, k, wrap(k, fn))
+    return lambda: [setattr(ShardCtx, k, fn) for k, fn in saved.items()]
+
+
+def _unaddressed(x):
+    """``x`` (a recorded op: a nest of tuples and strings) with the
+    addresses in object reprs taken out: a point-to-point op gets a new
+    wrapper of the process group on each call."""
+    import re
+
+    if isinstance(x, str):
+        return re.sub(r" at 0x[0-9a-f]+", "", x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_unaddressed(v) for v in x)
+    return x
+
+
+#: the state after :func:`graph_safety`'s first frame, by configuration,
+#: exchange and whether it has one camera (a step makes new tensors, so the
+#: cases can share it)
+_WARM = {}
+
+
+def graph_safety(case, mesh):
+    """The sharded body (``make_body``, or ``make_multisensor_body`` for
+    ``case["pattern"]``) on this rank's slab of ``case["name"]``'s
+    configuration of ``test_torch_graph_safety.py`` with
+    ``case["exchange"]``: one frame through the eager sharded step, then
+    two frames that differ in pose, time step, point count and all six
+    runtime parameters, each body under the recording dispatch mode with
+    its collectives recorded.  Returns per frame the number of ops, the
+    forbidden ops, the collectives, and the first ops where the two frames
+    differ."""
+    import dataclasses
+
+    import torch
+    import dspmap_tpu_torch as T
+    from dspmap_tpu_torch import scalars
+    from dspmap_tpu_torch.models import pipeline
+    from dspmap_tpu_torch.parallel import make_shardmap_step, shard_state
+    from dspmap_tpu_torch.parallel.shard_step import shard_ctx
+
+    single, multi = _graph_safety_imports()
+    cfg = dataclasses.replace(single.CONFIGS[case["name"]](),
+                              mover_exchange=case["exchange"])
+    pattern, n_sensors = case["pattern"], multi.N_SENSORS
+    shard = shard_ctx(cfg, mesh, "cpu")
+    f0, f1, f2 = single._frames(cfg)
+    if pattern is None:
+        frames = (f0, f1, f2)
+        body = pipeline.make_body(cfg, True, shard)
+    else:
+        frames = (multi._two_cameras(f0), multi._two_cameras(f1, pattern),
+                  multi._two_cameras(f2, pattern, fewer=23))
+        body = pipeline.make_multisensor_body(cfg, n_sensors, pattern, shard)
+    key = (case["name"], case["exchange"], pattern is None)
+    if key not in _WARM:  # the patterns of two cameras share it
+        sensors = None if pattern is None else n_sensors
+        state = (T.init_state(cfg, seed=1, device="cpu") if sensors is None
+                 else T.init_multisensor_state(cfg, sensors, seed=1,
+                                               device="cpu"))
+        warm = make_shardmap_step(cfg, mesh, device="cpu", n_sensors=sensors)
+        state, out = warm(shard_state(state, mesh), frames[0])
+        assert out.accepted
+        _WARM[key] = state
+    state = _WARM[key]
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    runs = []
+    for k, frame in enumerate(frames[1:]):
+        if k == 1:
+            state = single._set_every_param(state)
+        if pattern is None:
+            pro = pipeline.prologue(state, frame, cfg)
+            draws = T.make_draws(cfg, gen, "cpu", shard)
+            f, i, points = scalars.stage(
+                scalars.layout(cfg), *pro.blocks(cfg, state, frame.n_points),
+                frame.points, "cpu")
+            fs, points = scalars.FrameScalars(f[0], i[0]), points[0]
+        else:
+            pro = pipeline.multisensor_prologue(state, frame, cfg, n_sensors)
+            assert pro.admitted == tuple(pattern)
+            draws = T.make_multisensor_draws(cfg, n_sensors, gen, "cpu",
+                                             shard)
+            f, i, points = scalars.stage(scalars.layout(cfg, n_sensors),
+                                         pro.f, pro.i, frame.points, "cpu")
+            fs = scalars.FrameScalars(f, i)
+        assert pro.accepted
+        collectives = []
+        restore = _record_collectives(collectives)
+        try:
+            with single._Record() as rec:
+                out = body(state.particles, state.future, state.estimator,
+                           fs, points, draws)
+        finally:
+            restore()
+        state = pro.advance(state, particles=out.particles,
+                            weight_sum=out.weight_sum, vel_avg=out.vel_avg,
+                            future=out.future, estimator=out.estimator)
+        runs.append((rec.ops, collectives, int(out.metrics["alive"]),
+                     tuple(state.origin.tolist())))
+    (ops1, c1, _, origin1), (ops2, c2, alive, origin2) = runs
+    ops1, ops2 = ([_unaddressed(op) if op[0].startswith("c10d.") else op
+                   for op in ops] for ops in (ops1, ops2))
+    forbidden = case["forbidden"]
+    differ = [k for k, (a, b) in enumerate(zip(ops1, ops2)) if a != b]
+    return dict(n_ops=(len(ops1), len(ops2)),
+                forbidden=[op[0] for ops in (ops1, ops2) for op in ops
+                           if op[0].startswith(forbidden)][:5],
+                differ=[(ops1[k], ops2[k]) for k in differ[:2]],
+                collectives=(c1, c2), alive=alive,
+                origin_moved=origin1 != origin2)
+
+
+def shard_draws(case, mesh):
+    """``make_draws`` (or ``make_multisensor_draws`` with
+    ``case["n_sensors"]``) with this rank's ``ShardCtx``, drawn fresh and
+    into given buffers from two equal generators: whether the numbers and
+    the generators' advance are the same and the buffers the ones given,
+    and a digest of the replicated and of the rank's own draws."""
+    import hashlib
+
+    import torch
+    import dspmap_tpu_torch as T
+    from dspmap_tpu_torch.models.pipeline import _map_draws, _particle_shape
+    from dspmap_tpu_torch.parallel.shard_step import shard_ctx
+
+    single, _ = _graph_safety_imports()
+    cfg = single.CONFIGS[case["name"]]()
+    shard = shard_ctx(cfg, mesh, "cpu")
+    n = case.get("n_sensors")
+    a, b = torch.Generator(), torch.Generator()
+    a.manual_seed(11)
+    b.manual_seed(11)
+
+    def draw(gen, out=None):
+        if n is None:
+            return T.make_draws(cfg, gen, "cpu", shard, out=out)
+        return T.make_multisensor_draws(cfg, n, gen, "cpu", shard, out=out)
+
+    def flat(x):
+        return ([] if x is None else [t for v in x for t in flat(v)]
+                if isinstance(x, tuple) else [x])
+
+    want = draw(a)
+    given = _map_draws(lambda t: torch.full_like(t, -7.0), want)
+    got = draw(b, given)
+    w, g, o = flat(want), flat(got), flat(given)
+    pool = _particle_shape(cfg, mesh.size)
+
+    def digest(ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.numpy().tobytes())
+        return h.hexdigest()
+
+    own = [t for t in w if tuple(t.shape[1:]) == pool]
+    return dict(n=len(w), same=all(torch.equal(x, y) for x, y in zip(w, g)),
+                buffers=len(g) == len(o) and all(x is y for x, y in zip(g, o)),
+                gen_same=torch.equal(a.get_state(), b.get_state()),
+                own_shapes=[tuple(t.shape) for t in own],
+                replicated=digest([t for t in w if tuple(t.shape[1:]) != pool]),
+                own=digest(own))
+
+
+def graphed_refusals(case, mesh):
+    """The graphed sharded constructors on this rank's gloo group: with a CUDA
+    ``device`` (a ``torch.device``, no card needed) and with the CPU.
+    Returns the messages they raise (``None`` where one builds)."""
+    import torch
+    from dspmap_tpu_torch.parallel import (make_graphed_sharded_step,
+                                           make_graphed_shardmap_step)
+
+    single, multi = _graph_safety_imports()
+    cfg = single.CONFIGS["pool"]()
+    said = {}
+    for device in (torch.device("cuda", 0), "cpu"):
+        for fn in (make_graphed_shardmap_step, make_graphed_sharded_step):
+            for n_sensors in (None, multi.N_SENSORS):
+                try:
+                    fn(cfg, mesh, device=device, n_sensors=n_sensors)
+                    said[fn.__name__, str(device), n_sensors] = None
+                except ValueError as e:
+                    said[fn.__name__, str(device), n_sensors] = str(e)
+    return said
+
+
 def _jobs(tmp: pathlib.Path, deadline: float):
     """The lists of cases :func:`post_jobs` writes, in turn, until the
     mark of :func:`wait_ranks` (written after the last job)."""
