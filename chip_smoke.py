@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's eight paths, its IO and its sharded steps on one
+"""Drive the PyTorch port's nine paths, its IO and its sharded steps on one
 CUDA card and check them.
 
 Run from the root of a checkout on a machine with an H100::
@@ -33,7 +33,7 @@ Phases (each prints one line; any failure raises and exits nonzero):
    mask of the noisy and multi-sensor paths) at S = 18 with three
    velocity planes and with two, and with two on the upper half of the
    pool (a rank's slab of the sharded two-camera path);
-4. the eight paths at full width on the synthetic street sequence --
+4. the nine paths at full width on the synthetic street sequence --
    through ``make_step``: ``flagship`` (``example_node_settings(
    dsp_dynamic())``, pool layout), ``large_urban`` (compact layout),
    ``static`` (``example_node_settings(dsp_static())``), ``multi``
@@ -46,28 +46,35 @@ Phases (each prints one line; any failure raises and exits nonzero):
    ``make_multisensor_step`` with two cameras that share each frame's
    cloud and pose (the rule of ``bench.py``'s two-camera cell):
    ``multisensor_2cam`` (the flagship's configuration) and
-   ``multisensor_compact`` (``large_urban()``) -- each with
+   ``multisensor_compact`` (``large_urban()``); through
+   ``make_multisensor_step(cfg, 4)`` on the frames of a surround rig of
+   four cameras (``dspmap_tpu_torch/utils/rig.py``: camera k turned k x 90
+   degrees about the body's z axis, each rendering its own cloud):
+   ``multisensor_4cam`` (the flagship's configuration) -- each with
    the kernels' launch counts set to 0 before and pinned after, one warm
    frame under PyTorch's sync debug mode (it must not synchronize the host
    with the card), finite state and occupied voxels;
 5. card against CPU for each path: the state after a kept frame is copied
    to the CPU and the next frame is stepped on both with the same random
    draws (see :func:`card_vs_cpu` for the bars; on the multi-sensor paths
-   every sensor's birth is pinned to the card's ``norm_coeff`` in turn),
-   then ``repeat`` (:func:`check_repeat`): from the path's last state,
-   four more frames twice over with the same draws, every leaf of the two
-   states and every output bit-equal; then ``graph``
+   every sensor's birth is pinned to the card's ``norm_coeff`` in turn;
+   the CPU's frames of every path run together in worker processes after
+   phase 8, so that none overlaps a timed phase, and their lines and
+   checks come then), then ``repeat`` (:func:`check_repeat`): from the
+   path's last state, four more frames twice over with the same draws,
+   every leaf of the two states and every output bit-equal; then ``graph``
    (:func:`check_graph`): eight more frames through the eager step and
    through its graphed form on the same draws, by
    ``dspmap_tpu_torch/utils/graph_ritual.py`` -- ``make_graphed_step`` on
    the six single-camera paths (one CUDA graph), and
-   ``make_graphed_multisensor_step`` on the two two-camera paths (one
+   ``make_graphed_multisensor_step`` on the three multi-camera paths (one
    graph a pattern of admitted cameras: a frame of camera 0 alone and one
-   of camera 1 alone among the eight, three captures) -- with a rejected
-   frame and a live setter among them, every leaf and output bit-equal
-   frame by frame, one capture a pattern, no kernel launched from the
-   host during a replay, both frame times, each capture's time and
-   memory pool;
+   of the last camera alone among the eight, three captures on two
+   cameras; on four also a frame of cameras 0 and 2, four captures) --
+   with a rejected frame and a live setter among them, every leaf and
+   output bit-equal frame by frame, one capture a pattern, no kernel
+   launched from the host during a replay, both frame times, each
+   capture's time and memory pool;
 6. the caller's TF32 matmul setting, True through phases 4 and 5, is
    still True after them;
 7. ``io``, in a temporary directory (see :func:`check_io`): the replay
@@ -675,9 +682,13 @@ def check_segscan(cfg, device):
 #: the JV solve's phase-3 instances: tie-heavy costs at the flagship's
 #: N = max_clusters = 16 from a generator of seed JV_SEED, n_rows cycling
 #: through 0..16; every JV_ON_CARD-th also solved by the plain version on
-#: the card; the plain version on the CPU runs in JV_WORKERS processes
+#: the card; the plain version on the CPU runs in the WORKERS processes
 #: while the kernels build
-JV_INSTANCES, JV_ON_CARD, JV_SEED, JV_WORKERS = 500, 25, 16, 4
+JV_INSTANCES, JV_ON_CARD, JV_SEED = 500, 25, 16
+#: the worker processes of the CPU's side, one a core of the card's host
+#: (8): the JV check's plain solves while the kernels build, then phase 5's
+#: CPU frames once the card's phases are done
+WORKERS = 8
 #: float operations a JV path step takes per column (two subtracts, an
 #: add, the compare and the argmin's compare) and a row per used column
 #: (the two potential updates)
@@ -686,7 +697,7 @@ JV_FLOPS_PER_COLUMN_STEP, JV_FLOPS_PER_USED = 5, 2
 
 def _jv_plain_share(n, r, part):
     """``_jv_plain`` on the CPU of :func:`check_jv`'s instances ``part``,
-    ``part + JV_WORKERS``, ...: ``{k: p as numpy}`` (run in a worker
+    ``part + WORKERS``, ...: ``{k: p as numpy}`` (run in a worker
     process of its own)."""
     import torch
 
@@ -699,24 +710,24 @@ def _jv_plain_share(n, r, part):
     out = {}
     for k in range(JV_INSTANCES):
         a = jv_case(n, rng)
-        if k % JV_WORKERS == part:
+        if k % WORKERS == part:
             out[k] = assignment._jv_plain(
                 torch.from_numpy(a), torch.tensor(k % (r + 1)), r).numpy()
     return out
 
 
 def start_jv_plain(cfg):
-    """Start :func:`_jv_plain_share` in :data:`JV_WORKERS` processes for
+    """Start :func:`_jv_plain_share` in :data:`WORKERS` processes for
     :func:`check_jv` at ``cfg``'s ``N = max_clusters``.  Returns the pool
     (the caller shuts it down) and the futures."""
     import concurrent.futures
     import multiprocessing
 
     pool = concurrent.futures.ProcessPoolExecutor(
-        JV_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        WORKERS, mp_context=multiprocessing.get_context("spawn"))
     n = cfg.max_clusters
     return pool, [pool.submit(_jv_plain_share, n, n, part)
-                  for part in range(JV_WORKERS)]
+                  for part in range(WORKERS)]
 
 
 def check_jv(cfg, device, on_cpu):
@@ -768,11 +779,55 @@ def check_jv(cfg, device, on_cpu):
     return {"jv_solve": row}
 
 
+#: torch's threads in a worker process that steps phase 5's CPU frames
+CPU_THREADS = 1
+
+
+def _cpu_frame(cfg, n_sensors, state, frame, draws, updates):
+    """Phase 5's CPU step, in a worker process of :func:`start_jv_plain`'s
+    pool: ``state`` (on the CPU) through the plain path on ``frame`` with
+    ``draws``, each ``measurement_update`` pinned to the next of
+    ``updates`` (``None``: the free step).  Returns the new state's flags,
+    ``weight_sum`` and future, its ``alive`` and the step's seconds."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import dspmap_tpu_torch as dm
+    from dspmap_tpu_torch.utils.parity import updates_pinned
+
+    torch.set_num_threads(CPU_THREADS)
+    step = (dm.make_step(cfg) if n_sensors is None
+            else dm.make_multisensor_step(cfg, n_sensors))
+    pending = list(updates or ())
+    t0 = time.perf_counter()
+    with (contextlib.nullcontext() if updates is None
+          else updates_pinned(pending)):
+        new, out = step(state, frame, draws)
+    if pending:
+        raise RuntimeError(f"{len(pending)} updates left unpinned")
+    return (new.particles.flags, new.weight_sum, new.future,
+            out.metrics["alive"], time.perf_counter() - t0)
+
+
+def _measures(flags, weight_sum, future, alive):
+    """What :func:`~dspmap_tpu_torch.utils.parity.agreement` reads of a
+    step's ``(state, output)``."""
+    from types import SimpleNamespace as NS
+
+    return (NS(particles=NS(flags=flags), weight_sum=weight_sum,
+               future=future), NS(metrics={"alive": alive}))
+
+
 def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu",
-                n_sensors=None) -> None:
+                n_sensors=None):
     """Phase 5: one frame from the same state with the same draws on the
     card and through the CPU's plain path (``n_sensors``: the step is
     :func:`make_multisensor_step`'s, whose updates are pinned one by one).
+    The card's frame runs here.  Returns ``(jobs, check)``: the arguments
+    of the two CPU frames (the teacher-forced and the free one) for
+    :func:`_cpu_frame`, which the caller runs in worker processes once no
+    timed phase is left, and the check, which takes their results, prints
+    the lines and holds the bars.
 
     The updated weights and the newborn weight ``w_b * sum 1/C(z)`` differ
     in their last bits: the CPU's pair passes use the ``|a|^2 + |b|^2 -
@@ -794,11 +849,9 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu",
     tests/test_torch_step.py, 99.5%.  Both sets of bars are
     ``utils/parity.py``'s (``PINNED_BARS``, ``free_bars``), which
     ``tools/parity_torch.py card`` holds every frame of 30 to."""
-    import torch
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch.utils.parity import (PINNED_BARS, agreement,
                                                free_bars, missed_bars,
-                                               updates_pinned,
                                                updates_recorded)
 
     if n_sensors is None:
@@ -813,21 +866,29 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu",
     t0 = time.perf_counter()
     seen = []
     with updates_recorded(seen):
-        card = step(state, frame, draws)
-    pending = list(seen)
-    with updates_pinned(pending):
-        pinned = agreement(card, step(cpu_state, frame, cpu_draws))
-    _require(not pending and len(seen) == (n_sensors or 1),
-             f"{label}: {len(seen)} updates pinned")
-    free = agreement(card, step(cpu_state, frame, cpu_draws))
-    torch.cuda.synchronize()
-    _say(label + "_cost", seconds_for_one_card_and_two_cpu_frames=(
-        time.perf_counter() - t0))
-    for tag, m, bars in ((label, pinned, PINNED_BARS),
-                         (label + "_free", free, free_bars(cfg))):
-        _say(tag, **m)
-        missed = missed_bars(m, bars)
-        _require(not missed, f"{tag} missed the bars of {missed}")
+        new, out = step(state, frame, draws)
+    card = _measures(new.particles.flags.cpu(), new.weight_sum.cpu(),
+                     new.future.cpu(), out.metrics["alive"].cpu())
+    card_s = time.perf_counter() - t0
+    _require(len(seen) == (n_sensors or 1),
+             f"{label}: {len(seen)} updates recorded")
+    updates = [(p.to("cpu"), nc.cpu()) for p, nc in seen]
+    jobs = [(cfg, n_sensors, cpu_state, frame, cpu_draws, u)
+            for u in (updates, None)]
+
+    def check(results):
+        (*pinned, pinned_s), (*free, free_s) = results
+        _say(label + "_cost", card_frame_s=card_s, cpu_frame_s=json.dumps(
+            [pinned_s, free_s]), cpu_threads=CPU_THREADS)
+        for tag, m, bars in (
+                (label, agreement(card, _measures(*pinned)), PINNED_BARS),
+                (label + "_free", agreement(card, _measures(*free)),
+                 free_bars(cfg))):
+            _say(tag, **m)
+            missed = missed_bars(m, bars)
+            _require(not missed, f"{tag} missed the bars of {missed}")
+
+    return jobs, check
 
 
 _POOL_FRAME = {"occupancy_pool_pass": 1, "sweep": 1, "update_pass1": 1,
@@ -835,11 +896,17 @@ _POOL_FRAME = {"occupancy_pool_pass": 1, "sweep": 1, "update_pass1": 1,
                "jv_solve": 1}
 _COMPACT_FRAME = {**_POOL_FRAME, "occupancy_pool_pass": 0, "sweep": 0,
                   "seg_scans": 4}
-#: two cameras: the pair passes and the estimator's JV solve run once a
-#: sensor
-_TWO_CAMERAS = {"update_pass1": 2, "update_pass2": 2, "jv_solve": 2}
+def _cameras(n) -> dict:
+    """``n`` cameras: the pair passes and the estimator's JV solve run once
+    a sensor."""
+    return {"update_pass1": n, "update_pass2": n, "jv_solve": n}
+
+
 #: per path: (warm-up frames, timed frames, the watched warm frame, the
-#: kernels' launches per frame, sensors: None for ``make_step``).  The
+#: kernels' launches per frame, sensors: None for ``make_step``, whether
+#: its cameras are ``utils/rig.py``'s surround rig -- each its own cloud --
+#: rather than each given the frame's one cloud and pose; the frames are
+#: ``graph_ritual.sequence``'s).  The
 #: multi-neighbor planes (17.3 MiB) take the flat working phase: flags, px,
 #: py, pz, vx, vy and weight are copied in by one K5a launch (vz is made
 #: anew as zeros, t is not touched); K1 reads the seven working planes
@@ -849,44 +916,49 @@ _TWO_CAMERAS = {"update_pass1": 2, "update_pass2": 2, "jv_solve": 2}
 #: times (rebin_compact's segment table, birth's table, occupancy's two
 #: scan sets); the two-camera compact frame five, birth's table once a
 #: sensor.  The velocity estimator solves one assignment a frame (a camera)
-#: wherever it runs: every path but static, whose preset turns it off.
+#: wherever it runs: every path but static, whose preset turns it off.  The
+#: four-camera path runs the flagship's pool through the same stages as the
+#: two-camera one.
 PATHS = {
-    "flagship": (5, 10, 4, _POOL_FRAME, None),
-    "large_urban": (3, 6, 2, _COMPACT_FRAME, None),
-    "static": (3, 8, 2, {**_POOL_FRAME, "jv_solve": 0}, None),
-    "multi": (3, 8, 2, {**_POOL_FRAME, "to_flat": 1, "from_flat": 1}, None),
-    "noisy": (5, 10, 4, {**_POOL_FRAME, "sweep": 0}, None),
-    "noisy_compact": (3, 6, 2, _COMPACT_FRAME, None),
+    "flagship": (5, 10, 4, _POOL_FRAME, None, False),
+    "large_urban": (3, 6, 2, _COMPACT_FRAME, None, False),
+    "static": (3, 8, 2, {**_POOL_FRAME, "jv_solve": 0}, None, False),
+    "multi": (3, 8, 2, {**_POOL_FRAME, "to_flat": 1, "from_flat": 1}, None,
+              False),
+    "noisy": (5, 10, 4, {**_POOL_FRAME, "sweep": 0}, None, False),
+    "noisy_compact": (3, 6, 2, _COMPACT_FRAME, None, False),
     "multisensor_2cam": (3, 8, 2, {**_POOL_FRAME, "sweep": 0,
-                                   **_TWO_CAMERAS}, 2),
+                                   **_cameras(2)}, 2, False),
     "multisensor_compact": (3, 4, 2, {**_COMPACT_FRAME, "seg_scans": 5,
-                                      **_TWO_CAMERAS}, 2),
+                                      **_cameras(2)}, 2, False),
+    "multisensor_4cam": (3, 4, 2, {**_POOL_FRAME, "sweep": 0,
+                                   **_cameras(4)}, 4, True),
 }
 
 
 def run_path(name, cfg, device):
     """Phases 4 and 5 for one path: its frames on the card with the launch
     counts set to 0 just before and read just after, then one frame on
-    both the card and the CPU from the same state and draws.  Returns
-    ``(launches, median frame ms, alive after the last frame, the state
-    after it)``."""
+    the card from a kept state, to be held against the CPU's from the same
+    state and draws (:func:`card_vs_cpu`).  Returns ``(launches, median
+    frame ms, alive after the last frame, the state after it, phase 5's
+    CPU jobs and check)``."""
     import torch
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch import kernels
-    from dspmap_tpu_torch.utils import sim
+    from dspmap_tpu_torch.utils.graph_ritual import sequence
 
-    warm, timed, watched, per_frame, n_sensors = PATHS[name]
+    warm, timed, watched, per_frame, n_sensors, rig = PATHS[name]
     n = warm + timed
     kept_at = min(10, n - 2)  # the frame whose state phase 5 starts from
-    frames = [dm.Frame(*f) for f in sim.generate_sequence(n, cfg, seed=0)]
+    frames = sequence(n, cfg, n_sensors, rig)
     if n_sensors is None:
         step = dm.make_step(cfg)
         state = dm.init_state(cfg, seed=0, device=device)
-    else:  # every camera sees the frame's cloud from its pose
+    else:
         step = dm.make_multisensor_step(cfg, n_sensors)
         state = dm.init_multisensor_state(cfg, n_sensors, seed=0,
                                           device=device)
-        frames = [dm.stack_frames([f] * n_sensors) for f in frames]
     alive, ms = [], []
     kept = None
     kernels.reset_launch_counts()
@@ -918,9 +990,9 @@ def run_path(name, cfg, device):
          alive_last=alive[-1], occupied=n_occ, launches=json.dumps(launches),
          host_syncs_in_watched_frame=len(syncs))
 
-    card_vs_cpu(cfg, step, kept, frames[kept_at + 1], device,
-                label=f"{name}_card_vs_cpu", n_sensors=n_sensors)
-    return launches, statistics.median(ms), alive[-1], state
+    phase5 = card_vs_cpu(cfg, step, kept, frames[kept_at + 1], device,
+                         label=f"{name}_card_vs_cpu", n_sensors=n_sensors)
+    return launches, statistics.median(ms), alive[-1], state, phase5
 
 
 #: the ``repeat`` phase: frames run twice a path, and the seed of their draws
@@ -937,14 +1009,13 @@ def check_repeat(name, cfg, state, device) -> None:
     its bits."""
     import torch
     import dspmap_tpu_torch as dm
-    from dspmap_tpu_torch.utils import sim
+    from dspmap_tpu_torch.utils.graph_ritual import sequence
     from dspmap_tpu_torch.utils.parity import (differing_leaves,
                                                differing_outputs, leaves)
 
-    warm, timed, _, _, n_sensors = PATHS[name]
+    warm, timed, _, _, n_sensors, rig = PATHS[name]
     n = warm + timed
-    frames = [dm.Frame(*f) for f in sim.generate_sequence(
-        n + REPEAT_FRAMES, cfg, seed=0)][n:]
+    frames = sequence(n + REPEAT_FRAMES, cfg, n_sensors, rig)[n:]
     gen = torch.Generator(device=device)
     gen.manual_seed(REPEAT_SEED)
     if n_sensors is None:
@@ -952,7 +1023,6 @@ def check_repeat(name, cfg, state, device) -> None:
         draws = [dm.make_draws(cfg, gen, device) for _ in frames]
     else:
         step = dm.make_multisensor_step(cfg, n_sensors)
-        frames = [dm.stack_frames([f] * n_sensors) for f in frames]
         draws = [dm.make_multisensor_draws(cfg, n_sensors, gen, device)
                  for _ in frames]
     t0 = time.perf_counter()
@@ -1001,12 +1071,14 @@ def check_graph(name, cfg, state, device, smi) -> None:
     drawing from its own of two equal generators as replay and the ROS
     bridges run it (so on the same draws, and the graphed step's own draw
     path held): a pose jump that admission control rejects, a live setter,
-    on the two-camera paths a frame of camera 0 alone and one of camera 1
-    alone.  Every state leaf and every output must be bit-equal after each
-    frame, the graphed step must capture once a pattern of admitted cameras
-    (one graph on a single-camera path, three on a two-camera path; each
-    capture's warm-up run and capture call each wrapper once the pattern's
-    frame's worth) and launch no kernel from the host during a replay.
+    on the multi-camera paths a frame of camera 0 alone and one of the
+    last camera alone (and one of cameras 0 and 2 on four cameras).  Every
+    state leaf and every output must be bit-equal after each frame, the
+    graphed step must capture once a pattern of admitted cameras (one graph
+    on a single-camera path, three on a two-camera path, four on the
+    four-camera path; each capture's warm-up run and capture call each
+    wrapper once the pattern's frame's worth) and launch no kernel from the
+    host during a replay.
     Prints the frame medians of both steps over the frames of every camera
     after the first capture, each capture's own ms and memory pool, the
     host launches a graphed frame and the card's busy ms in one profiled
@@ -1014,13 +1086,11 @@ def check_graph(name, cfg, state, device, smi) -> None:
     import torch
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch.utils import graph_ritual as gr
-    from dspmap_tpu_torch.utils import sim
 
-    warm, timed, _, per_frame, n_sensors = PATHS[name]
+    warm, timed, _, per_frame, n_sensors, rig = PATHS[name]
     n = warm + timed + REPEAT_FRAMES
     frames, patterns = gr.ritual_frames(
-        [dm.Frame(*f) for f in sim.generate_sequence(
-            n + gr.FRAMES, cfg, seed=0)][n:], n_sensors)
+        gr.sequence(n + gr.FRAMES, cfg, n_sensors, rig)[n:], n_sensors)
     if n_sensors is None:
         eager, graphed = dm.make_step(cfg), dm.make_graphed_step(cfg)
     else:
@@ -1053,7 +1123,8 @@ def check_graph(name, cfg, state, device, smi) -> None:
     turns.a = turns.b = turns.out_a = turns.out_b = graphed = None
     torch.cuda.empty_cache()
     _say(f"graph_{name}", frames=gr.FRAMES, rejected=1, setter=1,
-         one_camera_frames=0 if n_sensors is None else len(gr.ONE_CAMERA),
+         partial_frames=0 if n_sensors is None else len(
+             gr.some_cameras(n_sensors)),
          eager_frame_ms=statistics.median(turns.eager_ms),
          graphed_frame_ms=statistics.median(turns.graphed_ms),
          graphed_frame_ms_all=json.dumps([round(x, 3)
@@ -1343,6 +1414,7 @@ def path_configs():
         "noisy_compact": dm.large_urban(limit_motion_to_xy_plane=False),
         "multisensor_2cam": dm.example_node_settings(dm.dsp_dynamic()),
         "multisensor_compact": dm.large_urban(),
+        "multisensor_4cam": dm.example_node_settings(dm.dsp_dynamic()),
     }
 
 
@@ -1665,7 +1737,7 @@ KERNELS = {
 
 def kernel_row(name, by_shape, by_path) -> dict:
     """One kernel's entry of the ``kernels`` line: its launches over the
-    eight paths and the ``io`` phase's, its measurements at the shape of its first path, and under
+    nine paths and the ``io`` phase's, its measurements at the shape of its first path, and under
     ``by_shape`` the same measurements at every shape it was checked at."""
     source, replaces, own = KERNELS[name]
     shapes = {label: rows[name] for label, rows in by_shape.items()
@@ -1687,10 +1759,12 @@ def _stop(procs) -> None:
         proc.join()
 
 
-def _phases(configs, device, smi, jv_cpu, procs, tmp):
+def _phases(configs, device, smi, jv_cpu, pool, procs, tmp):
     """Phases 2-8 after the build (phase 8's ranks ``procs`` started in
-    ``tmp``, the JV check's plain solves ``jv_cpu`` done).  Returns the
-    kernels' measurements by shape and their launches by path."""
+    ``tmp``, the JV check's plain solves ``jv_cpu`` done in ``pool``, whose
+    workers step phase 5's CPU frames of every path together after phase
+    8, when no timed phase is left).  Returns the kernels' measurements by
+    shape and their launches by path."""
     import torch
     from dspmap_tpu_torch import kernels
 
@@ -1722,10 +1796,11 @@ def _phases(configs, device, smi, jv_cpu, procs, tmp):
     # float32 (the card-against-CPU bars) and leave the setting as it was
     flag = torch.backends.cuda.matmul
     saved, flag.allow_tf32 = flag.allow_tf32, True
-    by_path = {}
+    by_path, phase5 = {}, []
     try:
         for name, c in configs.items():
-            launches, frame_ms, alive, state = run_path(name, c, device)
+            launches, frame_ms, alive, state, cpu = run_path(name, c, device)
+            phase5.append(cpu)
             by_path[name] = launches
             _say(f"{name}_summary", median_frame_ms=frame_ms, alive=alive,
                  card=smi)
@@ -1739,6 +1814,15 @@ def _phases(configs, device, smi, jv_cpu, procs, tmp):
         flag.allow_tf32 = saved
     by_path.update(check_io(configs, device, smi))
     by_path.update(check_sharded(smi, procs, tmp))
+    t0 = time.perf_counter()
+    # the multi-camera paths' frames, the longest, first
+    futures = [[pool.submit(_cpu_frame, *job) for job in jobs]
+               for jobs, _ in reversed(phase5)][::-1]
+    for (_, check), fs in zip(phase5, futures):
+        check([f.result() for f in fs])
+    _say("card_vs_cpu_frames", seconds=time.perf_counter() - t0,
+         frames=sum(map(len, futures)), workers=WORKERS,
+         cpu_threads=CPU_THREADS)
     return by_shape, by_path
 
 
@@ -1762,8 +1846,8 @@ def main() -> int:
         tmp = stack.enter_context(tempfile.TemporaryDirectory())
         procs = start_sharded(tmp)
         stack.callback(_stop, procs)
-        jv_pool, jv_plain = start_jv_plain(configs["flagship"])
-        stack.callback(jv_pool.shutdown, cancel_futures=True)
+        pool, jv_plain = start_jv_plain(configs["flagship"])
+        stack.callback(pool.shutdown, cancel_futures=True)
         major, minor = torch.cuda.get_device_capability(0)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1781,8 +1865,8 @@ def main() -> int:
         _say("build", seconds=t1 - t0,
              then_waited_for_the_plain_jv_s=time.perf_counter() - t1)
         by_shape, by_path = _phases(configs, device=torch.device("cuda", 0),
-                                    smi=smi, jv_cpu=jv_cpu, procs=procs,
-                                    tmp=tmp)
+                                    smi=smi, jv_cpu=jv_cpu, pool=pool,
+                                    procs=procs, tmp=tmp)
 
     _say("total", seconds=time.perf_counter() - started)
     print(smi)

@@ -4,10 +4,12 @@ draws: the ritual that ``chip_smoke.py``'s ``graph`` phase runs on one card
 :mod:`.shard_probe` runs on every rank of a mesh
 (``make_graphed_shardmap_step``).
 
-:func:`ritual_frames` makes the ritual's :data:`FRAMES` frames from a
-sequence: frame :data:`REJECTED` a pose jump of :data:`JUMP_M` m that
-admission control rejects and, for two cameras, the frames of
-:data:`ONE_CAMERA` with one camera skipped (:func:`cameras`).
+:func:`sequence` gives a path's frames of the synthetic street, one
+camera's or several cameras' (stacked, a leading camera axis);
+:func:`ritual_frames` makes the ritual's :data:`FRAMES` frames from them:
+frame :data:`REJECTED` a pose jump of :data:`JUMP_M` m that admission
+control rejects and, for several cameras, the frames of
+:func:`some_cameras` with cameras skipped (:func:`cameras`).
 :func:`in_turns` runs them through the eager and the graphed step in turns,
 each from its own state and generator, a live setter changing
 ``p_detection`` to :data:`P_SETTER` before frame :data:`SETTER`, and checks
@@ -26,9 +28,11 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..models.pipeline import set_detection_probability, stack_frames
+from ..models.pipeline import Frame, set_detection_probability, stack_frames
 from ..state import HOST_LEAVES, MapState, tensor_leaves
+from . import sim
 from .parity import differing_outputs
+from .rig import surround_sequence
 
 #: the ritual's frames, the one rejected (camera 0's on two cameras), the
 #: one before which the setter runs, and the seed of both generators
@@ -36,9 +40,6 @@ FRAMES, REJECTED, SETTER, SEED = 8, 3, 5, 2
 #: the pose jump of the rejected frame, metres along x (admission rejects
 #: more than 10 m)
 JUMP_M = 12.0
-#: the two-camera frames of one camera: ritual frame -> the cameras
-#: admitted
-ONE_CAMERA = {2: (True, False), 6: (False, True)}
 #: the detection probability the setter sets
 P_SETTER = 0.85
 
@@ -48,22 +49,54 @@ def pattern_label(admitted) -> str:
     return "".join("1" if a else "0" for a in admitted)
 
 
+def some_cameras(n_sensors: int) -> dict:
+    """The ritual's frames of ``n_sensors`` cameras that skip some: ritual
+    frame -> the cameras admitted.  Camera 0 alone at frame 2 and the last
+    camera alone at frame 6 (the two-camera paths' frames) and, from three
+    cameras on, every other camera from camera 0 at frame 4 (on a surround
+    rig of four, the front and the back camera)."""
+    alone = lambda k: tuple(c == k for c in range(n_sensors))  # noqa: E731
+    out = {2: alone(0), 6: alone(n_sensors - 1)}
+    if n_sensors > 2:
+        out[4] = tuple(c % 2 == 0 for c in range(n_sensors))
+    return dict(sorted(out.items()))
+
+
+def sequence(n_frames: int, cfg, n_sensors=None, rig=False) -> list:
+    """Frames 0 to ``n_frames - 1`` of the synthetic street (seed 0):
+    ``sim.generate_sequence``'s for one camera (``n_sensors`` None); for
+    ``n_sensors`` cameras its frame given to every camera (they share its
+    cloud and pose, the rule of ``bench.py``'s two-camera cell) or, with
+    ``rig``, the frames of ``utils/rig.py``'s surround rig (each camera its
+    own cloud), each a frame of ``stack_frames``' form."""
+    if rig:
+        return [Frame(*f) for f in surround_sequence(n_frames, cfg,
+                                                      n_sensors, seed=0)]
+    frames = [Frame(*f) for f in sim.generate_sequence(n_frames, cfg, seed=0)]
+    if n_sensors is None:
+        return frames
+    return [stack_frames([f] * n_sensors) for f in frames]
+
+
 def cameras(frame, admitted):
-    """One frame of ``len(admitted)`` cameras that share ``frame``'s cloud
-    and pose; a skipped camera's quaternion is NaN, which admission skips
-    alone (a zero quaternion passes its test of every component within
-    +-1.001)."""
-    skipped = np.full(4, np.nan, np.float32)
-    return stack_frames([frame if ok else frame._replace(quat=skipped)
-                         for ok in admitted])
+    """``frame``, a frame of ``len(admitted)`` cameras (``stack_frames``'
+    form), with the cameras not ``admitted`` skipped: their quaternions
+    NaN, which admission skips alone (a zero quaternion passes its test of
+    every component within +-1.001)."""
+    if len(frame.quat) != len(admitted):
+        raise ValueError(f"a frame of {len(frame.quat)} cameras, "
+                         f"{len(admitted)} patterns")
+    quat = np.array(frame.quat, np.float32)
+    quat[~np.asarray(admitted, bool)] = np.nan
+    return frame._replace(quat=quat)
 
 
 def ritual_frames(frames, n_sensors=None):
-    """``(frames, patterns)``: the :data:`FRAMES` frames ``frames`` with
-    frame :data:`REJECTED` moved :data:`JUMP_M` m along x and, for
-    ``n_sensors`` cameras, made frames of that many cameras with the
-    patterns of :data:`ONE_CAMERA`; ``patterns`` holds the cameras each
-    frame admits."""
+    """``(frames, patterns)``: the :data:`FRAMES` frames ``frames`` (of
+    ``n_sensors`` cameras each, :func:`sequence`'s) with frame
+    :data:`REJECTED` moved :data:`JUMP_M` m along x and, for several
+    cameras, the cameras of :func:`some_cameras` skipped
+    (:func:`cameras`); ``patterns`` holds the cameras each frame admits."""
     frames = list(frames)
     if len(frames) != FRAMES:
         raise ValueError(f"{len(frames)} frames; the ritual takes {FRAMES}")
@@ -72,7 +105,8 @@ def ritual_frames(frames, n_sensors=None):
         sensor_pos=jump.sensor_pos + np.float32([JUMP_M, 0.0, 0.0]))
     if n_sensors is None:
         return frames, [(True,)] * FRAMES
-    patterns = [ONE_CAMERA.get(k, (True,) * n_sensors) for k in range(FRAMES)]
+    some = some_cameras(n_sensors)
+    patterns = [some.get(k, (True,) * n_sensors) for k in range(FRAMES)]
     return [cameras(f, p) for f, p in zip(frames, patterns)], patterns
 
 

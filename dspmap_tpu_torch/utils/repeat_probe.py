@@ -6,7 +6,9 @@ Run on a machine with a CUDA card, from the root of a checkout::
     python3 -m dspmap_tpu_torch.utils.repeat_probe [flagship large_urban ...]
 
 For each named path (default: the eight single-device paths of
-``chip_smoke.py``, at full width, on the synthetic street sequence, seed 0)
+``chip_smoke.py`` that give each camera the sequence's frame -- all but
+``multisensor_4cam`` --, at full width, on the synthetic street sequence,
+seed 0)
 it runs three frames, then
 
 * three frames under ``torch.use_deterministic_algorithms(True,

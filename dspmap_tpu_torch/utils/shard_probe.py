@@ -4,6 +4,7 @@ against the eager sharded step and the unsharded step.
 Run on a machine with four CUDA cards, from the root of a checkout::
 
     python3 -m dspmap_tpu_torch.utils.shard_probe [n_ranks [path ...] [budget=value ...]]
+    python3 -m dspmap_tpu_torch.utils.shard_probe weak [n_ranks ...] [preset ...]
 
 It builds the kernels, then starts ``n_ranks`` processes (default 4; one
 card each, at most as many as the machine has) joined in one NCCL group
@@ -15,10 +16,13 @@ configuration) in all of them through :func:`ritual`:
   ``graph_ritual.in_turns``'s frames through the eager sharded step
   (``make_shardmap_step``) and its graphed form
   (``make_graphed_shardmap_step``) in turns on the same draws -- a pose
-  jump that admission rejects, a ``p_detection`` setter, on the two-camera
-  paths a frame of each camera alone: every rank's slab, generator and
-  outputs compared bit for bit after each frame, the graphed step's
-  captures and the kernels the host launches in a replay (none) counted;
+  jump that admission rejects, a ``p_detection`` setter, on the
+  multi-camera paths a frame of the first and one of the last camera
+  alone (and on ``sharded_multisensor_4cam``, whose four cameras are
+  ``utils/rig.py``'s surround rig, one of cameras 0 and 2): every rank's
+  slab, generator and outputs compared bit for bit after each frame, the
+  graphed step's captures and the kernels the host launches in a replay
+  (none) counted;
 * the replicated leaves (estimator, host scalars, runtime parameters,
   generator, metrics) of every rank compared across the ranks;
 * on rank 0, after every accepted frame, the gathered sharded state
@@ -35,7 +39,24 @@ configuration) in all of them through :func:`ritual`:
   medians of each rank over the accepted frames of every camera after
   their pattern's capture, and the unsharded graphed frame's on rank 0;
 * one more graphed frame profiled on rank 0: the card's busy ms and the
-  NCCL kernels' device ms and count.
+  NCCL kernels' device ms and count;
+* on the rig's path, every other pattern of admitted cameras captured
+  once (:func:`every_pattern`): each pattern's memory pool and their sum
+  beside the card's memory.
+
+The ``weak`` mode is the port's counterpart of ``bench_scaling.py``: for
+each rank count (default 1, 2 and 4, one card a rank, each count a group
+of its own) and preset (flagship and large_urban), the preset's map grown
+in z with the ranks (:func:`weak_config`: a rank's slab is the one-rank
+map) through the graphed sharded step on one camera (:func:`weak_run`:
+3 warm-up frames, 30 timed, 10 for large_urban), and above one rank the
+grown map held to the same map on one card (:func:`weak_check`), at
+budgets that no run overflows (large_urban's update budgets raised,
+:data:`WEAK_URBAN_BUDGETS`; a run that drops particles fails).  Rank 0
+prints a line a preset and rank count -- each rank's frame p50 and p90,
+busy ms, live particles and counters of dropped particles; particles/s
+and voxel-slots/s -- and the last line gives both rates' efficiency
+rate_N / (N * rate_1) (:func:`weak_summary`).
 
 Rank 0 prints one JSON line a path with every rank's numbers.  A check
 that fails is reported by every rank and fails the run (exit code 1)
@@ -49,7 +70,9 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import hashlib
+import itertools
 import json
+import os
 import socket
 import statistics
 import subprocess
@@ -68,9 +91,11 @@ from .. import (Frame, dsp_dynamic, example_node_settings, gather_state,
                 set_detection_probability, shard_state, state_shardings)
 from ..models.graphed import _flat
 from ..models.pipeline import _map_draws, _particle_shape
+from ..parallel.shard_step import shard_ctx
 from . import sim
-from .graph_ritual import (FRAMES, P_SETTER, SEED, busy, cameras, in_turns,
-                           pattern_label, ritual_frames)
+from .graph_ritual import (FRAMES, P_SETTER, SEED, busy, cameras,
+                           differing_on_card, in_turns, pattern_label,
+                           ritual_frames, sequence)
 from .parity import (PINNED_BARS, agreement, counters_recorded, leaves,
                      missed_bars, placed_alike)
 
@@ -98,20 +123,26 @@ TWO_CAMERAS_UNCONTESTED = dict(particle_spill_capacity=1 << 15)
 
 
 def path_configs() -> dict:
-    """``label -> (cfg, n_sensors or None)``: ``chip_smoke.py``'s sharded
-    paths, the flagship's noisy arm besides, with the budgets neither
-    side overflows."""
+    """``label -> (cfg, n_sensors or None, rig)``: ``chip_smoke.py``'s
+    sharded paths, the flagship's noisy arm and the four-camera rig
+    besides, with the budgets neither side overflows.  ``rig``: the
+    cameras are ``utils/rig.py``'s surround rig, each its own cloud (whose
+    four cameras leave the flagship's budgets as they are: no camera's
+    update overflows the spill tier on one card); else every camera is
+    given the frame's one cloud and pose, as on ``chip_smoke.py``'s
+    two-camera paths (``graph_ritual.sequence``)."""
     flagship = example_node_settings(dsp_dynamic())
     urban = dataclasses.replace(large_urban(), mover_exchange="ring",
                                 **UNCONTESTED)
     return {
-        "sharded_flagship": (flagship, None),
-        "sharded_large_urban_uncontested": (urban, None),
+        "sharded_flagship": (flagship, None, False),
+        "sharded_large_urban_uncontested": (urban, None, False),
         "sharded_noisy": (example_node_settings(
-            dsp_dynamic(limit_motion_to_xy_plane=False)), None),
+            dsp_dynamic(limit_motion_to_xy_plane=False)), None, False),
         "sharded_multisensor_2cam": (dataclasses.replace(
-            flagship, **TWO_CAMERAS_UNCONTESTED), 2),
-        "sharded_multisensor_compact": (urban, 2),
+            flagship, **TWO_CAMERAS_UNCONTESTED), 2, False),
+        "sharded_multisensor_compact": (urban, 2, False),
+        "sharded_multisensor_4cam": (flagship, 4, True),
     }
 
 
@@ -217,12 +248,54 @@ def contested(sharded: dict, unsharded: dict) -> list:
     return out
 
 
-def ritual(cfg, n_sensors, mesh, device, light=False) -> dict:
+def _least(x: int, mesh, device) -> int:
+    """The least of every rank's ``x``."""
+    v = torch.tensor([x], dtype=torch.int64, device=device)
+    if dist.is_initialized():
+        dist.all_reduce(v, op=dist.ReduceOp.MIN, group=mesh.group)
+    return int(v)
+
+
+def every_pattern(graphed, state, frame, mesh, device) -> dict:
+    """Captures every pattern of admitted cameras that the graphed
+    multi-camera step ``graphed`` has not captured yet, each on ``frame``
+    (a frame of every camera; the others' quaternions made NaN), while
+    every rank's card has room for two more pools as large as its largest
+    so far (the ranks agree, so each makes the same captures).  Returns
+    each pattern's pool bytes by label, their sum, the patterns left out
+    for want of room (the caller fails the run on any: the sum must be
+    every pattern's), and the card's free and total bytes after."""
+    n = len(frame.quat)
+    left_out = []
+    for pattern in itertools.product((True, False), repeat=n):
+        if not any(pattern) or pattern in graphed.pool_bytes:
+            continue
+        room = torch.cuda.mem_get_info(device)[0] - 2 * max(
+            graphed.pool_bytes.values())
+        if _least(room, mesh, device) < 0:
+            left_out.append(pattern_label(pattern))
+            continue
+        state, out = graphed(state, cameras(frame, pattern))
+        if not out.accepted:
+            raise RuntimeError(f"pattern {pattern_label(pattern)} rejected")
+    torch.cuda.synchronize(device)
+    free, total = torch.cuda.mem_get_info(device)
+    pools = {pattern_label(p): v for p, v in graphed.pool_bytes.items()}
+    return dict(every_pattern_pool_bytes=pools,
+                every_pattern_pool_sum=sum(pools.values()),
+                every_pattern_left_out=left_out,
+                card_free_bytes=free, card_total_bytes=total)
+
+
+def ritual(cfg, n_sensors, mesh, device, light=False, rig=False) -> dict:
     """One path in this rank (module docstring); every rank of ``mesh``
     calls it with the same arguments.  ``light`` leaves out the unsharded
     steps and the profiled frame (the bits, the captures and the launches
-    alone).  Returns this rank's record, whose ``failed`` lists the checks
-    it failed (rank 0's also those of the comparisons it alone makes)."""
+    alone); ``rig`` takes the frames of ``utils/rig.py``'s surround rig of
+    ``n_sensors`` cameras, whose every pattern of admitted cameras is then
+    captured once after the ritual (:func:`every_pattern`).  Returns this
+    rank's record, whose ``failed`` lists the checks it failed (rank 0's
+    also those of the comparisons it alone makes)."""
     started = time.perf_counter()
     parts = {}  # host seconds of the ritual's parts
 
@@ -240,20 +313,16 @@ def ritual(cfg, n_sensors, mesh, device, light=False) -> dict:
     graphed = make_graphed_shardmap_step(cfg, mesh, device=device,
                                          n_sensors=n_sensors)
     shard = graphed.shard
-    seq = [Frame(*f) for f in sim.generate_sequence(WARM + FRAMES, cfg,
-                                                     seed=0)]
+    seq = sequence(WARM + FRAMES, cfg, n_sensors, rig)
+    warm = seq[:WARM]
     frames, patterns = ritual_frames(seq[WARM:], n_sensors)
     if n_sensors is None:
-        warm = seq[:WARM]
-
         def fresh():
             return init_state(cfg, seed=0, device=device)
 
         def draws_of(gen):
             return make_draws(cfg, gen, device, shard)
     else:
-        warm = [cameras(f, (True,) * n_sensors) for f in seq[:WARM]]
-
         def fresh():
             return init_multisensor_state(cfg, n_sensors, seed=0,
                                           device=device)
@@ -362,6 +431,12 @@ def ritual(cfg, n_sensors, mesh, device, light=False) -> dict:
         else:
             graphed(turns.b, frames[-1])
         torch.cuda.synchronize(device)
+        if rig:
+            rec.update(every_pattern(graphed, turns.b, frames[-1], mesh,
+                                     device))
+            require(not rec["every_pattern_left_out"],
+                    f"no room on the card for the patterns "
+                    f"{rec['every_pattern_left_out']}")
     graphed.release()
     part("profiled")
     rec.update(failed=failed, seconds=time.perf_counter() - started,
@@ -379,16 +454,18 @@ class _Unsharded:
     step's budgets are each rank's, and arrivals from other slabs take
     other slots than on one card, so a run parts where one side overflows
     a budget the other does not, and, with pool-shaped noise, once a
-    particle's slot differs)."""
+    particle's slot differs).  Without ``free`` it makes the teacher-forced
+    comparison alone."""
 
-    def __init__(self, cfg, n_sensors, state):
+    def __init__(self, cfg, n_sensors, state, free=True):
         self.cfg, self.n_sensors, self.state = cfg, n_sensors, state
         if n_sensors is None:
             self.eager = make_step(cfg)
-            self.graphed = make_graphed_step(cfg)
+            self.graphed = make_graphed_step(cfg) if free else None
         else:
             self.eager = make_multisensor_step(cfg, n_sensors)
-            self.graphed = make_graphed_multisensor_step(cfg, n_sensors)
+            self.graphed = (make_graphed_multisensor_step(cfg, n_sensors)
+                            if free else None)
         self.frames, self.ms, self.seen = [], [], set()
 
     def setter(self) -> None:
@@ -407,15 +484,17 @@ class _Unsharded:
                 draws)
         mine = {m: int(v) for m, v in mine.items()}
         forced = sharded_agreement(cfg, after, out, ref, ref_out)
-        captured = pattern in self.seen
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        self.state, free_out = self.graphed(self.state, frame, draws)
-        torch.cuda.synchronize(dev)
-        if captured and all(pattern):
-            self.ms.append((time.perf_counter() - t0) * 1e3)
-        self.seen.add(pattern)
-        free = sharded_agreement(cfg, after, out, self.state, free_out)
+        free = None
+        if self.graphed is not None:
+            captured = pattern in self.seen
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            self.state, free_out = self.graphed(self.state, frame, draws)
+            torch.cuda.synchronize(dev)
+            if captured and all(pattern):
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.seen.add(pattern)
+            free = sharded_agreement(cfg, after, out, self.state, free_out)
         self.frames.append(dict(
             frame=k, teacher_forced=forced, free=free,
             missed=missed_bars(forced, sharded_bars(cfg)),
@@ -435,12 +514,14 @@ class _Unsharded:
                     f"{f['missed']}: {f['teacher_forced']}")
             require(not f["contested"], f"frame {f['frame']}: a budget "
                     f"told the sides apart: {f['contested']}")
-        self.graphed.release()
+        if self.graphed is not None:
+            self.graphed.release()
         return dict(teacher_forced_worst=worst,
                     free_last=self.frames[-1]["free"],
                     against_unsharded=self.frames,
                     unsharded_graphed_frame_ms=_median(self.ms),
-                    unsharded_captures=self.graphed.captures)
+                    unsharded_captures=getattr(self.graphed, "captures",
+                                               None))
 
 
 def _rank(rank, n, port, names, budgets):
@@ -456,9 +537,9 @@ def _rank(rank, n, port, names, budgets):
         mesh = make_mesh(n)
         table = path_configs()
         for name in names:
-            cfg, n_sensors = table[name]
+            cfg, n_sensors, rig = table[name]
             cfg = dataclasses.replace(cfg, **budgets)
-            rec = ritual(cfg, n_sensors, mesh, device)
+            rec = ritual(cfg, n_sensors, mesh, device, rig=rig)
             every = [None] * n
             dist.all_gather_object(every, rec)
             failed |= any(r["failed"] for r in every)
@@ -491,6 +572,14 @@ def _report(name, cfg, n_sensors, every) -> None:
         unsharded_graphed_frame_ms=r0.get("unsharded_graphed_frame_ms"),
         capture_ms_by_rank=[r["capture_ms"] for r in every],
         pool_bytes_by_rank=[r["pool_bytes"] for r in every],
+        **({} if "every_pattern_pool_bytes" not in r0 else dict(
+            every_pattern_pool_bytes_by_rank=[
+                r["every_pattern_pool_bytes"] for r in every],
+            every_pattern_pool_sum_by_rank=[r["every_pattern_pool_sum"]
+                                            for r in every],
+            every_pattern_left_out=r0["every_pattern_left_out"],
+            card_free_bytes_by_rank=[r["card_free_bytes"] for r in every],
+            card_total_bytes=r0["card_total_bytes"])),
         device_busy_ms=r0.get("device_busy_ms"),
         device_events=r0.get("device_events"),
         nccl_ms=r0.get("nccl_ms"), nccl_kernels=r0.get("nccl_kernels"),
@@ -502,8 +591,334 @@ def _report(name, cfg, n_sensors, every) -> None:
     print(json.dumps(line), flush=True)
 
 
+# -- the weak-scaling mode ---------------------------------------------------
+
+#: the weak-scaling mode: its rank counts, warm-up frames and timed frames
+#: by preset (``bench.py``'s protocol), and the frames of its check against
+#: the grown map on one card (warm, then each compared)
+WEAK_RANKS = (1, 2, 4)
+WEAK_WARM = 3
+WEAK_TIMED = {"flagship": 30, "large_urban": 10}
+CHECK_WARM, CHECK_FRAMES = 8, 3
+#: large_urban's update budgets in the weak mode, raised to
+#: :data:`UNCONTESTED`'s: at the preset's own the one-rank map drops
+#: particles of the update's spill tier and pyramid cells (143,496 and
+#: 5,751 over 13 frames) and rank 0 at two and four ranks fewer, so the
+#: rates would compare runs that throw away different work, and the grown
+#: map on one card could not be held to the sharded one.  At these no run
+#: drops any (:func:`_weak_line` fails one that does), and the
+#: configuration timed is the one checked
+WEAK_URBAN_BUDGETS = {k: UNCONTESTED[k] for k in ("particle_spill_capacity",
+                                                  "pyramid_slot_capacity")}
+
+
+def grown(cfg, n: int):
+    """``cfg`` grown for ``n`` ranks: its z extent ``n`` times, and in the
+    compact layout ``n`` times its rows, so that a rank's slab holds what
+    the map of ``cfg`` holds (the storage grid's padding aside)."""
+    rows = ({} if cfg.layout != "compact"
+            else dict(particle_capacity=cfg.compact_capacity * n))
+    return dataclasses.replace(cfg, nz=cfg.nz * n, **rows)
+
+
+def weak_config(preset: str, n: int):
+    """``preset``'s configuration grown for ``n`` ranks (:func:`grown`):
+    flagship 175,104 / 349,184 / 720,896 storage voxels at 1 / 2 / 4
+    ranks; large_urban with the ``ring`` exchange of :func:`path_configs`
+    and the update budgets of :data:`WEAK_URBAN_BUDGETS`, 5,439,488 /
+    10,813,440 / 21,626,880 voxels and 131,072 compact rows a rank."""
+    if preset == "flagship":
+        return grown(example_node_settings(dsp_dynamic()), n)
+    if preset == "large_urban":
+        return grown(dataclasses.replace(large_urban(), mover_exchange="ring",
+                                         **WEAK_URBAN_BUDGETS), n)
+    raise ValueError(f"no weak-scaling preset {preset!r}: "
+                     f"{sorted(WEAK_TIMED)}")
+
+
+def weak_run(cfg, timed, mesh, device) -> dict:
+    """One weak-scaling run in this rank: :data:`WEAK_WARM` + ``timed``
+    frames of ``sim.generate_sequence`` (seed 0, one camera), first through
+    the eager sharded step with this rank's counters of dropped particles
+    recorded (``parity.counters_recorded``), then from the same fresh state
+    through the graphed sharded step, timed (host clock around a call that
+    ends in ``torch.cuda.synchronize()``, the ranks starting each call
+    together), its last state required bit-equal to the eager step's, and
+    one more graphed frame profiled.  Returns this rank's record."""
+    failed = []
+    seq = [Frame(*f) for f in sim.generate_sequence(WEAK_WARM + timed, cfg,
+                                                     seed=0)]
+    eager = make_shardmap_step(cfg, mesh, device=device)
+    a = shard_state(init_state(cfg, seed=0, device=device), mesh)
+    dropped = {}
+    for f in seq:
+        counts = {}
+        with counters_recorded(counts):
+            a, out = eager(a, f)
+        if not out.accepted:
+            failed.append("an eager frame rejected")
+        for k, v in counts.items():
+            dropped[k] = dropped.get(k, 0) + int(v)
+    graphed = make_graphed_shardmap_step(cfg, mesh, device=device)
+    b = shard_state(init_state(cfg, seed=0, device=device), mesh)
+    ms, alive, alive_total = [], [], []
+    for k, f in enumerate(seq):
+        _together(mesh, device)
+        t0 = time.perf_counter()
+        b, out = graphed(b, f)
+        torch.cuda.synchronize(device)
+        if k >= WEAK_WARM:
+            ms.append((time.perf_counter() - t0) * 1e3)
+            alive.append(int((b.particles.flags != 0).sum()))
+            alive_total.append(int(out.metrics["alive"]))
+        if not out.accepted:
+            failed.append(f"graphed frame {k} rejected")
+    differ = differing_on_card(a, b)
+    if not torch.equal(a.gen.get_state(), b.gen.get_state()):
+        differ.append("gen")
+    if differ:
+        failed.append(f"graphed against eager differ in {differ}")
+    del a
+    _together(mesh, device)
+    profiled = busy(lambda: graphed(b, seq[-1]))
+    p50, p90 = np.percentile(ms, [50, 90])
+    rec = dict(rank=mesh.rank, frame_ms_p50=float(p50),
+               frame_ms_p90=float(p90),
+               frame_ms_all=[round(x, 3) for x in ms],
+               alive_mean=float(np.mean(alive)), alive_last=alive[-1],
+               alive_total_mean=float(np.mean(alive_total)),
+               dropped=dropped, bit_equal_to_eager=not differ,
+               captures=graphed.captures,
+               capture_ms=graphed.capture_ms[(True,)],
+               pool_bytes=graphed.pool_bytes[(True,)], **profiled,
+               failed=failed)
+    graphed.release()
+    return rec
+
+
+def weak_check(cfg, mesh, device) -> dict:
+    """The grown map's sharded step held to the same map on one card:
+    :data:`CHECK_WARM` frames of the eager sharded step, then
+    :data:`CHECK_FRAMES` more, each compared on rank 0 from the gathered
+    state before it with the unsharded step on the same frame and numbers
+    (:class:`_Unsharded`'s teacher-forced comparison: :func:`sharded_bars`,
+    and no budget may tell the sides apart).  Returns this rank's record
+    (rank 0's holds the comparison)."""
+    failed = []
+
+    def require(cond, what):
+        if not cond:
+            failed.append(what)
+
+    eager = make_shardmap_step(cfg, mesh, device=device)
+    shard = shard_ctx(cfg, mesh, device)
+    against = (_Unsharded(cfg, None, None, free=False) if mesh.rank == 0
+               else None)
+    a = shard_state(init_state(cfg, seed=0, device=device), mesh)
+    ref_gen = _copy(a.gen)  # a third generator, in step with the step's
+    seq = [Frame(*f) for f in sim.generate_sequence(
+        CHECK_WARM + CHECK_FRAMES, cfg, seed=0)]
+    counts = {}
+    for k, f in enumerate(seq):
+        compare = k >= CHECK_WARM
+        before = gather_state(a, mesh) if compare else None
+        counts.clear()
+        with counters_recorded(counts):
+            a, out = eager(a, f)
+        require(out.accepted, f"check frame {k} rejected")
+        draws = make_draws(cfg, ref_gen, device, shard)
+        require(torch.equal(a.gen.get_state(), ref_gen.get_state()),
+                f"check frame {k}: the step's generator is not the draws'")
+        if compare:
+            summed = _summed(counts, mesh, device)
+            draws = _joined(draws, cfg, mesh)
+            after = gather_state(a, mesh)
+            if against is not None:
+                against.frame(k, f, draws, before, after, out, (True,),
+                              summed)
+    rec = dict(failed=failed)
+    if against is not None:
+        rec.update(against.summary(require))
+        for r in ("free_last", "unsharded_graphed_frame_ms",
+                  "unsharded_captures"):
+            rec.pop(r)
+    return rec
+
+
+def _weak_rank(rank, n, port, presets, out_path):
+    """One rank of :func:`weak_main` at ``n`` ranks: its card, the NCCL
+    group, each preset's run (:func:`weak_run`) and above one rank its
+    check (:func:`weak_check`); rank 0 prints each preset's line and adds
+    it to ``out_path``."""
+    torch.cuda.set_device(rank)
+    device = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=n, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    failed = False
+    try:
+        mesh = make_mesh(n)
+        for preset in presets:
+            started = time.perf_counter()
+            cfg = weak_config(preset, n)
+            rec = weak_run(cfg, WEAK_TIMED[preset], mesh, device)
+            if n > 1:
+                rec["check"] = weak_check(cfg, mesh, device)
+                rec["failed"] += rec["check"].pop("failed")
+            rec["seconds"] = time.perf_counter() - started
+            every = [None] * n
+            dist.all_gather_object(every, rec)
+            failed |= any(r["failed"] for r in every)
+            if rank == 0:
+                line = _weak_line(preset, cfg, n, every)
+                failed |= bool(line["failed"])
+                print(json.dumps(line), flush=True)
+                with open(out_path, "a") as f:
+                    f.write(json.dumps(line) + "\n")
+        dist.barrier(device_ids=[rank])
+    finally:
+        dist.destroy_process_group()
+    if failed:
+        raise SystemExit(1)
+
+
+def _weak_line(preset, cfg, n, every) -> dict:
+    """One preset's line at ``n`` ranks: every rank's numbers, and the
+    rates at the slowest rank's median frame: particles/s (the live
+    particles of every rank, their mean over the timed frames) and
+    voxel-slots/s (S x V of the whole map, what the pool passes sweep)."""
+    r0 = every[0]
+    fps = 1e3 / max(r["frame_ms_p50"] for r in every)
+    by_rank = lambda k: [r[k] for r in every]  # noqa: E731
+    names = sorted({k for r in every for k in r["dropped"]})
+    alive = sum(by_rank("alive_mean"))
+    failed = [f"rank {r['rank']}: {f}" for r in every for f in r["failed"]]
+    if alive != r0["alive_total_mean"]:  # the slabs split the population
+        failed.append(f"the ranks' live particles {alive} are not the "
+                      f"step's alive {r0['alive_total_mean']}")
+    # every budget but a voxel's slots is a rank's own: at one that drops
+    # particles the runs would not do the same work
+    failed += [f"rank {r['rank']}: {k} dropped {v}" for r in every
+               for k, v in sorted(r["dropped"].items())
+               if v and k != VOXEL_SLOTS]
+    return dict(
+        mode="weak", preset=preset, ranks=n, layout=cfg.layout,
+        exchange=cfg.mover_exchange, nz=cfg.nz,
+        storage_voxels=cfg.storage_voxels,
+        slab_voxels=cfg.storage_voxels // n, slots=cfg.slots_per_voxel,
+        compact_rows=(cfg.compact_capacity if cfg.layout == "compact"
+                      else None),
+        budgets=dict(particle_spill_capacity=cfg.particle_spill_capacity,
+                     pyramid_slot_capacity=cfg.pyramid_slot_capacity,
+                     mover_capacity=cfg.mover_capacity),
+        warm=WEAK_WARM, timed=len(r0["frame_ms_all"]),
+        frame_ms_p50_by_rank=by_rank("frame_ms_p50"),
+        frame_ms_p90_by_rank=by_rank("frame_ms_p90"),
+        device_busy_ms_by_rank=by_rank("device_busy_ms"),
+        device_events_by_rank=by_rank("device_events"),
+        nccl_ms_by_rank=by_rank("nccl_ms"),
+        nccl_kernels_by_rank=by_rank("nccl_kernels"),
+        alive_mean_by_rank=by_rank("alive_mean"),
+        alive_last_by_rank=by_rank("alive_last"),
+        alive_metric_mean=r0["alive_total_mean"],
+        dropped_by_rank={k: [r["dropped"].get(k) for r in every]
+                         for k in names},
+        bit_equal_to_eager_by_rank=by_rank("bit_equal_to_eager"),
+        captures_by_rank=by_rank("captures"),
+        capture_ms_by_rank=by_rank("capture_ms"),
+        pool_bytes_by_rank=by_rank("pool_bytes"),
+        frames_per_s=fps, particles_per_s=alive * fps,
+        voxel_slots_per_s=cfg.slots_per_voxel * cfg.storage_voxels * fps,
+        check=r0.get("check"),
+        frame_ms_all_rank0=r0["frame_ms_all"],
+        seconds=r0["seconds"], failed=failed)
+
+
+def weak_summary(lines) -> dict:
+    """Each preset's rates by rank count and their efficiency against one
+    rank, rate_N / (N * rate_1) (``bench_scaling.py``'s), on particles/s
+    and on voxel-slots/s."""
+    out = {}
+    for line in lines:
+        out.setdefault(line["preset"], {})[line["ranks"]] = line
+    summary = {}
+    for preset, by_n in out.items():
+        one = by_n.get(1)
+        summary[preset] = {n: dict(
+            particles_per_s=line["particles_per_s"],
+            voxel_slots_per_s=line["voxel_slots_per_s"],
+            particles_efficiency=(None if one is None else line[
+                "particles_per_s"] / (n * one["particles_per_s"])),
+            voxel_slots_efficiency=(None if one is None else line[
+                "voxel_slots_per_s"] / (n * one["voxel_slots_per_s"])))
+            for n, line in sorted(by_n.items())}
+    return dict(mode="weak_summary", by_preset=summary)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _card_line() -> None:
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip(), flush=True)
+
+
+def weak_main(args) -> int:
+    """``weak [n ...] [preset ...]``: each rank count of ``n`` (default
+    :data:`WEAK_RANKS`) in a group of its own, one card a rank, every
+    preset (default flagship and large_urban) in it; then the summary
+    line (:func:`weak_summary`)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ranks = [int(a) for a in args if a.isdigit()] or list(WEAK_RANKS)
+    presets = [a for a in args if not a.isdigit()] or list(WEAK_TIMED)
+    for p in presets:
+        weak_config(p, 1)  # an unknown preset raises here
+    if not torch.cuda.is_available():
+        print("shard_probe: no CUDA device", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() < max(ranks):
+        print(f"shard_probe: {max(ranks)} ranks need {max(ranks)} cards, "
+              f"the machine has {torch.cuda.device_count()}",
+              file=sys.stderr)
+        return 2
+    _card_line()
+    t0 = time.perf_counter()
+    kernels.build()  # once, before the ranks load it
+    print(f"[build] seconds={time.perf_counter() - t0:.1f}", flush=True)
+    status = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "weak.jsonl")
+        open(out, "w").close()
+        for n in ranks:
+            t0 = time.perf_counter()
+            try:
+                mp.spawn(_weak_rank, args=(n, _free_port(), presets, out),
+                         nprocs=n, join=True)
+            except (mp.ProcessRaisedException,
+                    mp.ProcessExitedException) as e:
+                print(f"shard_probe: a rank of {n} failed: {e}",
+                      file=sys.stderr)
+                status = 1
+            print(f"[weak {n}] seconds={time.perf_counter() - t0:.1f}",
+                  flush=True)
+        with open(out) as f:
+            lines = [json.loads(x) for x in f]
+    print(json.dumps(weak_summary(lines)), flush=True)
+    return status
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
+    if args and args[0] == "weak":
+        return weak_main(args[1:])
     n = int(args[0]) if args else 4
     budgets = {k: int(v) for k, v in (a.split("=") for a in args[1:]
                                       if "=" in a)}
@@ -515,21 +930,16 @@ def main(argv=None) -> int:
         print(f"shard_probe: {n} ranks need {n} cards, the machine has "
               f"{torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip(), flush=True)
+    _card_line()
     t0 = time.perf_counter()
     kernels.build()  # once, before the ranks load it
     print(f"[build] seconds={time.perf_counter() - t0:.1f}", flush=True)
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
     try:
-        mp.spawn(_rank, args=(n, port, names, budgets), nprocs=n, join=True)
+        mp.spawn(_rank, args=(n, _free_port(), names, budgets), nprocs=n,
+                 join=True)
     except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
         print(f"shard_probe: a rank failed: {e}", file=sys.stderr)
         return 1

@@ -52,10 +52,11 @@ def test_ritual_frames_jump_and_one_camera_patterns():
     np.testing.assert_array_equal(jump, np.float32([gr.JUMP_M, 0, 0]))
     assert all(one[k] is seq[k] for k in range(gr.FRAMES) if k != gr.REJECTED)
 
-    two, patterns = gr.ritual_frames(seq, 2)
+    two, patterns = gr.ritual_frames([T.stack_frames([f] * 2) for f in seq],
+                                     2)
     assert len(set(patterns)) == 3
     for k, (frame, admitted) in enumerate(zip(two, patterns)):
-        assert admitted == gr.ONE_CAMERA.get(k, (True, True))
+        assert admitted == gr.some_cameras(2).get(k, (True, True))
         finite = np.isfinite(np.asarray(frame.quat)).all(axis=1)
         assert tuple(finite) == admitted
         np.testing.assert_array_equal(np.asarray(frame.points)[0],

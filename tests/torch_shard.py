@@ -680,6 +680,15 @@ def graphed_refusals(case, mesh):
     return said
 
 
+def weak(case, mesh):
+    """``utils/shard_probe.py::weak_check`` in this rank on the CPU: the
+    sharded step of ``case["cfg"]`` (a grown map) held on rank 0 to the
+    same map on one device; returns the rank's record."""
+    from dspmap_tpu_torch.utils import shard_probe
+
+    return shard_probe.weak_check(case["cfg"], mesh, "cpu")
+
+
 def _jobs(tmp: pathlib.Path, deadline: float):
     """The lists of cases :func:`post_jobs` writes, in turn, until the
     mark of :func:`wait_ranks` (written after the last job)."""
