@@ -679,12 +679,13 @@ def check_segscan(cfg, device):
         for C, t in times.items()}}}
 
 
-#: the JV solve's phase-3 instances: tie-heavy costs at the flagship's
-#: N = max_clusters = 16 from a generator of seed JV_SEED, n_rows cycling
-#: through 0..16; every JV_ON_CARD-th also solved by the plain version on
-#: the card; the plain version on the CPU runs in the WORKERS processes
-#: while the kernels build
-JV_INSTANCES, JV_ON_CARD, JV_SEED = 500, 25, 16
+#: the JV solve's phase-3 instances: every JV_ON_CARD-th is also solved by
+#: the plain version on the card (the plain version on the CPU runs in the
+#: WORKERS processes while the kernels build); besides the flagship's
+#: (``_jv_sets``), the block arm's: tie-heavy costs at N = JV_BLOCK_N, past
+#: the warp arm's WARP_MAX_N = 31, from a generator of seed JV_BLOCK_N
+JV_ON_CARD = 25
+JV_BLOCK_N, JV_BLOCK_INSTANCES = 40, 36
 #: the worker processes of the CPU's side, one a core of the card's host
 #: (8): the JV check's plain solves while the kernels build, then phase 5's
 #: CPU frames once the card's phases are done
@@ -695,10 +696,21 @@ WORKERS = 8
 JV_FLOPS_PER_COLUMN_STEP, JV_FLOPS_PER_USED = 5, 2
 
 
-def _jv_plain_share(n, r, part):
+def _jv_sets(n):
+    """:func:`check_jv`'s instance sets at the flagship's ``N = n``:
+    ``{N: (seed, instances)}``, the warp arm's (tie-heavy costs from
+    ``kernel_times``' seed, the ones it checks before the one it times, n_rows
+    cycling through 0..N) and the block arm's."""
+    from dspmap_tpu_torch.utils.kernel_times import JV_INSTANCES, JV_SEED
+
+    return {n: (JV_SEED, JV_INSTANCES),
+            JV_BLOCK_N: (JV_BLOCK_N, JV_BLOCK_INSTANCES)}
+
+
+def _jv_plain_share(n, part):
     """``_jv_plain`` on the CPU of :func:`check_jv`'s instances ``part``,
-    ``part + WORKERS``, ...: ``{k: p as numpy}`` (run in a worker
-    process of its own)."""
+    ``part + WORKERS``, ... of each set: ``{(N, k): p as numpy}`` (run in a
+    worker process of its own)."""
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -706,13 +718,14 @@ def _jv_plain_share(n, r, part):
     from dspmap_tpu_torch.utils.kernel_times import jv_case
 
     torch.set_num_threads(1)
-    rng = np.random.default_rng(JV_SEED)
     out = {}
-    for k in range(JV_INSTANCES):
-        a = jv_case(n, rng)
-        if k % WORKERS == part:
-            out[k] = assignment._jv_plain(
-                torch.from_numpy(a), torch.tensor(k % (r + 1)), r).numpy()
+    for N, (seed, count) in _jv_sets(n).items():
+        rng = np.random.default_rng(seed)
+        for k in range(count):
+            a = jv_case(N, rng)
+            if k % WORKERS == part:
+                out[N, k] = assignment._jv_plain(
+                    torch.from_numpy(a), torch.tensor(k % (N + 1)), N).numpy()
     return out
 
 
@@ -725,58 +738,82 @@ def start_jv_plain(cfg):
 
     pool = concurrent.futures.ProcessPoolExecutor(
         WORKERS, mp_context=multiprocessing.get_context("spawn"))
-    n = cfg.max_clusters
-    return pool, [pool.submit(_jv_plain_share, n, n, part)
+    return pool, [pool.submit(_jv_plain_share, cfg.max_clusters, part)
                   for part in range(WORKERS)]
 
 
 def check_jv(cfg, device, on_cpu):
-    """Phase 3, the JV solve (``jv_solve``) at the flagship's ``N =
-    max_clusters``: the kernel's ``p`` bit-equal to ``_jv_plain``'s on
-    :data:`JV_INSTANCES` tie-heavy costs (the plain version on the CPU,
-    whose adds, subtracts, compares and argmin give the card's bits --
-    ``on_cpu``, by instance, from :func:`start_jv_plain` -- and on the card
-    for every :data:`JV_ON_CARD`-th).  Timed on one instance with every
-    row augmented; its bound counts the path steps that instance takes
-    (``kernel_times.jv_numpy``).  Returns ``{kernel name:
-    measurements}``."""
+    """Phase 3, the JV solve (``jv_solve``): the kernel's ``p`` bit-equal
+    to ``_jv_plain``'s on ``kernel_times.JV_INSTANCES`` tie-heavy costs at
+    the flagship's ``N = max_clusters`` (the warp arm) and on
+    :data:`JV_BLOCK_INSTANCES` at :data:`JV_BLOCK_N` (the block arm) --
+    the plain version on the CPU, whose adds, subtracts, compares and
+    argmin give the card's bits (``on_cpu``, by ``(N, instance)``, from
+    :func:`start_jv_plain`), and on the card for every
+    :data:`JV_ON_CARD`-th.  Timed with every row augmented on
+    ``kernel_times.jv_timed_cases``' two costs at the flagship's N, the
+    tie-heavy one and the worst chain; each bound counts the path steps
+    that cost takes (``kernel_times.jv_numpy``), and ``ns_per_path_step``
+    is the device time over them.  Returns ``{shape label: {kernel name:
+    measurements}}``."""
     import torch
     from dspmap_tpu_torch import kernels
     from dspmap_tpu_torch.ops import assignment
-    from dspmap_tpu_torch.utils.kernel_times import jv_case, jv_numpy
+    from dspmap_tpu_torch.utils.kernel_times import (jv_case, jv_numpy,
+                                                     jv_timed_cases)
 
     N = R = cfg.max_clusters
-    rng = np.random.default_rng(JV_SEED)
-    equal = on_card = 0
-    for k in range(JV_INSTANCES):
-        a_np = jv_case(N, rng)
-        a = torch.from_numpy(a_np).to(device)
-        n_rows = torch.tensor(k % (R + 1), dtype=torch.int64, device=device)
-        got = assignment.jv_solve_cuda(a, n_rows, R).cpu()
-        equal += torch.equal(got, torch.from_numpy(on_cpu[k]))
-        if k % JV_ON_CARD == 0:
-            on_card += torch.equal(got, assignment._jv_plain(
-                a, n_rows, R).cpu())
-    share = equal / JV_INSTANCES
-    _require(share == 1.0 and on_card == JV_INSTANCES // JV_ON_CARD,
-             f"jv_solve: {equal} of {JV_INSTANCES} bit-equal to the plain "
-             f"version, {on_card} on the card")
-    a_np = jv_case(N, rng)
-    a = torch.from_numpy(a_np).to(device)
+    _require(N <= assignment.WARP_MAX_N < JV_BLOCK_N,
+             f"jv_solve: N = {N} and {JV_BLOCK_N} check one arm")
+    for n, (seed, count) in _jv_sets(N).items():
+        rng = np.random.default_rng(seed)
+        equal = on_card = 0
+        for k in range(count):
+            a_np = jv_case(n, rng)
+            a = torch.from_numpy(a_np).to(device)
+            n_rows = torch.tensor(k % (n + 1), dtype=torch.int64,
+                                  device=device)
+            got = assignment.jv_solve_cuda(a, n_rows, n).cpu()
+            equal += torch.equal(got, torch.from_numpy(on_cpu[n, k]))
+            if k % JV_ON_CARD == 0:
+                on_card += torch.equal(got, assignment._jv_plain(
+                    a, n_rows, n).cpu())
+        arm = "warp" if n <= assignment.WARP_MAX_N else "block"
+        _require(equal == count and on_card == len(range(0, count,
+                                                         JV_ON_CARD)),
+                 f"jv_solve, {arm} arm at N = {n}: {equal} of {count} "
+                 f"bit-equal to the plain version, {on_card} on the card")
+        full = torch.tensor(n, dtype=torch.int64, device=device)
+        steps = jv_numpy(a_np, n, n)[1]
+        d_ms = _device_ms(lambda: assignment.jv_solve_cuda(a, full, n))
+        _say("jv_solve_check", arm=arm, N=n, instances=count,
+             bit_equal=equal, plain_on_card_bit_equal=on_card,
+             last_cost_all_rows_path_steps=steps, device_ms=d_ms,
+             ns_per_path_step=d_ms and d_ms * 1e6 / steps)
     n_rows = torch.tensor(R, dtype=torch.int64, device=device)
-    _, n_path, _ = jv_numpy(a_np, R, R)
-    # cost read once, n_rows read, p written once
-    n_bytes = 4 * N * N + 8 + 8 * (N + 1)
-    n_flops = (JV_FLOPS_PER_COLUMN_STEP * N * n_path
-               + JV_FLOPS_PER_USED * (n_path + R))
-    row = _row(0.0, lambda: assignment.jv_solve_cuda(a, n_rows, R),
-               lambda: assignment._jv_plain(a, n_rows, R), n_bytes, n_flops,
-               shape=f"N={N} R={R} n_rows={R}", path_steps=n_path,
-               instances=JV_INSTANCES, bit_equal_share=share,
-               plain_on_card_bit_equal=on_card)
-    _say("jv_solve_flagship", **row)
+    rows = {}
+    for case, a_np in jv_timed_cases(N).items():
+        a = torch.from_numpy(a_np).to(device)
+        _, n_path, _ = jv_numpy(a_np, R, R)
+        _require(torch.equal(
+            assignment.jv_solve_cuda(a, n_rows, R).cpu(),
+            assignment._jv_plain(a.cpu(), n_rows.cpu(), R)),
+            f"jv_solve {case}: not bit-equal to the plain version")
+        # cost read once, n_rows read, p written once
+        n_bytes = 4 * N * N + 8 + 8 * (N + 1)
+        n_flops = (JV_FLOPS_PER_COLUMN_STEP * N * n_path
+                   + JV_FLOPS_PER_USED * (n_path + R))
+        row = _row(0.0, lambda: assignment.jv_solve_cuda(a, n_rows, R),
+                   lambda: assignment._jv_plain(a, n_rows, R), n_bytes,
+                   n_flops, shape=f"N={N} R={R} n_rows={R} {case}",
+                   path_steps=n_path)
+        row["ns_per_path_step"] = (row["device_ms"] and
+                                   row["device_ms"] * 1e6 / n_path)
+        _say(f"jv_solve_{case}", **row)
+        rows[case] = row
     kernels.reset_launch_counts()
-    return {"jv_solve": row}
+    return {"flagship": {"jv_solve": rows["tie_heavy"]},
+            "flagship_worst_chain": {"jv_solve": rows["worst_chain"]}}
 
 
 #: torch's threads in a worker process that steps phase 5's CPU frames
@@ -1135,6 +1172,7 @@ def check_graph(name, cfg, state, device, smi) -> None:
          host_launches_per_graphed_frame=max(turns.replay_launches),
          device_busy_ms=(busy["device_busy_ms"] if busy["device_events"]
                          else "not measured"),
+         own_kernels=json.dumps(busy["own_kernels"]),
          device_events=busy["device_events"], captures=captures,
          leaves_differing=0, outputs_differing=0, card=json.dumps(smi))
 
@@ -1772,8 +1810,8 @@ def _phases(configs, device, smi, jv_cpu, pool, procs, tmp):
     by_shape = {label: check_kernels(label, configs[label], device)
                 for label in ("flagship", "static", "multi")}
     by_shape["flagship_slab"] = check_sweep_slab(configs["flagship"], device)
-    by_shape["flagship"].update(check_jv(configs["flagship"], device,
-                                         jv_cpu))
+    for label, rows in check_jv(configs["flagship"], device, jv_cpu).items():
+        by_shape.setdefault(label, {}).update(rows)
     # K1's moving mask, as the noisy and the two-camera pool paths take it,
     # and as a rank of the sharded two-camera path takes it on its slab
     for label in ("noisy", "multisensor_2cam"):

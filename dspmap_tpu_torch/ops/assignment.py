@@ -3,7 +3,8 @@ Jonker-Volgenant shortest augmenting paths plus the exhaustive 8x8 path.
 
 Both paths run and a mask picks the result (the JAX package's
 ``lax.cond``), so the solve needs no host decision.  On the card the JV
-solve is one launch of the ``jv_solve`` kernel (``csrc/assignment.cu``);
+solve is one launch of the ``jv_solve`` kernel (``csrc/assignment.cu``:
+one warp for ``N <= WARP_MAX_N``, one block of a thread a column above);
 on the CPU it is :func:`_jv_plain`, which runs a fixed number of masked
 steps: row ``i`` (1-based) finds its augmenting path within ``i`` steps --
 each step visits one of the ``i - 1`` columns already matched or ends on a
@@ -28,6 +29,10 @@ _BRUTE_N = 8
 #: the largest square cost the kernel takes: one thread a column and one
 #: for the virtual column 0 in a block of at most 1,024 threads
 KERNEL_MAX_N = 1023
+#: the largest square cost the kernel's warp arm takes: a lane a column
+#: and lane 0 for the virtual column 0 (every preset's ``max_clusters`` is
+#: 16); larger costs take the block arm
+WARP_MAX_N = 31
 
 
 @functools.lru_cache(maxsize=None)

@@ -217,9 +217,12 @@ def in_turns(eager, graphed, a, b, frames, patterns, *, together=None,
 
 def busy(fn) -> dict:
     """One call of ``fn`` under the profiler: the card's busy ms (the sum of
-    its device events) and their count, and the NCCL kernels' ms and
-    count."""
+    its device events) and their count, the NCCL kernels' ms and count, and
+    ``own_kernels``: the launches and device µs of each of the port's own
+    kernels that ran (``stage_times.own_kernels``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from .stage_times import own_kernels
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -232,4 +235,4 @@ def busy(fn) -> dict:
     return dict(device_busy_ms=sum(e.device_time_total for e in device) / 1e3,
                 device_events=len(device),
                 nccl_ms=sum(e.device_time_total for e in nccl) / 1e3,
-                nccl_kernels=len(nccl))
+                nccl_kernels=len(nccl), own_kernels=own_kernels(device))

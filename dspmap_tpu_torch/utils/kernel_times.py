@@ -1,7 +1,7 @@
 """Times of the pool pass (K1), the pair passes (K3a, K3b), the segmented
-scans (K4) and a frame's relayout copies (K5) for the checkout in the
-current directory, to set two versions of the kernels side by side in one
-run on one card.
+scans (K4), a frame's relayout copies (K5) and the JV solve for the
+checkout in the current directory, to set two versions of the kernels side
+by side in one run on one card.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
@@ -12,11 +12,12 @@ lies, so the same file measures an older checkout too (``cd`` there first):
 it uses only what every version of the port has had (``Particles``,
 ``ops.occupancy.pool_pass_cuda``, ``ops.update.update_pass1`` /
 ``update_pass2`` / ``prescale_pairs``, ``ops.compact.seg_scans_cuda``,
-``ops.relayout.to_flat_cuda`` / ``from_flat_cuda``) and the batched relayout
-where the checkout has it.  ``chip_smoke.py`` takes its timers
-(:func:`median_ms`, :func:`device_ms`), its pool (:func:`populated_pool`)
-and its K3 and K4 operands (:func:`pair_operands`, :func:`segscan_case`)
-from here.
+``ops.relayout.to_flat_cuda`` / ``from_flat_cuda``,
+``ops.assignment.jv_solve_cuda``) and the batched relayout where the
+checkout has it.  ``chip_smoke.py`` takes its timers (:func:`median_ms`,
+:func:`device_ms`), its pool (:func:`populated_pool`), its K3 and K4
+operands (:func:`pair_operands`, :func:`segscan_case`) and its JV costs
+(:func:`jv_case`, :func:`jv_timed_cases`) from here.
 
 Prints the card's name and power limit, then one JSON line a measurement:
 
@@ -36,6 +37,11 @@ Prints the card's name and power limit, then one JSON line a measurement:
   launches on a checkout without it -- beside seven ``clone()`` calls;
 * ``K5_out``: one flat plane into a fresh plane, four distinct planes in
   turn, per plane, beside ``clone()``.
+* ``jv_solve`` at the flagship's N = max_clusters = 16, every row
+  augmented, on :func:`jv_timed_cases`' two costs, and ``no_rows``, the
+  tie-heavy one with none augmented (the launch's floor): ``path_steps``
+  (as :func:`jv_numpy` counts them), ``ns_per_path_step`` (``device_ms``
+  over them) and ``bits``, a SHA-256 of ``p``.
 
 ``ms`` is the median of 20 calls by CUDA events around the wrapper,
 ``device_ms`` the median of the kernels' own durations in one call from
@@ -54,8 +60,9 @@ import sys
 
 #: substrings of the ``__global__`` names of K1 and K5 in any version
 KERNEL_NAMES = ("occupancy", "copy16")
-#: the same for K3a, K3b and K4
+#: the same for K3a, K3b, K4 and the JV solve
 PASS1_NAMES, PASS2_NAMES, SEGSCAN_NAMES = ("pass1",), ("pass2",), ("segscan",)
+JV_NAMES = ("jv_",)
 
 #: (rows, S_t, CK) of the pair passes on the flagship and large_urban, the
 #: static and the multi-neighbor paths
@@ -252,6 +259,33 @@ def jv_case(N, rng):
                     np.float32(JV_GATED_OUT)).astype(np.float32)
 
 
+def jv_worst_chain(N):
+    """The all-equal square cost ``[N, N]`` (numpy float32): row ``i``'s
+    path visits each of the ``i - 1`` matched columns before the free one,
+    so the solve walks the most path steps, ``N (N + 1) / 2``."""
+    import numpy as np
+
+    return np.full((N, N), JV_GATED_OUT, np.float32)
+
+
+#: the seed of ``chip_smoke.py``'s tie-heavy JV instances at the flagship's
+#: N and how many it checks before the one it times
+JV_SEED, JV_INSTANCES = 16, 500
+
+
+def jv_timed_cases(N):
+    """The JV solve's two timed costs at ``N``: ``tie_heavy``, the
+    :func:`jv_case` drawn after :data:`JV_INSTANCES` others from a
+    generator of seed :data:`JV_SEED` (the one ``chip_smoke.py`` times
+    after checking those), and ``worst_chain`` (:func:`jv_worst_chain`)."""
+    import numpy as np
+
+    rng = np.random.default_rng(JV_SEED)
+    for _ in range(JV_INSTANCES):
+        jv_case(N, rng)
+    return {"tie_heavy": jv_case(N, rng), "worst_chain": jv_worst_chain(N)}
+
+
 def jv_numpy(a, n_rows, R):
     """The JV solve of ``ops/assignment.py`` in numpy float32, its loops
     ending where the ``while_loop``s end: ``(p [N+1], path steps, unwind
@@ -305,7 +339,8 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, os.getcwd())
     import dspmap_tpu_torch as dm
-    from dspmap_tpu_torch.ops import compact, occupancy, relayout, update
+    from dspmap_tpu_torch.ops import (assignment, compact, occupancy,
+                                      relayout, update)
 
     label = argv[0] if argv else os.path.basename(os.getcwd())
     card = subprocess.run(
@@ -316,6 +351,22 @@ def main(argv) -> int:
 
     def say(**kv):
         print(json.dumps({"label": label, "card": card, **kv}), flush=True)
+
+    N = dm.example_node_settings(dm.dsp_dynamic()).max_clusters
+    cases = jv_timed_cases(N)
+    # and the launch's floor: the tie-heavy cost with no row to augment, as
+    # the estimator hands it on a frame with no cluster to match
+    for case, a_np, rows in (*((k, a, N) for k, a in cases.items()),
+                             ("no_rows", cases["tie_heavy"], 0)):
+        a = torch.from_numpy(a_np).to(device)
+        n_rows = torch.tensor(rows, dtype=torch.int64, device=device)
+        run = lambda: assignment.jv_solve_cuda(a, n_rows, N)  # noqa: E731
+        steps = jv_numpy(a_np, rows, N)[1]
+        d_ms = device_ms(run, names=JV_NAMES)
+        say(kernel="jv_solve", case=case, N=N, n_rows=rows, path_steps=steps,
+            ms=median_ms(run), device_ms=d_ms,
+            ns_per_path_step=d_ms * 1e6 / steps if steps else None,
+            bits=hashlib.sha256(run().cpu().numpy().tobytes()).hexdigest())
 
     configs = {
         "flagship": dm.example_node_settings(dm.dsp_dynamic()),

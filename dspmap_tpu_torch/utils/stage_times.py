@@ -59,7 +59,19 @@ WARMUP, TIMED = 5, 8
 #: the ``__global__`` functions of ``csrc/*.cu``
 OWN_KERNELS = ("occupancy_tile_kernel", "sweep_kernel", "pass1_kernel",
                "pass2_kernel", "segscan_warp_kernel", "segscan_tile_kernel",
-               "copy16_kernel", "jv_kernel")
+               "copy16_kernel", "jv_warp_kernel", "jv_kernel")
+
+
+def own_kernels(device_events) -> dict:
+    """``{name in OWN_KERNELS: (launches, device µs)}`` over the profiler's
+    device events ``device_events``."""
+    own = {}
+    for e in device_events:
+        name = next((k for k in OWN_KERNELS if k in e.name), None)
+        if name:
+            n, us = own.get(name, (0, 0.0))
+            own[name] = (n + 1, us + e.device_time_total)
+    return own
 
 
 def configs() -> dict:
@@ -145,14 +157,11 @@ def measure(cfg, n_sensors=None) -> dict:
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in device) / 1e3
-    own, copies = {}, {}
+    copies = {}
     for e in device:
         if e.name.startswith("Memcpy"):
             copies[e.name] = copies.get(e.name, 0) + 1
-        name = next((k for k in OWN_KERNELS if k in e.name), None)
-        if name:
-            n, us = own.get(name, (0, 0.0))
-            own[name] = (n + 1, us + e.device_time_total)
+    own = own_kernels(device)
     return dict(frame_ms=statistics.median(frame_ms),
                 frame_ms_min=min(frame_ms), frame_ms_max=max(frame_ms),
                 frame_ms_by_block=[statistics.median(b) for b in frame_blocks],

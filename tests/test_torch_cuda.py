@@ -21,7 +21,8 @@ from dspmap_tpu_torch.ops import (assignment, compact, occupancy, relayout,
 from dspmap_tpu_torch.ops.common import padded_buffer
 from dspmap_tpu_torch.utils import sim
 from dspmap_tpu_torch.utils.kernel_times import (jv_case, jv_numpy,
-                                                 pair_operands, segscan_case)
+                                                 jv_worst_chain, pair_operands,
+                                                 segscan_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -896,37 +897,55 @@ def test_step_repeats_its_bits_on_the_card(device, case):
     assert int(outs_a[-1].metrics["alive"]) > 0
 
 
-#: tie-heavy JV instances a size: (N, costs), each solved at every n_rows
-#: from 0 to N -- 2,019 instances in all
-JV_CASES = {8: 100, 16: 50, 33: 6, 64: 1}
+#: (N, costs, kinds) of the JV instances, each cost solved at every n_rows
+#: from 0 to N: the kernel's warp arm up to WARP_MAX_N = 31, its block arm
+#: from 32; kinds: ``ties`` (``kernel_times.jv_case``), ``worst_chain``
+#: (``jv_worst_chain``: one cost, N (N + 1) / 2 path steps), ``negative_zero``
+#: and ``nan`` (tie-heavy costs holding -0.0 or NaN on a fifth of the pairs)
+JV_CASES = [(1, 20, "ties"), (2, 20, "ties"), (8, 100, "ties"),
+            (16, 50, "ties"), (31, 6, "ties"), (32, 6, "ties"),
+            (33, 6, "ties"), (40, 3, "ties"), (64, 1, "ties")] + [
+    (N, n, kind) for kind, n in (("worst_chain", 1), ("negative_zero", 4),
+                                 ("nan", 4))
+    for N in (1, 2, 8, 16, 31, 32, 40)]
 
 
-def test_jv_kernel_bit_equal_to_plain_on_tie_heavy_costs(device):
+def _jv_cost(kind, N, rng):
+    if kind == "worst_chain":
+        return jv_worst_chain(N)
+    a = jv_case(N, rng)
+    if kind != "ties":
+        a[rng.random((N, N)) < 0.2] = (-0.0 if kind == "negative_zero"
+                                       else np.nan)
+    return a
+
+
+@pytest.mark.parametrize("N,n_costs,kind", JV_CASES,
+                         ids=[f"{k}-{N}" for N, _, k in JV_CASES])
+def test_jv_kernel_bit_equal_to_plain_on_tie_heavy_costs(device, N, n_costs,
+                                                         kind):
     """``jv_solve`` gives ``_jv_plain``'s bits (every entry of ``p``) on
-    tie-heavy costs at N = 8, 16, 33 and 64 with every ``n_rows`` from 0
-    to R = N: one launch a solve, ``n_rows`` read on the card.  The plain
-    version runs on the CPU (its adds, subtracts, compares and argmin give
-    the same bits on either device; one cost a size is also solved by it
-    on the card), and the numpy form of ``kernel_times.jv_numpy`` agrees."""
-    rng = np.random.default_rng(20)
-    n = 0
-    for N, n_costs in JV_CASES.items():
-        for k in range(n_costs):
-            a_np = jv_case(N, rng)
-            a, a_cpu = torch.from_numpy(a_np).to(device), torch.from_numpy(a_np)
-            for n_rows in range(N + 1):
-                nr = torch.tensor(n_rows, dtype=torch.int64, device=device)
-                n0 = kernels.LAUNCHES["jv_solve"]
-                got = assignment.jv_solve_cuda(a, nr, N)
-                assert kernels.LAUNCHES["jv_solve"] == n0 + 1
-                want = assignment._jv_plain(a_cpu, nr.cpu(), N)
-                assert torch.equal(got.cpu(), want), (N, k, n_rows)
-                if k == 0 and n_rows in (N // 2, N):
-                    assert torch.equal(assignment._jv_plain(a, nr, N), got)
-                    assert np.array_equal(jv_numpy(a_np, n_rows, N)[0],
-                                          want.numpy())
-                n += 1
-    assert n >= 2000
+    both arms, the warp's (N <= 31) and the block's, with every ``n_rows``
+    from 0 to R = N: one launch a solve, ``n_rows`` read on the card.  The
+    plain version runs on the CPU (its adds, subtracts, compares and argmin
+    give the same bits on either device; the first cost of a case is also
+    solved by it on the card), and the numpy form of
+    ``kernel_times.jv_numpy`` agrees."""
+    rng = np.random.default_rng(20 + N)
+    for k in range(n_costs):
+        a_np = _jv_cost(kind, N, rng)
+        a, a_cpu = torch.from_numpy(a_np).to(device), torch.from_numpy(a_np)
+        for n_rows in range(N + 1):
+            nr = torch.tensor(n_rows, dtype=torch.int64, device=device)
+            n0 = kernels.LAUNCHES["jv_solve"]
+            got = assignment.jv_solve_cuda(a, nr, N)
+            assert kernels.LAUNCHES["jv_solve"] == n0 + 1
+            want = assignment._jv_plain(a_cpu, nr.cpu(), N)
+            assert torch.equal(got.cpu(), want), (N, k, n_rows)
+            if k == 0 and n_rows in (N // 2, N):
+                assert torch.equal(assignment._jv_plain(a, nr, N), got)
+                assert np.array_equal(jv_numpy(a_np, n_rows, N)[0],
+                                      want.numpy())
 
 
 def test_jv_kernel_bit_equal_to_plain_on_flagship_costs(device, monkeypatch):

@@ -267,11 +267,19 @@ GATED_OUT = np.float32(1.5 * 5000.0)
 def _assignment_costs(kind, rng, R, C):
     """``uniform``: distinct floats; ``ties``: integers in {0, 1, 2, 3} on
     a third of the pairs and the gate's constant on the rest, so equal
-    minima meet on almost every path step."""
+    minima meet on almost every path step; ``equal``: the gate's constant
+    on every pair (row i's path visits every matched column: the longest
+    chain of path steps); ``negative_zero``: ties with -0.0 on about a
+    third of the pairs."""
     if kind == "uniform":
         return rng.uniform(0, 2000, (R, C)).astype(np.float32)
+    if kind == "equal":
+        return np.full((R, C), GATED_OUT, np.float32)
     small = rng.integers(0, 4, (R, C)).astype(np.float32)
-    return np.where(rng.random((R, C)) < 1 / 3, small, GATED_OUT)
+    cost = np.where(rng.random((R, C)) < 1 / 3, small, GATED_OUT)
+    if kind == "negative_zero":
+        cost[rng.random((R, C)) < 0.3] = -0.0
+    return cost
 
 
 def _valid(rng, n, size, first):
@@ -301,6 +309,12 @@ def _valid(rng, n, size, first):
     pytest.param(0, 16, 16, "ties", False, id="no-rows"),
     pytest.param(16, 0, 16, "ties", False, id="no-columns"),
     pytest.param(0, 0, 33, "uniform", False, id="33-empty"),
+    pytest.param(16, 16, 16, "equal", False, id="equal-16-16"),
+    pytest.param(31, 31, 31, "ties", False, id="ties-31-31"),
+    pytest.param(32, 32, 32, "ties", False, id="ties-32-32"),
+    pytest.param(16, 16, 16, "negative_zero", False, id="negative-zero-16"),
+    pytest.param(25, 31, 31, "negative_zero", True,
+                 id="negative-zero-31-n_rows-25"),
 ])
 def test_solve_assignment_matches_jax(n_rows, n_cols, size, kind, first):
     """The assignment equals the JAX solve: the exhaustive 8x8 path when
