@@ -38,6 +38,15 @@ exactly as in the eager step -- and one staged copy of the frame from
 pinned buffers the object owns.  The runtime parameters travel in the
 frame's float block, so a live setter between frames takes effect without
 a new capture.
+
+With the program's tracing on (``utils/profiling.py``) a call is the span
+``step``, whose children split the host's part: ``step.prologue`` (the
+checks and the prologue), ``step.draws``, ``step.load`` (the state's and
+the frame's copies, with the wait for the last frame's copy),
+``step.capture`` (a pattern's first frame), ``step.launch`` (the replay)
+and ``step.advance``.  A graph captured while tracing is on holds the
+body's stage marks and ``stage.store`` after its copies into the static
+state; one captured with tracing off holds none.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch
 
 from ..config import MapConfig
 from .. import scalars
+from ..utils import profiling
 from ..state import (EstimatorState, MapState, Particles, _PLANES,
                      tensor_leaves)
 from .pipeline import (Frame, StepOutput, _map_draws, _on_device,
@@ -89,7 +99,8 @@ class _GraphedBase:
         self.pool_bytes = {}
         #: pattern -> bytes still allocated after its capture (the outputs)
         self.kept_bytes = {}
-        self._graphs = {}  # pattern -> (CUDAGraph, the body's outputs)
+        # pattern -> (CUDAGraph, the body's outputs, its stage marks)
+        self._graphs = {}
         self._static = None
 
     def _check_device(self, state: MapState) -> None:
@@ -178,16 +189,22 @@ class _GraphedBase:
         with torch.cuda.stream(side):  # lazy initialisation, off the graph
             run()
         torch.cuda.current_stream().wait_stream(side)
+        profiling.take_marks()  # the side stream's run's, if tracing
         graph = torch.cuda.CUDAGraph()
-        # a private memory pool of its own; "thread_local": ProcessGroupNCCL's
-        # watchdog thread queries CUDA events while the capture is open, which
-        # the default "global" mode makes an error of
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            reserved = torch.cuda.memory_reserved()
-            allocated = torch.cuda.memory_allocated()
-            out = run()
-            self._store(out)
-        self._graphs[pattern] = (graph, out)
+        try:
+            # a private memory pool of its own; "thread_local":
+            # ProcessGroupNCCL's watchdog thread queries CUDA events while the
+            # capture is open, which the default "global" mode makes an
+            # error of
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                reserved = torch.cuda.memory_reserved()
+                allocated = torch.cuda.memory_allocated()
+                out = run()
+                self._store(out)
+                profiling.mark("stage.store", self._frame.device)
+        finally:  # a failed capture's marks are never read
+            marks = profiling.take_marks()
+        self._graphs[pattern] = (graph, out, marks)
         self.captures += 1
         torch.cuda.synchronize()
         self.capture_ms[pattern] = (time.perf_counter() - t0) * 1e3
@@ -196,18 +213,23 @@ class _GraphedBase:
 
     def _replay(self, state: MapState, draws, blocks, points, pattern,
                 build):
-        """Load the state, the draws and the frame into the static buffers,
+        """Load the draws, the state and the frame into the static buffers,
         capture ``build()``'s body for ``pattern`` if it has no graph yet,
         and replay that pattern's graph.  Returns the graph's outputs."""
         if self._static is None:
             self._allocate(state)
-        self._load_state(state)
-        self._load_draws(state, draws)
-        self._load_frame(*blocks, points)
+        with profiling.span("step.draws"):
+            self._load_draws(state, draws)
+        with profiling.span("step.load"):
+            self._load_state(state)
+            self._load_frame(*blocks, points)
         if pattern not in self._graphs:
-            self._capture(pattern, build())
-        graph, out = self._graphs[pattern]
-        graph.replay()
+            with profiling.span("step.capture"):
+                self._capture(pattern, build())
+        graph, out, marks = self._graphs[pattern]
+        with profiling.span("step.launch"):
+            graph.replay()
+        profiling.replayed(marks)
         return out
 
     def _advance(self, pro, state: MapState) -> MapState:
@@ -220,7 +242,7 @@ class _GraphedBase:
     def release(self) -> None:
         """Free every graph, their memory pools and the static buffers; the
         next accepted frame captures anew."""
-        for graph, _ in self._graphs.values():
+        for graph, _, _ in self._graphs.values():
             graph.reset()
         self._graphs = {}
         self._static = self._draws = self._host = self._frame = None
@@ -245,18 +267,24 @@ class GraphedStep(_GraphedBase):
 
     # -- the step ----------------------------------------------------------
     def __call__(self, state: MapState, frame: Frame, draws=None):
-        self._check_device(state)
+        with profiling.span("step", frame=True):
+            return self._step(state, frame, draws)
+
+    def _step(self, state: MapState, frame: Frame, draws):
         cfg = self.cfg
-        pro = prologue(state, frame, cfg)
-        if self.admission_control and not pro.accepted:
-            return state, _rejected(state, cfg, self.with_metrics)
-        out = self._replay(state, draws,
-                           pro.blocks(cfg, state, frame.n_points),
-                           frame.points, (True,),
+        with profiling.span("step.prologue"):
+            self._check_device(state)
+            pro = prologue(state, frame, cfg)
+            if self.admission_control and not pro.accepted:
+                return state, _rejected(state, cfg, self.with_metrics)
+            blocks = pro.blocks(cfg, state, frame.n_points)
+        out = self._replay(state, draws, blocks, frame.points, (True,),
                            lambda: make_body(cfg, self.with_metrics,
                                              self.shard))
-        return self._advance(pro, state), StepOutput(
-            pro.accepted, self._static["weight_sum"], out.metrics, out.cloud)
+        with profiling.span("step.advance"):
+            return self._advance(pro, state), StepOutput(
+                pro.accepted, self._static["weight_sum"], out.metrics,
+                out.cloud)
 
 
 def make_graphed_step(cfg: MapConfig, with_metrics: bool = True,
@@ -314,24 +342,31 @@ class GraphedMultisensorStep(_GraphedBase):
                                       self.shard, out=out)
 
     def __call__(self, state: MapState, frames: Frame, draws=None):
-        self._check_device(state)
+        with profiling.span("step", frame=True):
+            return self._step(state, frames, draws)
+
+    def _step(self, state: MapState, frames: Frame, draws):
         cfg, n = self.cfg, self.n_sensors
-        pro = multisensor_prologue(state, frames, cfg, n)
-        for f in dataclasses.fields(EstimatorState):
-            shape = tuple(getattr(state.estimator, f.name).shape)
-            if shape[:1] != (n,):
-                raise ValueError(f"estimator.{f.name} is {shape}; a state "
-                                 f"of {n} sensors has a leading [{n}] axis "
-                                 "(init_multisensor_state)")
-        if not pro.accepted:
-            return state, _rejected_multisensor(state, cfg)
+        with profiling.span("step.prologue"):
+            self._check_device(state)
+            pro = multisensor_prologue(state, frames, cfg, n)
+            for f in dataclasses.fields(EstimatorState):
+                shape = tuple(getattr(state.estimator, f.name).shape)
+                if shape[:1] != (n,):
+                    raise ValueError(
+                        f"estimator.{f.name} is {shape}; a state of {n} "
+                        f"sensors has a leading [{n}] axis "
+                        "(init_multisensor_state)")
+            if not pro.accepted:
+                return state, _rejected_multisensor(state, cfg)
         out = self._replay(state, draws, (pro.f, pro.i), frames.points,
                            pro.admitted,
                            lambda: make_multisensor_body(cfg, n,
                                                          pro.admitted,
                                                          self.shard))
-        return self._advance(pro, state), StepOutput(
-            True, self._static["weight_sum"], out.metrics, ())
+        with profiling.span("step.advance"):
+            return self._advance(pro, state), StepOutput(
+                True, self._static["weight_sum"], out.metrics, ())
 
 
 def make_graphed_multisensor_step(cfg: MapConfig,

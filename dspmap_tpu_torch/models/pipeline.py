@@ -65,6 +65,7 @@ from ..ops.compact import (fov_geometry_compact, occupancy_compact,
                            register_fov_compact, sweep_compact)
 from ..ops.occupancy import occupancy_and_resample
 from ..ops.relayout import zeros_flat
+from ..utils import profiling
 from .. import scalars
 
 
@@ -346,7 +347,11 @@ def make_body(cfg: MapConfig, with_metrics: bool = True, shard=None):
     frame's :class:`~.scalars.FrameScalars`, ``points`` its ``[P, 3]``
     buffer and ``draws`` :func:`make_draws`' tensors on the device.  It
     takes only tensors, reads no device value on the host and modifies none
-    of its inputs."""
+    of its inputs.  With tracing on (``utils/profiling.py``) it marks the
+    end of each stage: ``stage.observe``, ``stage.estimate``,
+    ``stage.predict`` (the clamp, the sweep or propagation, rebin and FOV
+    registration), ``stage.update``, ``stage.birth`` and
+    ``stage.occupancy`` (occupancy, future, resample and the counters)."""
     compact = cfg.layout == "compact"
     lo = 0 if shard is None else shard.lo
     noisy = is_noisy(cfg)
@@ -359,12 +364,15 @@ def make_body(cfg: MapConfig, with_metrics: bool = True, shard=None):
         sensor_pos, R, origin = fs.sensor_pos, fs.R, fs.origin
         update_time = fs.update_time
 
+        profiling.mark(profiling.START, dev)
         obs, expected_newborn = _observe(points, fs.n_points, sensor_pos,
                                          fs.quat, cfg, rt, dev)
+        profiling.mark("stage.observe", dev)
 
         # -- velocity estimation (dsp_dynamic.h:297,1377) ---------------
         est_out, est_state = estimate_velocities(
             obs.cloud_world, obs.cloud_valid, estimator, cfg, fs.dt, fresh)
+        profiling.mark("stage.estimate", dev)
 
         # -- prediction + rebin + FOV (dsp_dynamic.h:300,627-701,
         # 1232-1271) -----------------------------------------------------
@@ -425,11 +433,13 @@ def make_body(cfg: MapConfig, with_metrics: bool = True, shard=None):
                              new_cell=sw.new_cell.view(-1))
             p, fovbin, future_movers, fov_stats = rebin_and_register(
                 p, cfg, sw, sensor_pos, update_time, shard, with_metrics)
+        profiling.mark("stage.predict", dev)
 
         # -- measurement update (dsp_dynamic.h:304,704-793) -------------
         p, norm_coeff, upd_stats = measurement_update(
             p, fovbin, obs, cfg, expected_newborn, update_time, rt, shard,
             with_metrics)
+        profiling.mark("stage.update", dev)
 
         # -- particle birth (dsp_dynamic.h:315,796-921) -----------------
         birth = particle_birth_compact if compact else particle_birth
@@ -439,6 +449,7 @@ def make_body(cfg: MapConfig, with_metrics: bool = True, shard=None):
             est_dynamic=est_out.dynamic, est_valid=est_out.valid,
             norm_coeff=norm_coeff, origin=origin, update_time=update_time,
             rt=rt, shard=shard, with_metrics=with_metrics)
+        profiling.mark("stage.birth", dev)
 
         # -- occupancy + future + resample (dsp_dynamic.h:322,924) ------
         if compact:
@@ -459,6 +470,7 @@ def make_body(cfg: MapConfig, with_metrics: bool = True, shard=None):
             metrics = occ_stats  # {"alive"} alone
         if shard is not None:
             metrics = _sum_counters(metrics, shard)
+        profiling.mark("stage.occupancy", dev)
         cloud = (est_out.points, est_out.vel, est_out.dynamic, est_out.valid)
         return BodyOut(p, weight_sum, vel_avg, future, est_state, metrics,
                        cloud)
@@ -505,6 +517,10 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
     layout = scalars.layout(cfg)
 
     def step(state: MapState, frame: Frame, draws=None):
+        with profiling.span("step", frame=True):
+            return _step(state, frame, draws)
+
+    def _step(state: MapState, frame: Frame, draws):
         dev = state.device
         pro = prologue(state, frame, cfg)
         if admission_control and not pro.accepted:
@@ -635,7 +651,12 @@ def make_multisensor_body(cfg: MapConfig, n_sensors: int, admitted,
     caller that replaces one here (a teacher-forced check) reaches it.
     The per-camera stages skip the counters the step discards
     (``with_metrics=False``); the mover exchange and occupancy keep
-    theirs."""
+    theirs.  With tracing on it marks :func:`make_body`'s stages:
+    ``stage.predict`` once for propagation and rebin, then for each
+    admitted camera ``stage.observe``, ``stage.estimate``,
+    ``stage.predict`` (its FOV registration), ``stage.update`` and
+    ``stage.birth``, then ``stage.occupancy`` (with the tracks'
+    stacking)."""
     compact = cfg.layout == "compact"
     admitted = tuple(bool(a) for a in admitted)
     if len(admitted) != n_sensors or not any(admitted):
@@ -650,6 +671,7 @@ def make_multisensor_body(cfg: MapConfig, n_sensors: int, admitted,
         fs0 = fss[0]
         rt = fs0.params
 
+        profiling.mark(profiling.START, dev)
         p = particles
         if compact:
             p, sw = sweep_compact(_clamp_velocities(p, cfg), cfg, fs0.dt,
@@ -662,6 +684,7 @@ def make_multisensor_body(cfg: MapConfig, n_sensors: int, admitted,
         else:
             p = propagate(p, cfg, prop_noise, fs0.dt, rt)
             p, _ = rebin(p, cfg, fs0.origin, fs0.update_time, shard)
+        profiling.mark("stage.predict", dev)
 
         tracks = []
         for i in range(n_sensors):
@@ -674,9 +697,11 @@ def make_multisensor_body(cfg: MapConfig, n_sensors: int, admitted,
             fov_noise = fov_noise[0] if fov_noise else None
             obs, expected_newborn = _observe(
                 points[i], fs.n_points, fs.sensor_pos, fs.quat, cfg, rt, dev)
+            profiling.mark("stage.observe", dev)
             est_out, est = estimate_velocities(
                 obs.cloud_world, obs.cloud_valid, est, cfg, fs.dt, fresh)
             tracks.append(est)
+            profiling.mark("stage.estimate", dev)
             if compact:
                 pyr, fov_mask = fov_geometry_compact(p, cfg, fs.sensor_pos,
                                                      R=fs.R)
@@ -687,9 +712,11 @@ def make_multisensor_body(cfg: MapConfig, n_sensors: int, admitted,
                 p, fovbin, _ = register_fov(p, cfg, fs.sensor_pos,
                                             noise=fov_noise, rt=rt,
                                             with_metrics=False, R=fs.R)
+            profiling.mark("stage.predict", dev)
             p, norm_coeff, _ = measurement_update(
                 p, fovbin, obs, cfg, expected_newborn, fs.update_time, rt,
                 shard, with_metrics=False)
+            profiling.mark("stage.update", dev)
             birth = particle_birth_compact if compact else particle_birth
             p, _ = birth(
                 p, cfg, (noise_p, noise_v, noise_u),
@@ -698,6 +725,7 @@ def make_multisensor_body(cfg: MapConfig, n_sensors: int, admitted,
                 norm_coeff=norm_coeff, origin=fs.origin,
                 update_time=fs.update_time, rt=rt, shard=shard,
                 with_metrics=False)
+            profiling.mark("stage.birth", dev)
 
         if compact:
             p, weight_sum, vel_avg, future, occ_stats = occupancy_compact(
@@ -712,6 +740,7 @@ def make_multisensor_body(cfg: MapConfig, n_sensors: int, admitted,
         estimator = EstimatorState(**{
             f.name: torch.stack([getattr(e, f.name) for e in tracks])
             for f in dataclasses.fields(EstimatorState)})
+        profiling.mark("stage.occupancy", dev)
         return BodyOut(p, weight_sum, vel_avg, future, estimator, occ_stats,
                        ())
 
@@ -764,6 +793,10 @@ def make_multisensor_step(cfg: MapConfig, n_sensors: int, shard=None):
     layout = scalars.layout(cfg, n_sensors)
 
     def step(state: MapState, frames: Frame, draws=None):
+        with profiling.span("step", frame=True):
+            return _step(state, frames, draws)
+
+    def _step(state: MapState, frames: Frame, draws):
         dev = state.device
         pro = multisensor_prologue(state, frames, cfg, n_sensors)
         if not pro.accepted:
@@ -827,9 +860,11 @@ def read_occupancy(state: MapState, cfg: MapConfig, threshold: float = 0.7):
 
 def get_occupancy_map(state: MapState, cfg: MapConfig, threshold: float = 0.7):
     """``getOccupancyMapWithFutureStatus`` (dsp_dynamic.h:405-426):
-    ``(occupied[V], centers[V, 3], future[V, T], new_state)``."""
-    occupied, centers, future, _, new_state = read_occupancy(
-        state, cfg, threshold)
+    ``(occupied[V], centers[V, 3], future[V, T], new_state)``; the span
+    ``readout`` while tracing is on."""
+    with profiling.span("readout"):
+        occupied, centers, future, _, new_state = read_occupancy(
+            state, cfg, threshold)
     return occupied, centers, future, new_state
 
 

@@ -1,4 +1,5 @@
-"""Where a frame's time goes on the card: per-stage times of the step.
+"""Where a frame's time goes on the card: the program's own stage marks and
+host spans of each path's graphed step.
 
 Run on a machine with a CUDA card, from the root of a checkout::
 
@@ -6,20 +7,31 @@ Run on a machine with a CUDA card, from the root of a checkout::
 
 For each named path (default: all seven, at full width, on the synthetic
 street sequence, seed 0; ``multisensor_2cam`` and ``multisensor_compact``
-run ``make_multisensor_step`` with two cameras that share each frame's
-cloud and pose, as ``bench.py``'s two-camera cell does, on the flagship's
-and on large_urban's configuration) it prints one JSON line with
+run ``make_graphed_multisensor_step`` with two cameras that share each
+frame's cloud and pose, on the flagship's and on large_urban's
+configuration) it builds two graphed steps (``make_graphed_step``,
+``make_graphed_multisensor_step``), one with the program's tracing off and
+one with it on (``utils/profiling.py``), each on its own state over the
+same frames, and prints one JSON line with
 
-* ``frame_ms``: median frame time of the step as users run it (host clock
-  around a step that ends in one ``torch.cuda.synchronize()``), over two
-  blocks of 8 frames that alternate with the synced blocks below;
-* ``stage_ms``: median time of each stage of ``models/pipeline.py`` with a
-  synchronize before and after it (a stage that runs once a sensor also
-  under ``name[i]`` for sensor i), and ``synced_frame_ms``, the frame time
-  of those frames;
+* ``frame_ms`` and ``traced_frame_ms``: median frame time of each step as
+  users run it (host clock around a step that ends in one
+  ``torch.cuda.synchronize()``), over two blocks of frames a step, the
+  blocks of the two steps in turns;
+* ``stage_ms``: median device milliseconds of each stage of the traced
+  step's graph, from its stage marks (a stage run once a camera summed
+  over the cameras), and ``stages_total_ms``, the median time from the
+  graph's first mark to its last;
+* ``span_ms``: median host milliseconds of each span of the traced step
+  (``step`` and its children ``step.marks``, ``step.prologue``,
+  ``step.draws``, ``step.load``, ``step.launch``, ``step.advance``) and of
+  the readout (``readout``, ``get_occupancy_map`` run after each frame);
+  ``traced_frames`` and ``unmeasured`` count the frames read and those
+  whose marks were not;
 * ``device_busy_ms``: the summed duration of every kernel and copy the card
-  ran in one frame (``torch.profiler``, device-side events only), and
-  ``device_idle_share = 1 - device_busy_ms / frame_ms`` of that frame;
+  ran in one frame of the untraced step (``torch.profiler``, device-side
+  events only), and ``device_idle_share = 1 - device_busy_ms / frame_ms``
+  of that frame;
 * ``kernels_per_frame``: how many kernels and copies that frame launched;
 * ``own_kernels``: for each of the port's hand-written kernels that ran in
   that frame, ``[launches, summed device microseconds]``;
@@ -41,21 +53,15 @@ import time
 import torch
 
 from .. import (Frame, dsp_dynamic, dsp_dynamic_multi_neighbors, dsp_static,
-                example_node_settings, init_multisensor_state, init_state,
-                large_urban, make_multisensor_step, make_step, stack_frames)
-from ..models import pipeline
-from . import sim
+                example_node_settings, get_occupancy_map,
+                init_multisensor_state, init_state, large_urban,
+                make_graphed_multisensor_step, make_graphed_step,
+                stack_frames)
+from . import profiling, sim
 
-#: the stage functions as ``models/pipeline.py`` names them
-STAGES = ("project_points", "estimate_velocities", "sweep", "sweep_compact",
-          "flatten_pool", "rebin_and_register", "propagate", "rebin",
-          "register_fov", "rebin_compact", "fov_geometry_compact",
-          "register_fov_compact", "measurement_update", "particle_birth",
-          "particle_birth_compact", "occupancy_and_resample",
-          "occupancy_compact")
 #: the cameras of the multi-sensor path
 SENSORS = 2
-WARMUP, TIMED = 5, 8
+WARMUP, TIMED = 5, 20
 #: the ``__global__`` functions of ``csrc/*.cu``
 OWN_KERNELS = ("occupancy_tile_kernel", "sweep_kernel", "pass1_kernel",
                "pass2_kernel", "segscan_warp_kernel", "segscan_tile_kernel",
@@ -87,73 +93,64 @@ def configs() -> dict:
     }
 
 
-def _timed(fn, sink: list):
-    def wrapper(*args, **kwargs):
-        torch.cuda.synchronize()
+class _Run:
+    """One graphed step on its own state, over the path's frames, each
+    called with tracing ``traced`` (so its graph, captured at its first
+    frame, holds the stage marks or not)."""
+
+    def __init__(self, cfg, n_sensors, traced: bool):
+        self.cfg = cfg
+        if n_sensors is None:
+            self.step = make_graphed_step(cfg)
+            self.state = init_state(cfg, seed=0)
+        else:
+            self.step = make_graphed_multisensor_step(cfg, n_sensors)
+            self.state = init_multisensor_state(cfg, n_sensors, seed=0)
+        self.traced = traced
+
+    def __call__(self, frame) -> float:
+        profiling.tracing(self.traced)
         t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
+        state, out = self.step(self.state, frame)
         torch.cuda.synchronize()
-        sink.append((time.perf_counter() - t0) * 1e3)
-        return out
-    return wrapper
+        ms = (time.perf_counter() - t0) * 1e3
+        if not out.accepted:
+            raise RuntimeError("frame rejected")
+        *_, self.state = get_occupancy_map(state, self.cfg)
+        torch.cuda.synchronize()
+        return ms
 
 
 def measure(cfg, n_sensors=None) -> dict:
     """The measurements of the module docstring for one configuration;
     ``n_sensors`` cameras through the multi-sensor step, or ``None`` for
-    ``make_step``."""
+    the one-camera step."""
     frames = [Frame(*f) for f in sim.generate_sequence(
-        WARMUP + 4 * TIMED + 2, cfg, seed=0)]
-    if n_sensors is None:
-        step = make_step(cfg)
-        state = init_state(cfg, seed=0)
-    else:
-        step = make_multisensor_step(cfg, n_sensors)
-        state = init_multisensor_state(cfg, n_sensors, seed=0)
+        WARMUP + 2 * TIMED + 2, cfg, seed=0)]
+    if n_sensors is not None:
         frames = [stack_frames([f] * n_sensors) for f in frames]
+    plain, traced = _Run(cfg, n_sensors, False), _Run(cfg, n_sensors, True)
+    try:
+        for frame in frames[:WARMUP]:
+            plain(frame)
+            traced(frame)
+        profiling.spans()  # the warm-up's records, the capture's among them
+        # the two steps' blocks in turns (plain, traced, plain, traced), so
+        # that a drift of the host's speed during the run shows in both
+        frame_ms, traced_ms = [], []
+        for b in range(2):
+            block = frames[WARMUP + b * TIMED:WARMUP + (b + 1) * TIMED]
+            frame_ms += [plain(frame) for frame in block]
+            traced_ms += [traced(frame) for frame in block]
+        summary = profiling.summarize(profiling.spans())
 
-    def run(frame):
-        nonlocal state
-        t0 = time.perf_counter()
-        state, out = step(state, frame)
-        torch.cuda.synchronize()
-        if not out.accepted:
-            raise RuntimeError("frame rejected")
-        return (time.perf_counter() - t0) * 1e3
-
-    # plain and synced blocks in turns (plain, synced, plain, synced), so
-    # that a drift of the host's speed during the run shows in both
-    it = iter(frames)
-    for _ in range(WARMUP):
-        run(next(it))
-    sinks = {name: [] for name in STAGES}
-    originals = {name: getattr(pipeline, name) for name in STAGES}
-    frame_blocks, synced_blocks = [], []
-    for _ in range(2):
-        frame_blocks.append([run(next(it)) for _ in range(TIMED)])
-        try:
-            for name, sink in sinks.items():
-                setattr(pipeline, name, _timed(originals[name], sink))
-            synced_blocks.append([run(next(it)) for _ in range(TIMED)])
-        finally:
-            for name, fn in originals.items():
-                setattr(pipeline, name, fn)
-    frame_ms = frame_blocks[0] + frame_blocks[1]
-    synced_ms = synced_blocks[0] + synced_blocks[1]
-    stage_ms = {}
-    for name, sink in sinks.items():
-        if not sink:
-            continue
-        stage_ms[name] = statistics.median(sink)
-        per_frame = len(sink) // len(synced_ms)
-        for i in range(per_frame if per_frame > 1 else 0):
-            stage_ms[f"{name}[{i}]"] = statistics.median(sink[i::per_frame])
-
-    run(next(it))
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        profiled_ms = run(next(it))
+        plain(frames[-2])
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            profiled_ms = plain(frames[-1])
+    finally:
+        profiling.tracing(False)
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in device) / 1e3
@@ -161,16 +158,15 @@ def measure(cfg, n_sensors=None) -> dict:
     for e in device:
         if e.name.startswith("Memcpy"):
             copies[e.name] = copies.get(e.name, 0) + 1
-    own = own_kernels(device)
     return dict(frame_ms=statistics.median(frame_ms),
-                frame_ms_min=min(frame_ms), frame_ms_max=max(frame_ms),
-                frame_ms_by_block=[statistics.median(b) for b in frame_blocks],
-                synced_frame_ms=statistics.median(synced_ms),
-                synced_frame_ms_by_block=[statistics.median(b)
-                                          for b in synced_blocks],
-                stage_ms=stage_ms, profiled_frame_ms=profiled_ms,
-                device_busy_ms=busy_ms, kernels_per_frame=len(device),
-                own_kernels=own, copies=copies,
+                traced_frame_ms=statistics.median(traced_ms),
+                stage_ms=summary["stages"],
+                stages_total_ms=summary["stages_total"],
+                span_ms=summary["spans"], traced_frames=summary["frames"],
+                unmeasured=summary["unmeasured"],
+                profiled_frame_ms=profiled_ms, device_busy_ms=busy_ms,
+                kernels_per_frame=len(device), own_kernels=own_kernels(device),
+                copies=copies,
                 device_idle_share=(1.0 - busy_ms / profiled_ms
                                    if device else None))
 
