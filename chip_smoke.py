@@ -29,7 +29,10 @@ Phases (each prints one line; any failure raises and exits nonzero):
    P = 131072 rows for the four calls of a compact frame, then at reach 64
    and 512, at reach 1 to 8 and at ragged row counts; K5a/K5b (relayout) at (60, 75776):
    the seven planes of a frame in one launch beside seven ``clone()``
-   calls, one plane beside one; K1's ``with_moving`` arm (the moving
+   calls, one plane beside one; the Euclidean clustering on every case of
+   ``kernel_times.cluster_case`` and on a street frame's cloud, timed at
+   P = 5000 on that cloud, on it with every point valid and on the chain;
+   K1's ``with_moving`` arm (the moving
    mask of the noisy and multi-sensor paths) at S = 18 with three
    velocity planes and with two, and with two on the upper half of the
    pool (a rank's slab of the sharded two-camera path);
@@ -816,6 +819,86 @@ def check_jv(cfg, device, on_cpu):
             "flagship_worst_chain": {"jv_solve": rows["worst_chain"]}}
 
 
+#: the clustering check's frame of the street sequence, whose non-ground
+#: cloud it times
+CLUSTER_FRAME = 10
+
+
+def _street_cloud(cfg, device, all_valid=False):
+    """The points and the non-ground mask the estimator clusters at frame
+    :data:`CLUSTER_FRAME` of the street sequence (with ``all_valid``, every
+    one of the frame's points valid, ground included)."""
+    import torch
+    import dspmap_tpu_torch as dm
+    from dspmap_tpu_torch.models import pipeline
+    from dspmap_tpu_torch.utils import sim
+
+    state = dm.init_state(cfg, seed=0, device=device)
+    *_, (pts, n, pos, quat, _) = sim.generate_sequence(CLUSTER_FRAME + 1, cfg,
+                                                       seed=0)
+    obs, _ = pipeline._observe(pts, n, pos, quat, cfg, state.params, device)
+    if all_valid:
+        return obs.cloud_world, torch.ones_like(obs.cloud_valid)
+    ground = obs.cloud_world[:, 2] <= cfg.voxel_filter_resolution
+    return obs.cloud_world, obs.cloud_valid & ~ground
+
+
+def check_cluster(cfg, device):
+    """Phase 3, the Euclidean clustering (``euclidean_cluster``): the
+    kernel's labels bit-equal to the plain version's on the card for every
+    ``kernel_times.cluster_case`` kind at the flagship's P and for the
+    street's cloud; timed on the street's non-ground cloud (as the
+    estimator hands it), on the same frame with every point valid and on
+    the chain (every sweep run), at the flagship's tolerance and sweeps.
+    ``ms`` times the wrapper (the Gram product included), ``device_ms`` the
+    kernel's own launches; the bound counts the Gram product read once,
+    ``sq``, the valid flags and the labels.  ``sweeps`` is what the
+    kernel's counter on the card read for the call.  Returns ``{shape
+    label: {kernel name: measurements}}``."""
+    import torch
+    from dspmap_tpu_torch import kernels
+    from dspmap_tpu_torch.ops import cluster
+    from dspmap_tpu_torch.utils.kernel_times import (CLUSTER_KINDS,
+                                                     CLUSTER_TOLERANCE,
+                                                     cluster_case)
+
+    P, iters = cfg.max_input_points, cfg.cluster_propagation_iters
+    tol = cfg.cluster_tolerance
+    clouds = {"street": _street_cloud(cfg, device) + (tol,),
+              "street_all_valid": _street_cloud(cfg, device, True) + (tol,)}
+    for kind in CLUSTER_KINDS:
+        pts, ok = cluster_case(kind, P, np.random.default_rng(P))
+        clouds[kind] = (torch.from_numpy(pts).to(device),
+                        torch.from_numpy(ok).to(device), CLUSTER_TOLERANCE)
+    sweeps = {}
+    for kind, (pts, ok, t) in clouds.items():
+        s0, _ = cluster.sweeps_run(device)
+        got = cluster.euclidean_cluster_cuda(pts, ok, t, iters)
+        sweeps[kind] = cluster.sweeps_run(device)[0] - s0
+        _require(torch.equal(got, cluster.euclidean_cluster_plain(
+            pts, ok, t, iters)),
+            f"euclidean_cluster {kind}: not bit-equal to the plain version")
+    _say("euclidean_cluster_check", P=P, iters=iters,
+         cases=json.dumps(sorted(clouds)), bit_equal=len(clouds),
+         sweeps=json.dumps(sweeps))
+    rows = {}
+    for case in ("street", "street_all_valid", "chain"):
+        pts, ok, t = clouds[case]
+        n_bytes = 4 * P * P + 4 * P + P + 4 * P
+        row = _row(0.0, lambda: cluster.euclidean_cluster_cuda(pts, ok, t,
+                                                               iters),
+                   lambda: cluster.euclidean_cluster_plain(pts, ok, t, iters),
+                   n_bytes, 0, shape=f"P={P} iters={iters} {case}",
+                   valid_points=int(ok.sum()), sweeps=sweeps[case])
+        _say(f"euclidean_cluster_{case}", **row)
+        rows[case] = row
+    kernels.reset_launch_counts()
+    return {"flagship": {"euclidean_cluster": rows["street"]},
+            "flagship_all_valid": {"euclidean_cluster":
+                                   rows["street_all_valid"]},
+            "flagship_chain": {"euclidean_cluster": rows["chain"]}}
+
+
 #: torch's threads in a worker process that steps phase 5's CPU frames
 CPU_THREADS = 1
 
@@ -930,13 +1013,14 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu",
 
 _POOL_FRAME = {"occupancy_pool_pass": 1, "sweep": 1, "update_pass1": 1,
                "update_pass2": 1, "seg_scans": 0, "to_flat": 0, "from_flat": 0,
-               "jv_solve": 1}
+               "jv_solve": 1, "euclidean_cluster": 1}
 _COMPACT_FRAME = {**_POOL_FRAME, "occupancy_pool_pass": 0, "sweep": 0,
                   "seg_scans": 4}
 def _cameras(n) -> dict:
-    """``n`` cameras: the pair passes and the estimator's JV solve run once
-    a sensor."""
-    return {"update_pass1": n, "update_pass2": n, "jv_solve": n}
+    """``n`` cameras: the pair passes and the estimator's JV solve and
+    clustering run once a sensor."""
+    return {"update_pass1": n, "update_pass2": n, "jv_solve": n,
+            "euclidean_cluster": n}
 
 
 #: per path: (warm-up frames, timed frames, the watched warm frame, the
@@ -952,14 +1036,16 @@ def _cameras(n) -> dict:
 #: (K2) and keep [S, V] planes (no K5).  A compact frame launches K4 four
 #: times (rebin_compact's segment table, birth's table, occupancy's two
 #: scan sets); the two-camera compact frame five, birth's table once a
-#: sensor.  The velocity estimator solves one assignment a frame (a camera)
-#: wherever it runs: every path but static, whose preset turns it off.  The
+#: sensor.  The velocity estimator clusters once and solves one assignment a
+#: frame (a camera) wherever it runs: every path but static, whose preset
+#: turns it off.  The
 #: four-camera path runs the flagship's pool through the same stages as the
 #: two-camera one.
 PATHS = {
     "flagship": (5, 10, 4, _POOL_FRAME, None, False),
     "large_urban": (3, 6, 2, _COMPACT_FRAME, None, False),
-    "static": (3, 8, 2, {**_POOL_FRAME, "jv_solve": 0}, None, False),
+    "static": (3, 8, 2, {**_POOL_FRAME, "jv_solve": 0,
+                         "euclidean_cluster": 0}, None, False),
     "multi": (3, 8, 2, {**_POOL_FRAME, "to_flat": 1, "from_flat": 1}, None,
               False),
     "noisy": (5, 10, 4, {**_POOL_FRAME, "sweep": 0}, None, False),
@@ -1087,7 +1173,8 @@ def check_repeat(name, cfg, state, device) -> None:
 
 #: the per-camera kernels: launches a frame for each camera admitted (the
 #: compact layout's birth table is a K4 launch a camera, too)
-_A_CAMERA = {"update_pass1": 1, "update_pass2": 1, "jv_solve": 1}
+_A_CAMERA = {"update_pass1": 1, "update_pass2": 1, "jv_solve": 1,
+             "euclidean_cluster": 1}
 
 
 def _pattern_frame(per_frame, admitted) -> dict:
@@ -1770,6 +1857,9 @@ KERNELS = {
                  "dspmap_tpu/ops/assignment.py:201 (a lax.while_loop, "
                  "with those at :146 and :175; not a pallas_call)",
                  "flagship"),
+    "euclidean_cluster": ("dspmap_tpu_torch/csrc/cluster.cu",
+                          "dspmap_tpu/ops/cluster.py::_propagate (a "
+                          "lax.while_loop; not a pallas_call)", "flagship"),
 }
 
 
@@ -1811,6 +1901,8 @@ def _phases(configs, device, smi, jv_cpu, pool, procs, tmp):
                 for label in ("flagship", "static", "multi")}
     by_shape["flagship_slab"] = check_sweep_slab(configs["flagship"], device)
     for label, rows in check_jv(configs["flagship"], device, jv_cpu).items():
+        by_shape.setdefault(label, {}).update(rows)
+    for label, rows in check_cluster(configs["flagship"], device).items():
         by_shape.setdefault(label, {}).update(rows)
     # K1's moving mask, as the noisy and the two-camera pool paths take it,
     # and as a rank of the sharded two-camera path takes it on its slab

@@ -17,7 +17,8 @@ it uses only what every version of the port has had (``Particles``,
 checkout has it.  ``chip_smoke.py`` takes its timers (:func:`median_ms`,
 :func:`device_ms`), its pool (:func:`populated_pool`), its K3 and K4
 operands (:func:`pair_operands`, :func:`segscan_case`) and its JV costs
-(:func:`jv_case`, :func:`jv_timed_cases`) from here.
+(:func:`jv_case`, :func:`jv_timed_cases`) and clustering cases
+(:func:`cluster_case`) from here.
 
 Prints the card's name and power limit, then one JSON line a measurement:
 
@@ -328,6 +329,79 @@ def jv_numpy(a, n_rows, R):
             p[j0], j0 = p[way[j0]], way[j0]
             n_unwind += 1
     return p, n_path, n_unwind
+
+
+#: the clustering cases' tolerance (the flagship's cluster tolerance is of
+#: this order) and the kinds of :func:`cluster_case`
+CLUSTER_TOLERANCE = 0.2
+CLUSTER_KINDS = ("blobs", "all_valid", "all_invalid", "chain",
+                 "tolerance_ulps")
+
+
+def _ulp_pairs(offsets):
+    """For each offset, float32 ``(a, b)`` near ``0.2 / sqrt(2)`` with
+    ``fl(fl(a * a) + fl(b * b))`` that many ulps from ``tol2``."""
+    import numpy as np
+
+    tol2 = np.float32(CLUSTER_TOLERANCE * CLUSTER_TOLERANCE)
+    found = {}
+    a = np.float32(CLUSTER_TOLERANCE / np.sqrt(2))
+    for _ in range(100):
+        b = np.sqrt(tol2 - a * a, dtype=np.float32)
+        for _ in range(3):
+            b = np.nextafter(b, np.float32(0))
+        for _ in range(7):
+            off = int((a * a + b * b).view(np.int32) - tol2.view(np.int32))
+            found.setdefault(off, (a, b))
+            b = np.nextafter(b, np.float32(1))
+        a = np.nextafter(a, np.float32(1))
+    return [found[k] for k in offsets]
+
+
+def cluster_case(kind, P, rng):
+    """Points ``[P, 3]`` (numpy float32) and valid flags ``[P]`` (bool) for
+    the Euclidean clustering at :data:`CLUSTER_TOLERANCE`:
+
+    * ``blobs``: twelve tight blobs of 40 points (fewer where ``P`` is
+      small) and scattered singletons, a tenth of the points invalid;
+    * ``all_valid`` and ``all_invalid``: the same points, every one valid,
+      or none;
+    * ``chain``: a helix whose neighbours lie 0.15 apart (turns 0.3 apart),
+      in a random order, one component whose labels twelve sweeps do not
+      settle from some hundreds of points on;
+    * ``tolerance_ulps``: a point at the origin and four about 0.2 from it
+      on the diagonals of the xy plane, ``(+-a, +-b, 0)`` with ``sq =
+      fl(fl(a * a) + fl(b * b))`` at ``tol2``, 1 ulp below it, 1 and 2
+      above; the Gram entries with the origin are 0, so ``d2`` with it is
+      ``sq`` exactly and the adjacency is known (the four lie 0.28 and 0.4
+      apart; every other point invalid).
+
+    The points lie in a random order."""
+    import numpy as np
+
+    if kind in ("blobs", "all_valid", "all_invalid"):
+        n_blob = min(40, P // 24)
+        centers = rng.uniform(-5, 5, (12, 3))
+        pts = np.concatenate(
+            [c + rng.normal(0, 0.08, (n_blob, 3)) for c in centers]
+            + [rng.uniform(-8, 8, (P - 12 * n_blob, 3))])
+        valid = {"blobs": rng.random(P) < 0.9, "all_valid": np.ones(P, bool),
+                 "all_invalid": np.zeros(P, bool)}[kind]
+    elif kind == "chain":
+        t = np.arange(P) * 0.15 / 2.0
+        pts = np.stack([2.0 * np.cos(t), 2.0 * np.sin(t),
+                        0.3 * t / (2 * np.pi)], 1)
+        valid = np.ones(P, bool)
+    elif kind == "tolerance_ulps":
+        pts = rng.uniform(20, 30, (P, 3))
+        pts[:5] = 0.0
+        for k, (a, b) in enumerate(_ulp_pairs((0, 1, -1, 2))):
+            pts[k + 1, :2] = (a if k < 2 else -a, b if k % 2 == 0 else -b)
+        valid = np.arange(P) < 5
+    else:
+        raise ValueError(f"cluster case {kind!r}")
+    perm = rng.permutation(P)
+    return pts[perm].astype(np.float32), valid[perm]
 
 
 def main(argv) -> int:

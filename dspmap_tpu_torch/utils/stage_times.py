@@ -37,7 +37,10 @@ same frames, and prints one JSON line with
   that frame, ``[launches, summed device microseconds]``;
 * ``copies``: how many copies of each kind (as the profiler names them:
   device to host, pageable or pinned host to device, device to device)
-  that frame made.
+  that frame made;
+* ``cluster_sweeps``: the sweeps the clustering kernel ran, over its runs,
+  in the timed frames of both steps (its counter on the card;
+  ``ops/cluster.py::sweeps_run``), ``None`` where the estimator is off.
 
 The first line is the card's name and power limit.
 """
@@ -57,6 +60,7 @@ from .. import (Frame, dsp_dynamic, dsp_dynamic_multi_neighbors, dsp_static,
                 init_multisensor_state, init_state, large_urban,
                 make_graphed_multisensor_step, make_graphed_step,
                 stack_frames)
+from ..ops import cluster
 from . import profiling, sim
 
 #: the cameras of the multi-sensor path
@@ -65,7 +69,9 @@ WARMUP, TIMED = 5, 20
 #: the ``__global__`` functions of ``csrc/*.cu``
 OWN_KERNELS = ("occupancy_tile_kernel", "sweep_kernel", "pass1_kernel",
                "pass2_kernel", "segscan_warp_kernel", "segscan_tile_kernel",
-               "copy16_kernel", "jv_warp_kernel", "jv_kernel")
+               "copy16_kernel", "jv_warp_kernel", "jv_kernel",
+               "cluster_bits_kernel", "cluster_propagate_kernel",
+               "cluster_labels_kernel")
 
 
 def own_kernels(device_events) -> dict:
@@ -135,6 +141,7 @@ def measure(cfg, n_sensors=None) -> dict:
             plain(frame)
             traced(frame)
         profiling.spans()  # the warm-up's records, the capture's among them
+        sweeps0, runs0 = cluster.sweeps_run("cuda")
         # the two steps' blocks in turns (plain, traced, plain, traced), so
         # that a drift of the host's speed during the run shows in both
         frame_ms, traced_ms = [], []
@@ -143,6 +150,7 @@ def measure(cfg, n_sensors=None) -> dict:
             frame_ms += [plain(frame) for frame in block]
             traced_ms += [traced(frame) for frame in block]
         summary = profiling.summarize(profiling.spans())
+        sweeps1, runs1 = cluster.sweeps_run("cuda")
 
         plain(frames[-2])
         with torch.profiler.profile(activities=[
@@ -167,6 +175,8 @@ def measure(cfg, n_sensors=None) -> dict:
                 profiled_frame_ms=profiled_ms, device_busy_ms=busy_ms,
                 kernels_per_frame=len(device), own_kernels=own_kernels(device),
                 copies=copies,
+                cluster_sweeps=((sweeps1 - sweeps0) / (runs1 - runs0)
+                                if runs1 > runs0 else None),
                 device_idle_share=(1.0 - busy_ms / profiled_ms
                                    if device else None))
 

@@ -16,13 +16,15 @@ import torch
 
 import dspmap_tpu_torch as T
 from dspmap_tpu_torch import kernels
-from dspmap_tpu_torch.ops import (assignment, compact, occupancy, relayout,
-                                  sweep, update)
+from dspmap_tpu_torch.ops import (assignment, cluster, compact, occupancy,
+                                  relayout, sweep, update)
 from dspmap_tpu_torch.ops.common import padded_buffer
 from dspmap_tpu_torch.utils import sim
-from dspmap_tpu_torch.utils.kernel_times import (jv_case, jv_numpy,
-                                                 jv_worst_chain, pair_operands,
-                                                 segscan_case)
+from dspmap_tpu_torch.utils.kernel_times import (CLUSTER_KINDS,
+                                                 CLUSTER_TOLERANCE,
+                                                 cluster_case, jv_case,
+                                                 jv_numpy, jv_worst_chain,
+                                                 pair_operands, segscan_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -560,8 +562,8 @@ def test_preset_frames_on_the_card(device, preset):
     """Three frames of the full-width preset through ``make_step`` on the
     card: one launch of K1, K2, K3a and K3b a frame, the relayout kernels
     only where the planes reach 16 MiB (multi: one launch in, one out a
-    frame), the JV solve once a frame where the estimator runs (not on
-    static), a finite map with live particles, the input state left as it
+    frame), the JV solve and the clustering once a frame where the
+    estimator runs (not on static), a finite map with live particles, the input state left as it
     was."""
     cfg = _preset(preset)
     state = T.init_state(cfg, seed=0)
@@ -581,7 +583,8 @@ def test_preset_frames_on_the_card(device, preset):
         "occupancy_pool_pass": 3, "sweep": 3, "update_pass1": 3,
         "update_pass2": 3, "seg_scans": 0,
         "to_flat": 3 if big else 0, "from_flat": 3 if big else 0,
-        "jv_solve": 0 if preset == "static" else 3}
+        "jv_solve": 0 if preset == "static" else 3,
+        "euclidean_cluster": 0 if preset == "static" else 3}
     assert int(out.metrics["alive"]) > 0 and int(out.metrics["born"]) > 0
     assert state.particles.flags.shape == (cfg.slots_per_voxel,
                                            cfg.storage_voxels)
@@ -1000,6 +1003,132 @@ def test_jv_kernel_bit_equal_to_plain_on_flagship_costs(device, monkeypatch):
         assert torch.equal(card.cpu(), cpu)
         n_matched += int((cpu >= 0).sum())
     assert n_matched > 0
+
+
+#: (kind, P) of the clustering kernel's cases (``kernel_times.cluster_case``):
+#: every kind at P = 5,000 (every preset's), and P not a multiple of 32 --
+#: 4,999, 1,001 (the chain), 77 (the pairs about the tolerance), 33 and 1
+CLUSTER_KERNEL_CASES = [(kind, 5000) for kind in CLUSTER_KINDS] + [
+    ("blobs", 4999), ("chain", 1001), ("tolerance_ulps", 77),
+    ("all_valid", 33), ("blobs", 1)]
+
+
+@pytest.mark.parametrize("kind,P", CLUSTER_KERNEL_CASES,
+                         ids=[f"{k}-{P}" for k, P in CLUSTER_KERNEL_CASES])
+def test_cluster_kernel_bit_equal_to_plain(device, kind, P):
+    """``euclidean_cluster_cuda`` gives the plain version's labels bit for
+    bit on the same CUDA tensors at 12 sweeps (the presets'), 0, 1, 3 and
+    16: one launch a call; the kernel's counter on the card counts one run
+    a call and at most ``iters`` sweeps, every one of them on the chain,
+    whose labels the cap decides."""
+    pts_np, ok_np = cluster_case(kind, P, np.random.default_rng(P))
+    pts = torch.from_numpy(pts_np).to(device)
+    ok = torch.from_numpy(ok_np).to(device)
+    tol = CLUSTER_TOLERANCE
+    for iters in (12, 0, 1, 3, 16):
+        n0 = kernels.LAUNCHES["euclidean_cluster"]
+        s0, r0 = cluster.sweeps_run(device)
+        got = cluster.euclidean_cluster_cuda(pts, ok, tol, iters)
+        assert kernels.LAUNCHES["euclidean_cluster"] == n0 + 1
+        want = cluster.euclidean_cluster_plain(pts, ok, tol, iters)
+        assert got.dtype == torch.int32 and torch.equal(got, want), iters
+        s1, r1 = cluster.sweeps_run(device)
+        assert r1 == r0 + 1 and 0 <= s1 - s0 <= iters
+        if kind == "chain":
+            assert s1 - s0 == iters
+    labels = want.cpu().numpy()
+    assert (labels[~ok_np] == P).all() and (labels[ok_np] < P).all()
+    if kind == "chain":
+        assert len(np.unique(labels)) > 1
+    if kind == "tolerance_ulps":  # sq at 0, +1, -1, +2 ulps of tol2
+        sq = (pts_np * pts_np).sum(1, dtype=np.float32)
+        joined = ok_np & (sq <= np.float32(tol * tol))
+        assert joined.sum() == 3 and (ok_np & ~joined).sum() == 2
+        assert (labels[joined] == np.flatnonzero(joined).min()).all()
+        assert (labels[ok_np & ~joined] == np.flatnonzero(ok_np & ~joined)).all()
+
+
+def _no_plain_cluster(*args):
+    raise AssertionError("euclidean_cluster_plain ran on a CUDA tensor")
+
+
+def test_cluster_kernel_bit_equal_to_plain_on_street_clouds(device,
+                                                            monkeypatch):
+    """The clouds the estimator clusters on eight flagship frames and three
+    frames of the four-camera rig (``utils/rig.py``), recorded by wrapping
+    its ``euclidean_cluster`` on the card: one launch a camera, never the
+    plain version (made to raise), the labels bit-equal to the plain
+    version's on the same tensors."""
+    from dspmap_tpu_torch import estimator
+    from dspmap_tpu_torch.utils.graph_ritual import sequence
+
+    recorded = []
+    run = estimator.euclidean_cluster
+
+    def record(points, valid, tolerance, iters):
+        labels = run(points, valid, tolerance, iters)
+        recorded.append((points.clone(), valid.clone(), tolerance, iters,
+                         labels.clone()))
+        return labels
+
+    monkeypatch.setattr(estimator, "euclidean_cluster", record)
+    monkeypatch.setattr(cluster, "euclidean_cluster_plain", _no_plain_cluster)
+    cfg = T.example_node_settings(T.dsp_dynamic())
+    n0 = kernels.LAUNCHES["euclidean_cluster"]
+    step, state = T.make_step(cfg), T.init_state(cfg, seed=0)
+    for f in sequence(8, cfg):
+        state, out = step(state, f)
+        assert out.accepted
+    step = T.make_multisensor_step(cfg, 4)
+    state = T.init_multisensor_state(cfg, 4, seed=0)
+    for f in sequence(3, cfg, 4, rig=True):
+        state, out = step(state, f)
+        assert out.accepted
+    assert len(recorded) == 8 + 3 * 4
+    assert kernels.LAUNCHES["euclidean_cluster"] == n0 + len(recorded)
+    monkeypatch.undo()
+    n_clusters = 0
+    for points, valid, tolerance, iters, labels in recorded:
+        assert iters == cfg.cluster_propagation_iters
+        want = cluster.euclidean_cluster_plain(points, valid, tolerance, iters)
+        assert torch.equal(labels, want)
+        n_clusters += int((want == torch.arange(
+            want.numel(), dtype=torch.int32, device=device)).sum())
+    assert n_clusters > len(recorded)
+
+
+def test_graphed_steps_launch_the_cluster_kernel_once_a_camera(
+        device, monkeypatch):
+    """In the flagship's graphed step and the four-camera rig's, the
+    clustering kernel runs once a camera on the card in every replayed
+    frame (its counter on the card), is launched from the host only in the
+    warm-up run and the capture, and the plain version never runs (made to
+    raise)."""
+    from dspmap_tpu_torch.utils.graph_ritual import sequence
+
+    monkeypatch.setattr(cluster, "euclidean_cluster_plain", _no_plain_cluster)
+    cfg = T.example_node_settings(T.dsp_dynamic())
+    for cams in (None, 4):
+        if cams is None:
+            step, state = T.make_graphed_step(cfg), T.init_state(cfg, seed=0)
+            frames, per_frame = sequence(5, cfg), 1
+        else:
+            step = T.make_graphed_multisensor_step(cfg, cams)
+            state = T.init_multisensor_state(cfg, cams, seed=0)
+            frames, per_frame = sequence(5, cfg, cams, rig=True), cams
+        for k, f in enumerate(frames):
+            n0 = kernels.LAUNCHES["euclidean_cluster"]
+            s0, r0 = cluster.sweeps_run(device)
+            state, out = step(state, f)
+            torch.cuda.synchronize()
+            assert out.accepted
+            s1, r1 = cluster.sweeps_run(device)
+            launched = kernels.LAUNCHES["euclidean_cluster"] - n0
+            assert launched == (2 * per_frame if k == 0 else 0), (cams, k)
+            assert r1 - r0 == (2 if k == 0 else 1) * per_frame
+            assert 0 < s1 - s0 <= (r1 - r0) * cfg.cluster_propagation_iters
+        assert step.captures == 1
+        step.release()
 
 
 @pytest.mark.parametrize("preset", ["flagship", "static", "multi"])

@@ -25,8 +25,8 @@ from dspmap_tpu.ops.occupancy import _pool_pass_xla
 from dspmap_tpu.ops.sweep import sweep_reference as jax_sweep
 from dspmap_tpu.ops.update import _pair_g as jax_pair_g
 from dspmap_tpu_torch import kernels
-from dspmap_tpu_torch.ops import (assignment, compact, occupancy, relayout,
-                                  sweep, update)
+from dspmap_tpu_torch.ops import (assignment, cluster, compact, occupancy,
+                                  relayout, sweep, update)
 
 torch.set_num_threads(2)
 
@@ -263,14 +263,15 @@ def test_kernel_build_targets_hopper_only():
     assert set(kernels.LAUNCHES) == {"occupancy_pool_pass", "sweep",
                                      "update_pass1", "update_pass2",
                                      "seg_scans", "to_flat", "from_flat",
-                                     "jv_solve"}
+                                     "jv_solve", "euclidean_cluster"}
     text = "".join((kernels.CSRC / name).read_text()
                    for name in kernels.SOURCES)
     for name in kernels.ENTRY_POINTS:
         assert f"DSPMAP_API int {name}(" in text, name
         assert name[len("dspmap_"):] in kernels.LAUNCHES
     import inspect
-    for mod in (occupancy, sweep, update, compact, relayout, assignment):
+    for mod in (occupancy, sweep, update, compact, relayout, assignment,
+                cluster):
         assert "use_pallas" not in inspect.getsource(mod)
 
 
@@ -341,3 +342,48 @@ def test_jv_dispatcher_takes_plain_on_cpu(monkeypatch):
                             TypeError)):
             bad()
     assert not built and kernels.LAUNCHES == before
+
+
+def test_cluster_dispatcher_takes_plain_on_cpu(monkeypatch):
+    """On CPU tensors ``euclidean_cluster`` is the plain version and never
+    the kernel; ``euclidean_cluster_cuda`` refuses CPU tensors, float64
+    points, int valid flags, a mismatched shape and a P past the kernel's
+    without building or launching anything, and ``sweeps_run`` reads
+    nothing before the kernel's first call."""
+    rng = np.random.default_rng(21)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (200, 3)).astype(np.float32))
+    ok = torch.from_numpy(rng.random(200) < 0.8)
+    called = []
+    plain = cluster.euclidean_cluster_plain
+
+    def recorded(*args):
+        called.append(args[2:])
+        return plain(*args)
+
+    def refused(*args):
+        raise AssertionError("the kernel was reached from a CPU tensor")
+
+    built = []
+    monkeypatch.setattr(cluster, "euclidean_cluster_plain", recorded)
+    monkeypatch.setattr(cluster, "euclidean_cluster_cuda", refused)
+    monkeypatch.setattr(kernels, "lib", lambda: built.append(1))
+    before = dict(kernels.LAUNCHES)
+    got = cluster.euclidean_cluster(pts, ok, 0.3, 12)
+    assert called == [(0.3, 12)]
+    assert got.dtype == torch.int32 and torch.equal(got, plain(pts, ok, 0.3, 12))
+    assert bool((got[~ok] == 200).all()) and bool((got[ok] < 200).all())
+    monkeypatch.undo()
+    monkeypatch.setattr(kernels, "lib", lambda: built.append(1))
+    big = cluster.KERNEL_MAX_P + 1
+    for bad in (lambda: cluster.euclidean_cluster_cuda(pts, ok, 0.3, 12),
+                lambda: cluster.euclidean_cluster_cuda(pts.double(), ok, 0.3),
+                lambda: cluster.euclidean_cluster_cuda(pts, ok.int(), 0.3),
+                lambda: cluster.euclidean_cluster_cuda(pts[:10], ok, 0.3),
+                lambda: cluster.euclidean_cluster_cuda(
+                    torch.zeros((big, 3)), torch.ones(big, dtype=torch.bool),
+                    0.3)):
+        with pytest.raises((RuntimeError, AssertionError, ValueError,
+                            TypeError)):
+            bad()
+    assert not built and kernels.LAUNCHES == before
+    assert cluster.sweeps_run("cuda:0") == (0, 0)

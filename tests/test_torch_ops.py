@@ -29,6 +29,7 @@ from dspmap_tpu_torch.ops.cluster import euclidean_cluster
 from dspmap_tpu_torch.ops.fov import rebin_and_register
 from dspmap_tpu_torch.ops.project import project_points
 from dspmap_tpu_torch.ops.sweep import sweep_reference
+from dspmap_tpu_torch.utils.kernel_times import CLUSTER_TOLERANCE, cluster_case
 
 torch.set_num_threads(2)
 
@@ -244,19 +245,59 @@ def test_rebin_and_register_matches_jax(seed):
 
 # ------------------------------------------------------------ the estimator
 
-def test_euclidean_cluster_matches_jax():
-    """Labels equal: blobs of points with gaps well above the tolerance,
-    plus scattered singletons and invalid points."""
+def _blobs_with_singletons():
     rng = np.random.default_rng(4)
     centers = rng.uniform(-5, 5, (12, 3))
     pts = np.concatenate([c + rng.normal(0, 0.08, (40, 3)) for c in centers]
                          + [rng.uniform(-8, 8, (300, 3))]).astype(np.float32)
-    valid = rng.random(pts.shape[0]) < 0.9
-    want = np.asarray(jax_cluster(jnp.asarray(pts), jnp.asarray(valid), 0.2, 12))
+    return pts, rng.random(pts.shape[0]) < 0.9, 0.2
+
+
+def _cluster_case(kind, P):
+    def make():
+        pts, valid = cluster_case(kind, P, np.random.default_rng(P))
+        return pts, valid, CLUSTER_TOLERANCE
+    return make
+
+
+#: the clustering cases held to the JAX package: blobs with singletons and
+#: invalid points (780 points); a random-order chain whose labels 12 sweeps
+#: do not settle, so that the cap decides them; no point valid; a point
+#: count that is not a multiple of 32; pairs at the tolerance and 1 ulp
+#: about it (``kernel_times.cluster_case``)
+CLUSTER_CASES = {
+    "blobs": _blobs_with_singletons,
+    "chain": _cluster_case("chain", 600),
+    "all_invalid": _cluster_case("all_invalid", 333),
+    "ragged": _cluster_case("blobs", 1001),
+    "tolerance_ulps": _cluster_case("tolerance_ulps", 77),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLUSTER_CASES))
+def test_euclidean_cluster_matches_jax(case):
+    """Labels equal after 12 sweeps, converged or not (the JAX package's
+    ``while_loop`` stops at the fixed point, the plain version runs every
+    sweep): each case of :data:`CLUSTER_CASES`."""
+    pts, valid, tol = CLUSTER_CASES[case]()
+    want = np.asarray(jax_cluster(jnp.asarray(pts), jnp.asarray(valid), tol, 12))
     got = _n(euclidean_cluster(torch.from_numpy(pts), torch.from_numpy(valid),
-                               0.2, 12))
+                               tol, 12))
     np.testing.assert_array_equal(got, want)
-    assert len(np.unique(want[valid])) > 12
+    n = pts.shape[0]
+    assert (want[~valid] == n).all() and (want[valid] < n).all()
+    if case == "blobs":
+        assert len(np.unique(want[valid])) > 12
+    if case == "chain":  # the cap decides: more sweeps would merge labels
+        settled = _n(euclidean_cluster(torch.from_numpy(pts),
+                                       torch.from_numpy(valid), tol, 200))
+        assert len(np.unique(settled)) == 1 < len(np.unique(want))
+    if case == "tolerance_ulps":  # sq at 0, +1, -1, +2 ulps of tol2
+        origin = int(np.flatnonzero((pts == 0).all(1) & valid)[0])
+        sq = (pts * pts).sum(1, dtype=np.float32)
+        joined = valid & (sq <= np.float32(tol * tol))
+        assert joined.sum() == 3 and (valid & ~joined).sum() == 2
+        assert (want[joined] == min(origin, *np.flatnonzero(joined))).all()
 
 
 #: the estimator's cost of an ungated pair (``assoc_distance_gate * 5000``
