@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The readings a cell's limits are set from: the compared numbers of the
 program on many seeds (the lower readings) and of the control on some (the
-upper readings), all in one process.
+upper readings), all in one process, each against the cell's own
+reference (its configuration file's ``reference``).
 
     python3 portbench/calibrate.py --workload flagship.street \\
         --seeds 12 --control-seeds 3 --seconds 4 --first-seed 1000
@@ -10,7 +11,7 @@ For each seed it runs the cell's set-up and a window of ``--seconds`` at
 the cell's own load, then computes each compared frame with the reference
 and holds the program's result against it; on the first
 ``--control-seeds`` seeds it also computes the frame with the control (the
-reference in the lower precision, ``reference/step.py``) from the same
+reference in the lower precision, ``run(..., control=True)``) from the same
 state and holds that against the reference.  One JSON line a compared
 frame and side, then a summary: a seed's reading of a number is its worst
 over the seed's compared frames, as a run's is; ``lower`` is the largest
@@ -39,7 +40,6 @@ def main(argv=None) -> int:
 
     import torch
     from portbench import harness, judge, spec as spec_mod
-    from portbench.reference import step as ref
 
     if not torch.cuda.is_available():
         print("calibrate needs a CUDA card", file=sys.stderr)
@@ -53,10 +53,7 @@ def main(argv=None) -> int:
         harness.measure(cell, args.seconds, False, t0)
         cell.release()
         for rec in cell.compared:
-            before = rec.before if rec.before is not None else ref.init_tree(
-                cell.ref_cfg, cell.cameras, cell.start_pos)
-            mine = ref.run(cell.ref_cfg, cell.cameras, before, rec.frame,
-                           rec.draws, cell.threshold)
+            mine = cell.reference_frame(rec)
             start = rec.before is None
             got = judge.compare((rec.after, rec.readout), mine,
                                 cell.cfg.voxel_resolution, start)
@@ -65,8 +62,7 @@ def main(argv=None) -> int:
                               "side": "program", "numbers": got}),
                   flush=True)
             if k < args.control_seeds:
-                low = ref.run(cell.ref_cfg, cell.cameras, before, rec.frame,
-                              rec.draws, cell.threshold, control=True)
+                low = cell.reference_frame(rec, control=True)
                 got = judge.compare(low, mine, cell.cfg.voxel_resolution,
                                     start)
                 control.append((seed, got))

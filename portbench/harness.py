@@ -35,7 +35,6 @@ import numpy as np
 import torch
 
 from . import devtrace, judge
-from .reference import step as ref
 from .traffic import generator
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "dspmap_tpu")
@@ -118,12 +117,15 @@ class Cell:
                           if want.get(k) != got.get(k))
             raise ValueError(f"the program's configuration differs from "
                              f"{cell['config']}'s file in {diff}")
-        self.ref_cfg = ref.config(want)
-        shapes = self.config_file["shapes"]
-        if (self.ref_cfg.V, self.ref_cfg.S) != (shapes["storage_voxels"],
-                                                shapes["slots_per_voxel"]):
-            raise ValueError(f"the reference's shapes differ from "
+        # the configuration's own plain reference (its file's
+        # ``reference``), which derives the shapes again
+        self.ref = spec.reference(cell["config"])
+        self.ref_cfg = self.ref.config(want)
+        shapes = self.ref.shapes(self.ref_cfg)
+        if shapes != self.config_file["shapes"]:
+            raise ValueError(f"the reference's shapes {shapes} differ from "
                              f"{cell['config']}'s file")
+        self.make_draws = getattr(self.ref, "make_draws", make_draws)
         self.threshold = float(self.workload["threshold"])
         self.lap = generator.render_lap(
             self.mix, derived_seed(seed, "traffic"), self.cfg.max_input_points,
@@ -157,9 +159,9 @@ class Cell:
         draws = None
         b0 = time.perf_counter()
         if compare:
-            draws = make_draws(self.ref_cfg, self.cameras,
-                               derived_seed(self.seed, "draws", i),
-                               self.device)
+            draws = self.make_draws(self.ref_cfg, self.cameras,
+                                    derived_seed(self.seed, "draws", i),
+                                    self.device)
             before = None if i == 0 else self.program.to_tree(self.state)
             rec = Compared(i, rendered, draws, before)
             self.sync()
@@ -210,14 +212,19 @@ class Cell:
         frames."""
         readings = []
         for rec in self.compared:
-            before = rec.before if rec.before is not None else ref.init_tree(
-                self.ref_cfg, self.cameras, self.start_pos)
-            mine = ref.run(self.ref_cfg, self.cameras, before, rec.frame,
-                           rec.draws, self.threshold)
+            mine = self.reference_frame(rec)
             readings.append(judge.compare(
                 (rec.after, rec.readout), mine, self.cfg.voxel_resolution,
                 start=rec.before is None))
         return judge.worst(readings)
+
+    def reference_frame(self, rec: Compared, control: bool = False):
+        """The reference's result of a compared frame, from the program's
+        state before it (frame 0: the reference's own fresh map)."""
+        before = rec.before if rec.before is not None else self.ref.init_tree(
+            self.ref_cfg, self.cameras, self.start_pos)
+        return self.ref.run(self.ref_cfg, self.cameras, before, rec.frame,
+                            rec.draws, self.threshold, control=control)
 
 
 def make_draws(c, cameras: int, seed: int, device):

@@ -15,7 +15,9 @@ as "the first ``n`` in the defined order".
 Scope: the pool layout with the deterministic (limit-xy) constant-velocity
 prediction, one camera (the fused sweep path) or several (prediction and
 rebin once, then each camera's FOV registration, update and birth in
-turn).  Every float is float32, as the configuration states; sums that the
+turn).  Its layout-free stages (ingest, the estimator, the update, the
+newborn table, admission) are also the compact layout's (:mod:`.compact`).
+Every float is float32, as the configuration states; sums that the
 semantics leave unordered are taken in float64 and rounded once.
 
 The random numbers come in as ``draws`` (the benchmark makes them and hands
@@ -43,11 +45,18 @@ def _round_up(x: int, m: int) -> int:
 def config(values: dict) -> types.SimpleNamespace:
     """The configuration's values (a configuration file's ``config``) and
     the sizes that follow from them."""
-    c = types.SimpleNamespace(**values)
+    c = derive(values)
     if c.layout != "pool" or not c.limit_motion_to_xy_plane or (
             c.motion_model != "constant_velocity"):
         raise ValueError("the reference covers the pool layout with limit-xy "
                          "constant-velocity prediction only")
+    return c
+
+
+def derive(values: dict) -> types.SimpleNamespace:
+    """The configuration's values and the sizes that follow from them in
+    either layout (``V`` the storage voxels, ``S`` the slots a voxel)."""
+    c = types.SimpleNamespace(**values)
     c.voxel_num = c.nx * c.ny * c.nz
     c.S = c.max_particles_per_voxel * c.voxel_slot_safety_factor
     base = _round_up(c.voxel_num, 1024)
@@ -497,13 +506,8 @@ def birth(P_, obs_world, est, norm, origin, draws, c):
     """Newborns around the frame's points with Dempster-Shafer arbitration
     against the voxel's particles (dsp_dynamic.h:796-921), inserted into
     the first empty slots of their voxels with the newborn flag."""
-    vel_e, dyn, valid_e = est
-    fresh, noise_p, noise_v, noise_u = draws
-    n_pts, n_b = obs_world.shape[0], c.n_b
     w_new = F32(F32(c.newborn_particle_weight) * norm)
-    wv = voxel_of_div(obs_world, c)
-    ok = valid_e & inside(wv[:, 0], wv[:, 1], wv[:, 2], origin, c)
-    cell = np.where(ok, cell_of(wv[:, 0], wv[:, 1], wv[:, 2], c), 0)
+    ok, cell = birth_cells(obs_world, est[2], origin, c)
     fl = P_["flags"]
     considered = (fl != DEAD) & (fl != NEWBORN)
     l1 = F32(0) + np.abs(P_["vx"]) + np.abs(P_["vy"])
@@ -515,6 +519,34 @@ def birth(P_, obs_world, est, norm, origin, draws, c):
     ws = np.where(ok, ws_v[cell], F32(0))
     wm = np.where(ok, wm_v[cell], F32(0))
     wd = np.where(ok, wd_v[cell], F32(0))
+    pos, vel, cand_ok, dest = newborns(obs_world, est, ok, ws, wm, wd, draws,
+                                       origin, c)
+    flat = allocate(fl, dest, cand_ok)
+    put = flat >= 0
+    write(P_, flat[put], pos[put], vel[put],
+          np.full(int(put.sum()), w_new, F32), NEWBORN)
+
+
+def birth_cells(obs_world, valid_e, origin, c):
+    """``(ok, cell)`` of the frame's points as birth takes them: the points
+    the estimator kept whose voxel (coordinates over the resolution) lies
+    in the window, and that voxel's storage cell (0 where not ok)."""
+    wv = voxel_of_div(obs_world, c)
+    ok = valid_e & inside(wv[:, 0], wv[:, 1], wv[:, 2], origin, c)
+    cell = np.where(ok, cell_of(wv[:, 0], wv[:, 1], wv[:, 2], c), 0)
+    return ok, cell
+
+
+def newborns(obs_world, est, ok, ws, wm, wd, draws, origin, c):
+    """The newborn table (dsp_dynamic.h:850-907): per point the
+    Dempster-Shafer split of its ``n_b`` newborns into static, model and
+    random ones from the classes' weights ``ws, wm, wd`` of its voxel.
+    Returns the candidates point-major, ``(pos [M, 3], vel [M, 3], ok [M],
+    storage cell [M])``, ok where the point is and the newborn's own voxel
+    lies in the window."""
+    vel_e, dyn, _ = est
+    fresh, noise_p, noise_v, noise_u = draws
+    n_b = c.n_b
     total = ws + wm + wd
     p_s = (F32(2) * ws + wm) * F32(0.5)
     p_d = (F32(2) * wd + wm) * F32(0.5)
@@ -544,10 +576,7 @@ def birth(P_, obs_world, est, norm, origin, draws, c):
     wv = voxel_of_div(pos, c)
     cand_ok &= inside(wv[:, 0], wv[:, 1], wv[:, 2], origin, c)
     dest = cell_of(wv[:, 0], wv[:, 1], wv[:, 2], c)
-    flat = allocate(fl, dest, cand_ok)
-    put = flat >= 0
-    write(P_, flat[put], pos[put], vel[put],
-          np.full(int(put.sum()), w_new, F32), NEWBORN)
+    return pos, vel, cand_ok, dest
 
 
 def write(P_, flat, pos, vel, w, flag):
@@ -763,22 +792,11 @@ def step(tree, frame, draws, c, tf32=False):
     state after it, as a tree of the same names."""
     points, n_pts, pos, quat, t = (np.asarray(x) for x in frame)
     cams = points.shape[0]
-    q_ok = (np.abs(quat) <= F32(1.001)).all(1)
-    t0 = F32(t[0])
-    last_pos = (np.asarray(tree.last_sensor_pos, F32) if tree.initialized
-                else pos[0].astype(F32))
-    last_t = F32(tree.last_timestamp) if tree.initialized else t0
-    dt = F32(t0 - last_t)
-    jump_ok = bool((np.abs(pos[0] - last_pos) <= F32(10)).all()
-                   and F32(0) <= dt <= F32(10))
-    accepted = (q_ok.all() if cams == 1 else q_ok.any()) and jump_ok
-    if not accepted:
+    f = admit(tree, pos, quat, t, c)
+    if f is None:
         return tree
-    origin = window_origin(pos[0], c)
-    update_time = F32(F32(tree.update_time) + dt)
-    P_ = {k: np.array(getattr(tree.particles, k))
-          for k in ("flags", "px", "py", "pz", "vx", "vy", "vz", "weight",
-                    "t")}
+    q_ok, dt, origin = f.q_ok, f.dt, f.origin
+    P_ = planes(tree)
     est_in = tree.estimator
     if cams == 1:
         fresh, *rest = draws
@@ -793,10 +811,7 @@ def step(tree, frame, draws, c, tf32=False):
         estimator = est_new
     else:
         _separate_predict(P_, c, dt, origin)
-        per = [types.SimpleNamespace(**{
-            k: np.array(getattr(est_in, k)[i]) for k in
-            ("prev_centers", "prev_point_num", "prev_intensity",
-             "prev_valid")}) for i in range(cams)]
+        per = tracks(est_in, cams)
         for i in range(cams):
             if not q_ok[i]:
                 continue
@@ -808,10 +823,7 @@ def step(tree, frame, draws, c, tf32=False):
             w, norm = update(P_["weight"].reshape(-1), upd, obs, expected, c)
             P_["weight"] = w.reshape(P_["flags"].shape)
             birth(P_, obs.world, est_out, norm, origin, d, c)
-        estimator = types.SimpleNamespace(**{
-            k: np.stack([getattr(e, k) for e in per]) for k in
-            ("prev_centers", "prev_point_num", "prev_intensity",
-             "prev_valid")})
+        estimator = stack_tracks(per)
         fm_flat = None
     before = {k: v.copy() for k, v in P_.items()}
     new, weight_sum, vel_avg, static_w, moving = occupancy(P_, c)
@@ -824,11 +836,61 @@ def step(tree, frame, draws, c, tf32=False):
               & (before["weight"].reshape(-1)[fm_flat]
                  >= F32(c.weight_cull_threshold)))
     fut = future(tree.future, static_w, before, fm_flat, ok, origin, c)
+    return after(tree, f, pos, new, weight_sum, vel_avg, fut, estimator)
+
+
+TRACK_KEYS = ("prev_centers", "prev_point_num", "prev_intensity",
+              "prev_valid")
+PLANES = ("flags", "px", "py", "pz", "vx", "vy", "vz", "weight", "t")
+
+
+def admit(tree, pos, quat, t, c):
+    """Admission control (dsp_dynamic.h:193-208) and the frame's values:
+    ``None`` where the frame is rejected, else ``q_ok`` (a camera's
+    quaternion is valid), ``dt``, ``t0``, ``origin`` and ``update_time``.
+    One camera needs its quaternion, a rig one camera's; every camera
+    takes camera 0's pose jump, time and window."""
+    q_ok = (np.abs(quat) <= F32(1.001)).all(1)
+    t0 = F32(t[0])
+    last_pos = (np.asarray(tree.last_sensor_pos, F32) if tree.initialized
+                else pos[0].astype(F32))
+    last_t = F32(tree.last_timestamp) if tree.initialized else t0
+    dt = F32(t0 - last_t)
+    jump_ok = bool((np.abs(pos[0] - last_pos) <= F32(10)).all()
+                   and F32(0) <= dt <= F32(10))
+    accepted = (q_ok.all() if len(q_ok) == 1 else q_ok.any()) and jump_ok
+    if not accepted:
+        return None
     return types.SimpleNamespace(
-        particles=types.SimpleNamespace(**new), weight_sum=weight_sum,
+        q_ok=q_ok, dt=dt, t0=t0, origin=window_origin(pos[0], c),
+        update_time=F32(F32(tree.update_time) + dt))
+
+
+def planes(tree) -> dict:
+    """The state's particle planes, copied."""
+    return {k: np.array(getattr(tree.particles, k)) for k in PLANES}
+
+
+def tracks(est, cams: int) -> list:
+    """A rig's estimator state, one namespace a camera."""
+    return [types.SimpleNamespace(**{k: np.array(getattr(est, k)[i])
+                                     for k in TRACK_KEYS})
+            for i in range(cams)]
+
+
+def stack_tracks(per: list):
+    return types.SimpleNamespace(**{
+        k: np.stack([getattr(e, k) for e in per]) for k in TRACK_KEYS})
+
+
+def after(tree, f, pos, particles: dict, weight_sum, vel_avg, fut,
+          estimator):
+    """The state after an accepted frame as a tree of the state's names."""
+    return types.SimpleNamespace(
+        particles=types.SimpleNamespace(**particles), weight_sum=weight_sum,
         vel_avg=vel_avg, future=fut, sensor_pos=pos[0].astype(F32),
-        last_sensor_pos=pos[0].astype(F32), origin=origin,
-        update_time=update_time, last_timestamp=t0,
+        last_sensor_pos=pos[0].astype(F32), origin=f.origin,
+        update_time=f.update_time, last_timestamp=f.t0,
         update_counter=int(tree.update_counter) + 1, initialized=True,
         estimator=estimator)
 
@@ -848,10 +910,12 @@ def readout(tree, c, threshold):
     return {"occupied": occupied, "centers": centers, "future": fut}
 
 
-def init_tree(c, cameras, sensor_pos):
-    """A fresh map centred at ``sensor_pos``: no particles."""
-    S, V = c.S, c.V
-    z = lambda dt=F32: np.zeros((S, V), dt)  # noqa: E731
+def init_tree(c, cameras, sensor_pos, rows=None):
+    """A fresh map centred at ``sensor_pos``: no particles, in ``[S, V]``
+    planes, or in ``[rows]`` where given (the compact layout)."""
+    V = c.V
+    shape = (c.S, V) if rows is None else (rows,)
+    z = lambda dt=F32: np.zeros(shape, dt)  # noqa: E731
     pos = np.asarray(sensor_pos, F32)
     lead = () if cameras == 1 else (cameras,)
     C = c.max_clusters

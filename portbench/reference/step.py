@@ -1,4 +1,14 @@
-"""The reference's side of a compared frame, and the control.
+"""The pool layout's reference, the one a configuration names by leaving
+out its file's ``reference`` key: the reference's side of a compared frame,
+and the control.
+
+A reference is a module (or package) under ``portbench/reference/`` with
+this interface: ``config(values)`` (a configuration file's ``config``, with
+the sizes that follow), ``shapes(c)`` (held against the file's
+``shapes``), ``init_tree(c, cameras, sensor_pos)`` (a fresh map) and
+``run(c, cameras, tree, frame, draws, threshold, control=False)``; it may
+define ``make_draws(c, cameras, seed, device)`` where the frame takes
+other draws than ``harness.make_draws`` makes.
 
 :func:`run` takes a state read back from the program before a frame (a
 tree of numpy arrays and host values), the frame as the traffic rendered
@@ -24,6 +34,14 @@ config = dsp.config
 init_tree = dsp.init_tree
 to_bf16 = dsp.to_bf16
 to_tf32 = dsp.to_tf32
+
+
+def shapes(c, layout: str = "pool", rows=None) -> dict:
+    """The sizes a configuration file's ``shapes`` states, as the
+    reference derives them."""
+    return {"storage_voxels": c.V, "slots_per_voxel": c.S,
+            "n_pyramids": c.n_pyr, "layout": layout, "compact_capacity": rows,
+            "max_input_points": c.max_input_points, "n_horizons": c.T}
 
 
 def _numpy(x):
@@ -59,6 +77,12 @@ def run(c, cameras: int, tree, frame, draws, threshold: float,
     "centers": f32 [V, 3], "future": f32 [V, T]}`` at ``threshold``.
     ``control`` computes it in the lower precision (see the module's
     docstring)."""
+    return run_with(dsp.step, c, tree, frame, draws, threshold, control)
+
+
+def run_with(step, c, tree, frame, draws, threshold: float, control: bool):
+    """:func:`run` with ``step(tree, frame, draws, c, tf32=...)`` as the
+    frame's plain step (a layout's own)."""
     draws = map_draws(_numpy, draws)
     points, n, pos, quat, t = frame
     points = np.asarray(points, np.float32)
@@ -68,7 +92,7 @@ def run(c, cameras: int, tree, frame, draws, threshold: float,
         points = to_bf16(points)
     frame = (points, np.asarray(n), np.asarray(pos, np.float32),
              np.asarray(quat, np.float32), np.asarray(t, np.float32))
-    after = dsp.step(tree, frame, draws, c, tf32=control)
+    after = step(tree, frame, draws, c, tf32=control)
     readout = dsp.readout(after, c, threshold)
     if control:
         after = _round_tree(after, to_bf16)

@@ -4,7 +4,11 @@ Everything that belongs to one configuration, traffic mix, cell, per-layer
 metric or kernel sits in a file of its own under the benchmark's folder:
 
 * ``configs/<config>.json``: the configuration's builder, its values and
-  shapes (named by the configuration's ``file`` in ``BENCHMARK.json``);
+  shapes (named by the configuration's ``file`` in ``BENCHMARK.json``),
+  and under ``reference`` the name of its plain reference;
+* ``reference/<name>.py`` (or a package ``reference/<name>/``): a plain
+  reference, its interface that of ``reference/step.py``, the pool
+  layout's, which a configuration file without ``reference`` names;
 * ``traffic/<traffic>.json``: a mix's parameters, read by
   ``traffic/generator.py``;
 * ``workloads/<cell>.json``: a cell's frames to compare and profile and the
@@ -20,10 +24,12 @@ such files and entries; no file of the harness changes.
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import pathlib
 import re
+import sys
 
 HERE = pathlib.Path(__file__).resolve().parent
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -35,6 +41,9 @@ KEYS = {"configs": {"name", "source", "file", "reduced", "why"},
         "end_to_end": {"name", "unit", "better", "bound", "source"},
         "per_layer": {"name", "unit", "better", "source", "layer", "moves"}}
 TEXTS = ("why", "layer", "source")
+#: the reference of a configuration file without a ``reference`` key
+DEFAULT_REFERENCE = "step"
+MODULE = re.compile(r"^[A-Za-z_][A-Za-z0-9_]{0,63}$")
 
 
 class Spec:
@@ -58,6 +67,32 @@ class Spec:
             if c["name"] == name:
                 return json.loads((self.repo / c["file"]).read_text())
         raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
+
+    def reference_name(self, config: str) -> str:
+        return self.config(config).get("reference", DEFAULT_REFERENCE)
+
+    def reference(self, config: str):
+        """The plain reference the configuration ``config`` names, loaded
+        from ``<folder>/reference/``."""
+        return importlib.import_module(
+            f"{self._reference_package()}.{self.reference_name(config)}")
+
+    def _reference_package(self) -> str:
+        """The importable name of ``<folder>/reference``: ``portbench.
+        reference`` for the benchmark's own folder, a package of its own
+        for another (a copy with files added)."""
+        if self.folder.resolve() == HERE:
+            return "portbench.reference"
+        name = "portbench_reference_" + hashlib.blake2b(
+            str(self.folder.resolve()).encode(), digest_size=6).hexdigest()
+        if name not in sys.modules:
+            init = self.folder / "reference" / "__init__.py"
+            spec = importlib.util.spec_from_file_location(
+                name, init, submodule_search_locations=[str(init.parent)])
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[name] = mod
+            spec.loader.exec_module(mod)
+        return name
 
     def traffic(self, name: str) -> dict:
         return json.loads((self.folder / "traffic" / f"{name}.json")
@@ -115,6 +150,13 @@ class Spec:
             data = json.loads(path.read_text())
             if data.get("reduced", []) != c["reduced"]:
                 out.append(f"{c['name']}: reduced differs from its file")
+            ref = data.get("reference", DEFAULT_REFERENCE)
+            where = self.folder / "reference"
+            if not (isinstance(ref, str) and MODULE.match(ref) and (
+                    (where / f"{ref}.py").is_file()
+                    or (where / ref / "__init__.py").is_file())):
+                out.append(f"{c['name']}: no reference module {ref!r} "
+                           "under reference/")
         for w in cells.values():
             if w["config"] not in configs:
                 out.append(f"{w['name']}: no configuration {w['config']}")

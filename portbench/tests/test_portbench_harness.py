@@ -67,6 +67,36 @@ def test_a_broken_entry_is_a_problem(tmp_path):
     assert any(p.startswith("configs tiny: keys") for p in problems)
 
 
+def test_a_configuration_naming_a_missing_reference_is_a_problem(tmp_path):
+    spec = tiny.copy_with_tiny_cell(tmp_path, builder=tiny.COMPACT_BUILDER,
+                                    reference="nowhere", config="tiny_c")
+    assert any("tiny_c: no reference module 'nowhere'" in p
+               for p in spec.problems()), spec.problems()
+
+
+def test_a_configuration_with_its_own_reference_comes_as_files(tmp_path):
+    """A compact configuration whose reference is a file added beside the
+    others, named by the configuration's file, comes in as files and
+    entries alone: the copy's own reference runs, and a run of its cell on
+    the CPU is correct."""
+    spec = tiny.copy_with_tiny_cell(
+        tmp_path, builder=tiny.COMPACT_BUILDER, reference="tiny_ref",
+        config="tiny_c")
+    (tmp_path / "portbench/reference/tiny_ref.py").write_text(
+        '"""The compact reference under a name of its own."""\n\n'
+        "from .compact import config, init_tree, run, shapes  # noqa: F401"
+        "\n")
+    assert spec.problems() == []
+    ref = spec.reference("tiny_c")
+    assert ref.__name__.endswith(".tiny_ref")
+    assert ref.__file__.startswith(str(tmp_path))
+    assert spec.reference("flagship").__name__.endswith(".step")
+    out = harness.run_cell(spec, "tiny_c.street", 2**31 + 11, 3.0, True,
+                           time.time(), device="cpu")
+    assert out["correct"], out["_lines"]
+    assert out["compared"]["alive_rel"]["value"] is not None
+
+
 def test_a_run_without_a_card_fails_and_prints_no_result():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
@@ -132,6 +162,22 @@ def test_a_broken_step_is_not_correct(tmp_path, fault):
                            time.time(), device="cpu", wrap_step=fault)
     # a window frame was compared: the verdict is the numbers', not the
     # want of them
+    assert out["compared"]["alive_rel"]["value"] is not None
+    assert not out["correct"], out["_lines"]
+
+
+@pytest.mark.parametrize("fault", [_unchanged, _half_the_points,
+                                   _weights_altered],
+                         ids=["state_unchanged", "half_the_points",
+                              "answer_altered"])
+def test_a_broken_compact_step_is_not_correct(tmp_path, fault):
+    """The same faults under the compact layout's step, judged by the
+    compact reference (at the street cell's limits, as the pool's)."""
+    spec = tiny.copy_with_tiny_cell(
+        tmp_path, builder=tiny.COMPACT_BUILDER, reference="compact",
+        config="tiny_c")
+    out = harness.run_cell(spec, "tiny_c.street", 2**31 + 7, 3.0, False,
+                           time.time(), device="cpu", wrap_step=fault)
     assert out["compared"]["alive_rel"]["value"] is not None
     assert not out["correct"], out["_lines"]
 

@@ -40,6 +40,21 @@ def test_k4_bytes_at_large_urban():
     assert K4.reach(20) == 32 and K4.reach(10) == 16
 
 
+def test_k4_at_the_large_urban_configuration():
+    """The cell's rows: four launches a frame, their columns as the step
+    passes them (``csrc/segscan.cu``'s type codes: occupancy's seven at a
+    reach of 32, then its two, then birth's four and rebin's one at 16)."""
+    c = _config("large_urban")
+    assert c["shapes"]["compact_capacity"] == 1 << 20
+    calls = K4.launches(c["config"], c["shapes"], 1)
+    assert [b for b, _ in calls] == [60 << 20, 23 << 20, 31 << 20,
+                                     7 << 20]
+    assert [f for _, f in calls] == [7 * 5 << 20, 2 * 5 << 20,
+                                     4 * 4 << 20, 4 << 20]
+    assert sum(bound_s(b, f) for b, f in calls) == pytest.approx(
+        (121 << 20) / 3.35e12)
+
+
 def test_a_layout_without_the_kernel_has_no_launches():
     assert K1.launches({}, LARGE_URBAN, 1) == []
     assert K4.launches(_config("flagship")["config"],
