@@ -88,7 +88,12 @@ class StepOutput(NamedTuple):
     estimator_cloud: tuple  # (points [P,3], vel [P,3], dynamic [P], valid [P])
 
 
-#: names of the step's metrics, in the JAX package's order
+#: the port's own counters, which the JAX package does not report:
+#: ``update_spilled``, the particles the update's spill tier updated this
+#: frame (``updated_particles`` less it is the dense tier's share)
+PORT_METRIC_NAMES = ("update_spilled",)
+#: names of the step's metrics: the JAX package's, in its order, then the
+#: port's own
 METRIC_NAMES = (
     "valid_points", "in_fov", "pyramid_full_killed", "fov_global_overflow",
     "update_spill_overflow", "moved_out", "movers", "mover_overflow_killed",
@@ -96,7 +101,7 @@ METRIC_NAMES = (
     "birth_candidates", "born", "newborn_weight", "alive", "culled",
     "resampled_voxels", "resample_dropped", "resample_copies",
     "future_moving", "future_overflow",
-)
+) + PORT_METRIC_NAMES
 #: the compact layout's metrics: birth and occupancy also count the rows
 #: dropped for want of free rows in the ``[P]`` array
 COMPACT_METRIC_NAMES = METRIC_NAMES + ("pool_overflow",)

@@ -280,7 +280,11 @@ def measurement_update(particles, fovbin, obs, cfg: MapConfig,
     if with_metrics:
         n_updated = updated.sum()
         if have_psp:
-            n_updated = n_updated + upd_sp.sum()
+            n_spilled = upd_sp.sum()
+            n_updated = n_updated + n_spilled
+        else:
+            n_spilled = torch.zeros_like(n_updated)
         stats = {"updated_particles": n_updated,
-                 "obs_spill_overflow": obs.spill_overflow}
+                 "obs_spill_overflow": obs.spill_overflow,
+                 "update_spilled": n_spilled}
     return dataclasses.replace(particles, **new), norm_coeff, stats
