@@ -25,7 +25,11 @@ Phases (each prints one line; any failure raises and exits nonzero):
    50 and 60 slots, K2 (sweep) at the same three pools, K3a/K3b (pair
    passes) at (448, 64, 288), (504, 32, 288) and (4536, 16, 400), called as
    the step calls them (operands scaled once for both passes), twice with
-   bit-equal results, at a ragged shape and at rows of 9 points; K4 (segmented scans) at
+   bit-equal results, at a ragged shape and at rows of 9 points; the
+   spill kernels (``spill_pass1``, ``spill_pass2``) at the capacities of
+   ``kernel_times.SPILL_CASES`` (4,096 flagship and multi, 8,192 static,
+   65,536 large_urban) against the plain spill blocks in float64, beside
+   those blocks in float32; K4 (segmented scans) at
    P = 131072 rows for the four calls of a compact frame, then at reach 64
    and 512, at reach 1 to 8 and at ragged row counts; K5a/K5b (relayout) at (60, 75776):
    the seven planes of a frame in one launch beside seven ``clone()``
@@ -59,8 +63,10 @@ Phases (each prints one line; any failure raises and exits nonzero):
    with the card), finite state and occupied voxels;
 5. card against CPU for each path: the state after a kept frame is copied
    to the CPU and the next frame is stepped on both with the same random
-   draws (see :func:`card_vs_cpu` for the bars; on the multi-sensor paths
-   every sensor's birth is pinned to the card's ``norm_coeff`` in turn;
+   draws (see :func:`card_vs_cpu` for the bars; the free CPU step runs
+   its updates in float64 and the float32 one is printed beside it; on the
+   multi-sensor paths every sensor's birth is pinned to the card's
+   ``norm_coeff`` in turn;
    the CPU's frames of every path run together in worker processes after
    phase 8, so that none overlaps a timed phase, and their lines and
    checks come then), then ``repeat`` (:func:`check_repeat`): from the
@@ -289,6 +295,87 @@ def check_pairs(label, n_rows, st, ck, sigma, rng, device, timed=True):
         if name == "update_pass1":  # K3a beside the bound of its unit
             _say(f"K3_ex2_bound_{label}", shape=shape, pairs=pairs,
                  ex2_bound_ms=pairs / PEAK_EX2_PER_S * 1e3)
+    return rows
+
+
+def check_spill(label, device):
+    """Phase 3, the spill kernels at ``kernel_times.SPILL_CASES[label]``
+    (its capacity, a street frame's spill particles): each pass within
+    rtol 2e-5 (atol 1e-6) of the plain spill blocks evaluated in float64,
+    0 on the rows past the valid ones, bit-equal over two calls; timed as
+    the step calls them beside the plain blocks in float32 (padded to the
+    capacity).  The bound: the pair terms over the ex2 rate, or the
+    operands' bytes read once, whichever is larger.  Returns ``{kernel
+    name: measurements}``."""
+    import torch
+    from dspmap_tpu_torch.ops import update
+    from dspmap_tpu_torch.utils.kernel_times import (SPILL_CASES,
+                                                     spill_config,
+                                                     spill_operands,
+                                                     spill_pairs)
+
+    cfg = spill_config(label)
+    n_valid = SPILL_CASES[label][2]
+    o = spill_operands(cfg, n_valid, np.random.default_rng(4), device)
+    sigma = float(np.float32(cfg.sigma_ob))
+
+    def args(dtype=torch.float32):
+        t = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in o.items()}
+        return t, (t["sp_pos"], t["sp_w"], t["sp_pyr"], t["sp_mask"],
+                   t["nbr_pts"], t["cell_pts"], t["cells"], t["cell_mask"],
+                   cfg, sigma)
+
+    _, a32 = args()
+    t64, a64 = args(torch.float64)
+    got1 = update.spill_pass1(*a32)
+    again1 = update.spill_pass1(*a32)
+    got2 = update.spill_pass2(got1[2], o["nbr_cinv"], o["cell_cinv"])
+    again2 = update.spill_pass2(again1[2], o["nbr_cinv"], o["cell_cinv"])
+    ref1 = update.spill_pass1_plain(*a64)
+    ref2 = update.spill_pass2_plain(ref1[2], t64["nbr_cinv"],
+                                    t64["cell_cinv"])
+    plain1 = update.spill_pass1_plain(*a32)
+    valid = o["sp_mask"]
+    torch.cuda.synchronize()
+    same = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))  # noqa: E731
+    _require(same(got1[0], again1[0]) and same(got1[1], again1[1])
+             and same(got2, again2), f"spill {label}: two calls differ")
+    _require(not bool(got2[~valid].any()),
+             f"spill_pass2 {label}: a row past the valid ones is not 0")
+    pairs = spill_pairs(o, cfg)
+    psp, yc = cfg.particle_spill_capacity, cfg.obs_spill_capacity
+    ck = o["nbr_pts"].shape[1]
+    ks = o["cell_pts"].shape[1]
+    # read once, written once: the valid rows (position, weight or sum,
+    # pyramid: 20 bytes) and every point with its weight (16 bytes)
+    n_bytes = 20 * n_valid + 16 * (cfg.n_pyramids * ck + yc * ks)
+    rows = {}
+    for name, got, ref, kern, plain in (
+            ("spill_pass1", torch.cat([got1[0].reshape(-1),
+                                       got1[1].reshape(-1)]),
+             torch.cat([ref1[0].reshape(-1), ref1[1].reshape(-1)]),
+             lambda: update.spill_pass1(*a32),
+             lambda: update.spill_pass1_plain(*a32)),
+            ("spill_pass2", got2[valid], ref2[valid],
+             lambda: update.spill_pass2(got1[2], o["nbr_cinv"],
+                                        o["cell_cinv"]),
+             lambda: update.spill_pass2_plain(plain1[2], o["nbr_cinv"],
+                                              o["cell_cinv"]))):
+        err = float((got.double() - ref).abs().max()) if got.numel() else 0.0
+        within = bool(torch.allclose(got.double(), ref, rtol=2e-5, atol=1e-6))
+        _require(within, f"{name} {label}: kernel err {err} against float64")
+        _require(float(ref.abs().max()) > 1e-3,
+                 f"{name} {label}: degenerate input")
+        shape = (f"Psp={psp} valid={n_valid} n_pyr={cfg.n_pyramids} CK={ck} "
+                 f"Yc={yc} Ks={ks}")
+        rows[name] = _row(err, kern, plain, n_bytes,
+                          K3_FLOPS_PER_PAIR * pairs, shape=shape, pairs=pairs,
+                          ex2_bound_ms=pairs / PEAK_EX2_PER_S * 1e3,
+                          within_rtol_2e5=within, two_calls="bit-equal")
+        _say(f"{name}_{label}", **rows[name])
+    del ref1, ref2, plain1
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -903,24 +990,32 @@ def check_cluster(cfg, device):
 CPU_THREADS = 1
 
 
+#: phase 5's free CPU step whose updates run in float64
+FREE_F64 = "float64"
+
+
 def _cpu_frame(cfg, n_sensors, state, frame, draws, updates):
     """Phase 5's CPU step, in a worker process of :func:`start_jv_plain`'s
     pool: ``state`` (on the CPU) through the plain path on ``frame`` with
     ``draws``, each ``measurement_update`` pinned to the next of
-    ``updates`` (``None``: the free step).  Returns the new state's flags,
-    ``weight_sum`` and future, its ``alive`` and the step's seconds."""
+    ``updates`` (``None``: the free step; :data:`FREE_F64`: the free step
+    with its updates in float64, ``utils/parity.py::updates_in_float64``).
+    Returns the new state's flags, ``weight_sum`` and future, its
+    ``alive`` and the step's seconds."""
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import dspmap_tpu_torch as dm
-    from dspmap_tpu_torch.utils.parity import updates_pinned
+    from dspmap_tpu_torch.utils.parity import (updates_in_float64,
+                                               updates_pinned)
 
     torch.set_num_threads(CPU_THREADS)
     step = (dm.make_step(cfg) if n_sensors is None
             else dm.make_multisensor_step(cfg, n_sensors))
-    pending = list(updates or ())
+    pending = [] if updates in (None, FREE_F64) else list(updates)
     t0 = time.perf_counter()
     with (contextlib.nullcontext() if updates is None
+          else updates_in_float64() if updates == FREE_F64
           else updates_pinned(pending)):
         new, out = step(state, frame, draws)
     if pending:
@@ -944,14 +1039,16 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu",
     card and through the CPU's plain path (``n_sensors``: the step is
     :func:`make_multisensor_step`'s, whose updates are pinned one by one).
     The card's frame runs here.  Returns ``(jobs, check)``: the arguments
-    of the two CPU frames (the teacher-forced and the free one) for
-    :func:`_cpu_frame`, which the caller runs in worker processes once no
-    timed phase is left, and the check, which takes their results, prints
-    the lines and holds the bars.
+    of the three CPU frames (the teacher-forced one, the free one, and the
+    free one with its updates in float64) for :func:`_cpu_frame`, which the
+    caller runs in worker processes once no timed phase is left, and the
+    check, which takes their results, prints the lines and holds the bars.
 
     The updated weights and the newborn weight ``w_b * sum 1/C(z)`` differ
-    in their last bits: the CPU's pair passes use the ``|a|^2 + |b|^2 -
-    2ab`` form, the kernels coordinate differences.  Voxels full of
+    in their last bits or more: the CPU's pair blocks use the ``|a|^2 +
+    |b|^2 - 2ab`` form, which in float32 loses ``|a|^2 2^-24`` at world
+    coordinates (a relative 1e-3 of an updated weight at 30 m on
+    large_urban's street), the kernels coordinate differences.  Voxels full of
     equal-weight newborns sit exactly on the resample's ``ceil(x/wa -
     1/2)`` grid, so that bit flips which copies survive there (46 of 10743
     particles in one run), and an updated weight on the other side of the
@@ -968,7 +1065,14 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu",
     is held to the free-newborn-weight flag bar of
     tests/test_torch_step.py, 99.5%.  Both sets of bars are
     ``utils/parity.py``'s (``PINNED_BARS``, ``free_bars``), which
-    ``tools/parity_torch.py card`` holds every frame of 30 to."""
+    ``tools/parity_torch.py card`` holds every frame of 30 to.  The free
+    bars hold the card against the free CPU step whose updates run in
+    float64 (``<label>_free``), an update with no rounding of the Gram
+    form for the card's to match; the float32 free step's line
+    (``<label>_free_f32``) is printed beside it with the bars it misses,
+    which at world coordinates can be one flipped cull or resample
+    decision of its own (``multisensor_compact``: flags 0.853, one
+    particle more)."""
     import dspmap_tpu_torch as dm
     from dspmap_tpu_torch.utils.parity import (PINNED_BARS, agreement,
                                                free_bars, missed_bars,
@@ -994,15 +1098,18 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu",
              f"{label}: {len(seen)} updates recorded")
     updates = [(p.to("cpu"), nc.cpu()) for p, nc in seen]
     jobs = [(cfg, n_sensors, cpu_state, frame, cpu_draws, u)
-            for u in (updates, None)]
+            for u in (updates, None, FREE_F64)]
 
     def check(results):
-        (*pinned, pinned_s), (*free, free_s) = results
+        (*pinned, pinned_s), (*f32, f32_s), (*f64, f64_s) = results
         _say(label + "_cost", card_frame_s=card_s, cpu_frame_s=json.dumps(
-            [pinned_s, free_s]), cpu_threads=CPU_THREADS)
+            [pinned_s, f32_s, f64_s]), cpu_threads=CPU_THREADS)
+        m = agreement(card, _measures(*f32))
+        _say(label + "_free_f32", **m,
+             missed=json.dumps(missed_bars(m, free_bars(cfg))))
         for tag, m, bars in (
                 (label, agreement(card, _measures(*pinned)), PINNED_BARS),
-                (label + "_free", agreement(card, _measures(*free)),
+                (label + "_free", agreement(card, _measures(*f64)),
                  free_bars(cfg))):
             _say(tag, **m)
             missed = missed_bars(m, bars)
@@ -1012,15 +1119,16 @@ def card_vs_cpu(cfg, step, state, frame, device, label="card_vs_cpu",
 
 
 _POOL_FRAME = {"occupancy_pool_pass": 1, "sweep": 1, "update_pass1": 1,
-               "update_pass2": 1, "seg_scans": 0, "to_flat": 0, "from_flat": 0,
+               "update_pass2": 1, "spill_pass1": 1, "spill_pass2": 1,
+               "seg_scans": 0, "to_flat": 0, "from_flat": 0,
                "jv_solve": 1, "euclidean_cluster": 1}
 _COMPACT_FRAME = {**_POOL_FRAME, "occupancy_pool_pass": 0, "sweep": 0,
                   "seg_scans": 4}
 def _cameras(n) -> dict:
-    """``n`` cameras: the pair passes and the estimator's JV solve and
-    clustering run once a sensor."""
-    return {"update_pass1": n, "update_pass2": n, "jv_solve": n,
-            "euclidean_cluster": n}
+    """``n`` cameras: the pair passes, the spill kernels and the
+    estimator's JV solve and clustering run once a sensor."""
+    return {"update_pass1": n, "update_pass2": n, "spill_pass1": n,
+            "spill_pass2": n, "jv_solve": n, "euclidean_cluster": n}
 
 
 #: per path: (warm-up frames, timed frames, the watched warm frame, the
@@ -1173,8 +1281,8 @@ def check_repeat(name, cfg, state, device) -> None:
 
 #: the per-camera kernels: launches a frame for each camera admitted (the
 #: compact layout's birth table is a K4 launch a camera, too)
-_A_CAMERA = {"update_pass1": 1, "update_pass2": 1, "jv_solve": 1,
-             "euclidean_cluster": 1}
+_A_CAMERA = {"update_pass1": 1, "update_pass2": 1, "spill_pass1": 1,
+             "spill_pass2": 1, "jv_solve": 1, "euclidean_cluster": 1}
 
 
 def _pattern_frame(per_frame, admitted) -> dict:
@@ -1847,6 +1955,12 @@ KERNELS = {
                      "dspmap_tpu/ops/pallas/update.py:117", "flagship"),
     "update_pass2": ("dspmap_tpu_torch/csrc/update.cu",
                      "dspmap_tpu/ops/pallas/update.py:125", "flagship"),
+    "spill_pass1": ("dspmap_tpu_torch/csrc/update.cu",
+                    "dspmap_tpu/ops/update.py:198-228, 263, 274 (blocks B2 "
+                    "and B4, left to XLA; not a pallas_call)", "large_urban"),
+    "spill_pass2": ("dspmap_tpu_torch/csrc/update.cu",
+                    "dspmap_tpu/ops/update.py:328-330 (pass 2 of B2 and B4, "
+                    "left to XLA; not a pallas_call)", "large_urban"),
     "seg_scans": ("dspmap_tpu_torch/csrc/segscan.cu",
                   "dspmap_tpu/ops/pallas/segscan.py:121", "large_urban"),
     "to_flat": ("dspmap_tpu_torch/csrc/relayout.cu",
@@ -1919,8 +2033,12 @@ def _phases(configs, device, smi, jv_cpu, pool, procs, tmp):
     # pass 1 takes whole rows, as many as shared memory stages
     check_pairs("few_points", 300, 64, 9, 0.1, np.random.default_rng(1),
                 device, timed=False)
+    # the spill kernels at the four capacities the cells run
+    for label in ("flagship", "static", "multi", "large_urban"):
+        by_shape.setdefault(label, {}).update(check_spill(label, device))
     kernels.reset_launch_counts()
-    by_shape["large_urban"] = check_segscan(configs["large_urban"], device)
+    by_shape["large_urban"].update(check_segscan(configs["large_urban"],
+                                                 device))
     by_shape["multi"].update(check_relayout(configs["multi"], device))
     # a caller's TF32 setting: the port's float32 matmuls run in full
     # float32 (the card-against-CPU bars) and leave the setting as it was

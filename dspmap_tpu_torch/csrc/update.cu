@@ -1,6 +1,9 @@
 // Measurement-update pair passes (replace
 // dspmap_tpu/ops/pallas/update.py::update_pass1 and ::update_pass2; spec:
-// the dense x dense blocks of dspmap_tpu/ops/update.py::measurement_update).
+// the dense x dense blocks of dspmap_tpu/ops/update.py::measurement_update),
+// and the spill tier's pair sums (the blocks that
+// dspmap_tpu/ops/update.py::measurement_update calls B2 and B4; no
+// pallas_call: XLA fuses them there), described above their kernels below.
 //
 //   pass 1: out[r, m] = sum_s w[r, s] * c3 * exp(-|x_s - z_m|^2 / 2)
 //   pass 2: out[r, s] = sum_m c3 * exp(-|x_s - z_m|^2 / 2) * cinv[r, m]
@@ -279,6 +282,351 @@ int launch_pass2(const uint64_t* p, const int* ip, void* stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------ spill tier
+//
+// The spill tier holds the in-FOV particles beyond the first S_t of their
+// pyramid: a buffer of Psp rows (particle_spill_capacity) whose valid rows
+// are a prefix, in candidate order (not grouped by pyramid), `count` of
+// them, read on the card.  Each particle pairs with the CK dense points of
+// its pyramid's neighbourhood and with the Ks spill points of every spill
+// cell (an observation cell beyond its Ko dense points, Yc of them) within
+// the neighbour radius of its pyramid.  The plain version (ops/update.py::
+// spill_pass1_plain / spill_pass2_plain) forms those pairs as matrices
+// padded to the capacity: [Psp, CK] and [Psp, Yc * Ks], most of them
+// masked.  These kernels visit only the pairs that are there.
+//
+//   pass 1 (spill_cz_kernel), a block a target: for pyramid p
+//     out[p, m]  = sum over valid i with pyr[i] = p of w[i] g(x_i, z[p, m])
+//   and for spill cell y (open and within the radius of pyr[i])
+//     cout[y, k] = sum over valid i adjacent to y of w[i] g(x_i, s[y, k])
+//   pass 2 (spill_factor_kernel), a warp a spill particle:
+//     out[i] = sum_m g(x_i, z[p_i, m]) cinv[p_i, m]
+//            + sum over y adjacent to p_i, k of g(x_i, s[y, k]) ccinv[y, k]
+//   (the second sum only where the configuration has spill cells); rows
+//   past `count` get 0.  Each block first lists the open spill cells in
+//   cell order in shared memory.
+//
+// Pass 1's block scans the counted prefix of the buffer in tiles of 1,024
+// rows (four a thread; the next tile's pyramids load while this one is
+// summed), compacts the rows that pair with its target into shared memory
+// in buffer order (a block-wide exclusive scan of the threads' counts;
+// two buffers, so one barrier a tile suffices, and a tile without such
+// rows needs no second), and its threads sum those particles into their
+// points.
+// A thread holds T <= 4 points of its target (T independent sums), and
+// L lanes share a group of points, lane l taking the tile's particles l,
+// l + L, ..: at radius 1, 72 groups of 4 of a pyramid's 288 points and 3
+// lanes, 34 groups of 2 of a spill cell's 68 points and 7 lanes.  The
+// lanes' sums meet in lane order at the end.  Every sum runs in a fixed
+// order with no atomics, so two calls give the same bits, and the launch
+// shape depends on the capacity alone: blocks past the count return from
+// the scan at once, and no host sync reads the count.
+//
+// Bound on the H100: the pair terms, one ex2 each (K3's pair_term): some
+// 14 M in each pass at large_urban's 45 k spill particles (7 us at
+// 132 x 16 ex2 a clock); the operands are 1.8 MB.  What the design pays
+// beyond that is pass 1's scans of the prefix (n_pyr + Yc blocks, 4 bytes
+// a row, from L2) and pass 2's loads of each particle's points from L2.
+
+constexpr int kSpillThreads = 256;
+constexpr int kSpillScan = 4;                           // rows a thread tests
+constexpr int kSpillTile = kSpillThreads * kSpillScan;  // rows a scan step
+constexpr int kSpillPoints = 4;  // points a thread at most: M <= 1024
+constexpr int kSpillWarps = kSpillThreads / 32;
+
+struct SpillGrid {
+  const float* pos;            // [Psp, 3] scaled
+  const int* pyr;              // [Psp] (n_pyr on invalid rows)
+  const int* count;            // valid rows: a prefix of the buffer
+  const float* pts;            // [n_pyr, CK, 3] scaled
+  const float* cpts;           // [Yc, Ks, 3] scaled
+  const int* cells;            // [Yc] (n_pyr on unused cells)
+  const unsigned char* cmask;  // [Yc] bool
+  int rows, n_pyr, ck, yc, ks, width, radius;
+};
+
+struct SpillCzArgs {
+  SpillGrid g;
+  const float* w;  // [Psp] weight
+  float* out;      // [n_pyr, CK]
+  float* cout;     // [Yc, Ks]
+};
+
+struct SpillSumArgs {
+  SpillGrid g;
+  const float* cinv;   // [n_pyr, CK]
+  const float* ccinv;  // [Yc, Ks]
+  float* out;          // [Psp]
+};
+
+__device__ __forceinline__ int spill_rows(const SpillGrid& g) {
+  return max(0, min(*g.count, g.rows));
+}
+
+__device__ __forceinline__ bool spill_adjacent(int p, int h, int v,
+                                               const SpillGrid& g) {
+  return abs(p / g.width - h) <= g.radius && abs(p % g.width - v) <= g.radius;
+}
+
+__global__ void __launch_bounds__(kSpillThreads)
+spill_cz_kernel(SpillCzArgs a) {
+  // the tile's rows that pair with the target, (x, y, z, c3 w), and the
+  // warps' counts: two of each, so that one barrier a tile suffices
+  // between writing a tile's rows and summing them
+  __shared__ float4 part[2][kSpillTile];
+  __shared__ int warp_n[2][kSpillWarps];
+  __shared__ float lanes_acc[kSpillThreads * kSpillPoints];
+  const SpillGrid& g = a.g;
+  const bool is_cell = blockIdx.x >= (unsigned)g.n_pyr;
+  const int target = is_cell ? blockIdx.x - g.n_pyr : blockIdx.x;
+  const int M = is_cell ? g.ks : g.ck;
+  const float* pts = is_cell ? g.cpts + (long long)target * g.ks * 3
+                             : g.pts + (long long)target * g.ck * 3;
+  float* out = is_cell ? a.cout + (long long)target * g.ks
+                       : a.out + (long long)target * g.ck;
+  int th = 0, tv = 0;
+  bool open = true;
+  if (is_cell) {
+    const int c = min(g.cells[target], g.n_pyr - 1);
+    th = c / g.width;
+    tv = c % g.width;
+    open = g.cmask[target] != 0;
+  }
+  const int n = open ? spill_rows(g) : 0;
+
+  // T points a thread, about 64 groups of them (G), and L lanes a group,
+  // as many as the block holds: lane l takes the tile's rows l, l + L, ..
+  // So a thread carries T independent sums, and a crowded target's rows
+  // are split L ways rather than walked by one thread in a chain
+  const int T = min(kSpillPoints, max(1, (M + 63) / 64));
+  const int G = (M + T - 1) / T;
+  const int L = max(1, kSpillThreads / G);
+  const int lane = threadIdx.x / G, grp = threadIdx.x - lane * G;
+  const bool active = lane < L;
+  float zx[kSpillPoints], zy[kSpillPoints], zz[kSpillPoints],
+      acc[kSpillPoints];
+#pragma unroll
+  for (int t = 0; t < kSpillPoints; ++t) {
+    const int m = min(grp + t * G, M - 1);
+    zx[t] = pts[3 * m];
+    zy[t] = pts[3 * m + 1];
+    zz[t] = pts[3 * m + 2];
+    acc[t] = 0.0f;
+  }
+
+  // the thread's rows of a tile: their pyramids, -1 past the count; the
+  // next tile's are loaded while this one is summed
+  auto load = [&](int base, int* pyr) {
+#pragma unroll
+    for (int k = 0; k < kSpillScan; ++k) {
+      const int i = base + threadIdx.x * kSpillScan + k;
+      pyr[k] = i < n ? min(g.pyr[i], g.n_pyr - 1) : -1;
+    }
+  };
+  int cur[kSpillScan], nxt[kSpillScan];
+#pragma unroll
+  for (int k = 0; k < kSpillScan; ++k) nxt[k] = -1;
+  load(0, cur);
+  const int wid = threadIdx.x / 32, wl = threadIdx.x % 32;
+  for (int base = 0, buf = 0; base < n; base += kSpillTile, buf ^= 1) {
+    unsigned hits = 0;
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < kSpillScan; ++k) {
+      const int p = cur[k];
+      const bool hit = p >= 0 && (is_cell ? spill_adjacent(p, th, tv, g)
+                                          : p == target);
+      hits |= (unsigned)hit << k;
+      c += hit;
+    }
+    if (base + kSpillTile < n) load(base + kSpillTile, nxt);
+    // block-wide exclusive scan of the counts: the rows keep buffer order
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o *= 2) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (wl >= o) incl += y;
+    }
+    if (wl == 31) warp_n[buf][wid] = incl;
+    __syncthreads();
+    int at = incl - c, total = 0;
+#pragma unroll
+    for (int k = 0; k < kSpillWarps; ++k) {
+      const int x = warp_n[buf][k];
+      at += k < wid ? x : 0;
+      total += x;
+    }
+    if (total > 0) {
+      const int first = base + threadIdx.x * kSpillScan;
+#pragma unroll
+      for (int k = 0; k < kSpillScan; ++k) {
+        if (hits >> k & 1u) {
+          const int i = first + k;
+          part[buf][at++] = make_float4(g.pos[3 * i], g.pos[3 * i + 1],
+                                        g.pos[3 * i + 2], mulf(kC3, a.w[i]));
+        }
+      }
+      __syncthreads();
+      if (active) {
+#pragma unroll 2
+        for (int s = lane; s < total; s += L) {
+          const float4 b = part[buf][s];
+#pragma unroll
+          for (int t = 0; t < kSpillPoints; ++t)
+            if (t < T) acc[t] = pair_term(zx[t], zy[t], zz[t], b, acc[t]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSpillScan; ++k) cur[k] = nxt[k];
+  }
+
+  // the lanes' sums meet in lane order
+  if (L > 1) {
+    if (active) {
+#pragma unroll
+      for (int t = 0; t < kSpillPoints; ++t)
+        lanes_acc[threadIdx.x * kSpillPoints + t] = acc[t];
+    }
+    __syncthreads();
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int t = 0; t < kSpillPoints; ++t) {
+      const int m = grp + t * G;
+      if (t < T && m < M) {
+        float s = acc[t];
+        for (int l = 1; l < L; ++l)
+          s += lanes_acc[(l * G + grp) * kSpillPoints + t];
+        out[m] = s;
+      }
+    }
+  }
+}
+
+// a warp a row of the buffer, rows strided over the grid
+__global__ void __launch_bounds__(kSpillThreads)
+spill_factor_kernel(SpillSumArgs a) {
+  // the open spill cells, in cell order: index, h, v
+  extern __shared__ int open_cells[];
+  __shared__ int n_open;
+  const SpillGrid& g = a.g;
+  if (threadIdx.x < 32) {  // one warp compacts them, keeping their order
+    int at = 0;
+    for (int y0 = 0; y0 < g.yc; y0 += 32) {
+      const int y = y0 + threadIdx.x;
+      const bool open = y < g.yc && g.cmask[y] != 0;
+      const unsigned ball = __ballot_sync(0xffffffffu, open);
+      if (open) {
+        const int k = at + __popc(ball & ((1u << threadIdx.x) - 1u));
+        const int c = min(g.cells[y], g.n_pyr - 1);
+        open_cells[3 * k] = y;
+        open_cells[3 * k + 1] = c / g.width;
+        open_cells[3 * k + 2] = c % g.width;
+      }
+      at += __popc(ball);
+    }
+    if (threadIdx.x == 0) n_open = at;
+  }
+  __syncthreads();
+  const int n = spill_rows(g), n_cells = n_open;
+  const int wl = threadIdx.x % 32;
+  const int stride = gridDim.x * kSpillWarps;
+  for (int i = blockIdx.x * kSpillWarps + threadIdx.x / 32; i < g.rows;
+       i += stride) {
+    if (i >= n) {
+      if (wl == 0) a.out[i] = 0.0f;
+      continue;
+    }
+    const int p = min(g.pyr[i], g.n_pyr - 1);
+    const float px = g.pos[3 * i], py = g.pos[3 * i + 1], pz = g.pos[3 * i + 2];
+    const float* z = g.pts + (long long)p * g.ck * 3;
+    const float* cv = a.cinv + (long long)p * g.ck;
+    float dense = 0.0f;
+#pragma unroll 4
+    for (int m = wl; m < g.ck; m += 32)
+      dense = pair_term(px, py, pz,
+                        make_float4(z[3 * m], z[3 * m + 1], z[3 * m + 2],
+                                    mulf(kC3, cv[m])),
+                        dense);
+    float spill = 0.0f;
+    const int h = p / g.width, v = p % g.width;
+    for (int k = 0; k < n_cells; ++k) {
+      if (abs(open_cells[3 * k + 1] - h) > g.radius ||
+          abs(open_cells[3 * k + 2] - v) > g.radius)
+        continue;
+      const int y = open_cells[3 * k];
+      const float* s = g.cpts + (long long)y * g.ks * 3;
+      const float* sc = a.ccinv + (long long)y * g.ks;
+#pragma unroll 4
+      for (int j = wl; j < g.ks; j += 32)
+        spill = pair_term(px, py, pz,
+                          make_float4(s[3 * j], s[3 * j + 1], s[3 * j + 2],
+                                      mulf(kC3, sc[j])),
+                          spill);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) {
+      dense += __shfl_xor_sync(0xffffffffu, dense, o);
+      spill += __shfl_xor_sync(0xffffffffu, spill, o);
+    }
+    if (wl == 0) a.out[i] = g.yc > 0 ? dense + spill : dense;
+  }
+}
+
+// ptrs: pos pyr count pts cpts cells cmask, then the pass's own;
+// iparams: Psp n_pyr CK Yc Ks width radius
+int spill_grid(const uint64_t* p, const int* ip, SpillGrid* g) {
+  g->pos = dptr<const float>(p, 0);
+  g->pyr = dptr<const int>(p, 1);
+  g->count = dptr<const int>(p, 2);
+  g->pts = dptr<const float>(p, 3);
+  g->cpts = dptr<const float>(p, 4);
+  g->cells = dptr<const int>(p, 5);
+  g->cmask = dptr<const unsigned char>(p, 6);
+  g->rows = ip[0];
+  g->n_pyr = ip[1];
+  g->ck = ip[2];
+  g->yc = ip[3];
+  g->ks = ip[4];
+  g->width = ip[5];
+  g->radius = ip[6];
+  if (g->rows < 0 || g->n_pyr < 1 || g->ck < 1 || g->yc < 0 || g->width < 1 ||
+      g->radius < 0 || g->ck > kSpillThreads * kSpillPoints ||
+      (g->yc > 0 && (g->ks < 1 || g->ks > kSpillThreads * kSpillPoints)) ||
+      g->yc > 2048)  // pass 2 lists the open cells in 12 bytes each
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// ptrs: the grid's, then w out cout
+int launch_spill_pass1(const uint64_t* p, const int* ip, void* stream) {
+  SpillCzArgs a;
+  if (const int rc = spill_grid(p, ip, &a.g)) return rc;
+  a.w = dptr<const float>(p, 7);
+  a.out = dptr<float>(p, 8);
+  a.cout = dptr<float>(p, 9);
+  const unsigned blocks = (unsigned)(a.g.n_pyr + a.g.yc);
+  spill_cz_kernel<<<blocks, kSpillThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: the grid's, then cinv ccinv out
+int launch_spill_pass2(const uint64_t* p, const int* ip, void* stream) {
+  SpillSumArgs a;
+  if (const int rc = spill_grid(p, ip, &a.g)) return rc;
+  a.cinv = dptr<const float>(p, 7);
+  a.ccinv = dptr<const float>(p, 8);
+  a.out = dptr<float>(p, 9);
+  if (a.g.rows == 0) return 0;
+  // a fixed grid, as the capacity gives it: a row a warp up to 65,536 rows
+  const int blocks = min((a.g.rows + kSpillWarps - 1) / kSpillWarps, 8192);
+  const size_t smem = sizeof(int) * 3 * (size_t)max(a.g.yc, 1);
+  spill_factor_kernel<<<blocks, kSpillThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ptrs: pos w pts out;  iparams: rows S_t CK
@@ -291,4 +639,18 @@ DSPMAP_API int dspmap_update_pass1(const uint64_t* p, const float*, const int* i
 DSPMAP_API int dspmap_update_pass2(const uint64_t* p, const float*, const int* ip,
                                    void* stream) {
   return launch_pass2(p, ip, stream);
+}
+
+// ptrs: pos pyr count pts cpts cells cmask w out cout;
+// iparams: Psp n_pyr CK Yc Ks width radius
+DSPMAP_API int dspmap_spill_pass1(const uint64_t* p, const float*, const int* ip,
+                                  void* stream) {
+  return launch_spill_pass1(p, ip, stream);
+}
+
+// ptrs: pos pyr count pts cpts cells cmask cinv ccinv out;
+// iparams: Psp n_pyr CK Yc Ks width radius
+DSPMAP_API int dspmap_spill_pass2(const uint64_t* p, const float*, const int* ip,
+                                  void* stream) {
+  return launch_spill_pass2(p, ip, stream);
 }

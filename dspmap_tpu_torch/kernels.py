@@ -39,13 +39,15 @@ SOURCES = ("occupancy.cu", "sweep.cu", "update.cu", "segscan.cu",
            "relayout.cu", "assignment.cu", "cluster.cu")
 ENTRY_POINTS = ("dspmap_occupancy_pool_pass", "dspmap_sweep",
                 "dspmap_update_pass1", "dspmap_update_pass2",
+                "dspmap_spill_pass1", "dspmap_spill_pass2",
                 "dspmap_seg_scans", "dspmap_to_flat", "dspmap_from_flat",
                 "dspmap_jv_solve", "dspmap_euclidean_cluster")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"occupancy_pool_pass": 0, "sweep": 0,
-            "update_pass1": 0, "update_pass2": 0, "seg_scans": 0,
+            "update_pass1": 0, "update_pass2": 0, "spill_pass1": 0,
+            "spill_pass2": 0, "seg_scans": 0,
             "to_flat": 0, "from_flat": 0, "jv_solve": 0,
             "euclidean_cluster": 0}
 

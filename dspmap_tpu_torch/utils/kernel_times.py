@@ -29,6 +29,9 @@ Prints the card's name and power limit, then one JSON line a measurement:
   as the step calls them, with the operands scaled once for both passes,
   and ``bits``, a SHA-256 of the output's bytes (two checkouts whose pass
   gives the same bits print the same digest);
+* ``spill_pass1`` and ``spill_pass2`` (where the checkout has them) on
+  :data:`SPILL_CASES`' four cases, with the pair terms of a pass and
+  ``bits``;
 * ``K4`` at large_urban's 131,072 rows for the four calls of a compact
   frame, each with the column types the step passes (a checkout whose
   wrapper casts and stacks the columns first pays for that in ``ms``, as
@@ -69,6 +72,23 @@ JV_NAMES = ("jv_",)
 #: static and the multi-neighbor paths
 PAIR_SHAPES = {"flagship": (448, 64, 288), "static": (504, 32, 288),
                "multi": (4536, 16, 400)}
+#: the spill kernels' cases: (preset, its overrides, spill particles) at
+#: the capacities the benchmark's cells run: the flagship's 4,096, the
+#: static map's 8,192 (its pyramid capacity raised to 480), large_urban's
+#: 65,536 (pyramids of 2,048) and the multi-neighbor preset's 4,096 at
+#: radius 2; the fills about a street frame's (a median of some 2,400 on
+#: the flagship, 2,850 on the static map with peaks of 3,825, 32,000-36,000
+#: on large_urban; multi's has no cell to read it from)
+SPILL_CASES = {
+    "flagship": ("flagship", {}, 2000),
+    "static": ("static", dict(pyramid_slot_capacity=480,
+                              particle_spill_capacity=8192), 3800),
+    "large_urban": ("large_urban", dict(particle_spill_capacity=65536,
+                                        pyramid_slot_capacity=2048), 45000),
+    "multi": ("multi", {}, 2000),
+}
+#: substrings of the spill kernels' ``__global__`` names
+SPILL1_NAMES, SPILL2_NAMES = ("spill_cz",), ("spill_factor",)
 #: (n_tot, max_run, column types) of the compact step's four seg_scans
 #: calls at large_urban (S = 10): occupancy_compact's two (reach 32), then
 #: segment_table's in birth and in rebin (reach 16)
@@ -212,6 +232,82 @@ def pair_operands(rows, st, ck, sigma, rng, device):
     cinv = (rng.random((rows, ck)) * (rng.random((rows, ck)) > 0.5))
     return tuple(torch.from_numpy(x.astype(np.float32)).to(device)
                  for x in (pos, pts, w, cinv))
+
+
+def spill_config(name):
+    """The configuration of :data:`SPILL_CASES`' case ``name``."""
+    import dspmap_tpu_torch as dm
+
+    preset, overrides, _ = SPILL_CASES[name]
+    if preset == "large_urban":
+        return dm.large_urban(**overrides)
+    make = {"flagship": dm.dsp_dynamic, "static": dm.dsp_static,
+            "multi": dm.dsp_dynamic_multi_neighbors}[preset]
+    return dm.example_node_settings(make(**overrides))
+
+
+def spill_pairs(o, cfg) -> int:
+    """The pair terms of one spill pass on :func:`spill_operands`' ``o``:
+    each valid particle's CK points and the points of every open spill
+    cell within the radius of its pyramid."""
+    W, r = cfg.n_pyramids_v, cfg.pyramid_neighbor_radius
+    pyr = o["sp_pyr"][o["sp_mask"]].long().cpu()
+    cells = o["cells"][o["cell_mask"]].long().cpu()
+    near = (((pyr[:, None] // W - cells[None, :] // W).abs() <= r)
+            & ((pyr[:, None] % W - cells[None, :] % W).abs() <= r))
+    ck = o["nbr_pts"].shape[1]
+    return int(len(pyr) * ck + int(near.sum()) * o["cell_pts"].shape[1])
+
+
+def spill_operands(cfg, n_valid, rng, device, n_open=10):
+    """The spill tier's operands as ``measurement_update`` hands them to
+    ``ops.update.spill_pass1`` / ``spill_pass2``, with the configuration's
+    shapes: ``n_valid`` spill particles (a prefix of the
+    ``particle_spill_capacity`` rows, in no pyramid order), crowded into
+    as few pyramids as their ``pyramid_slots - dense_slots`` spill slots
+    allow (at least an eighth of the grid), as the street's ground and
+    walls crowd them; ``n_open`` open spill cells (of
+    ``obs_spill_capacity``) on those pyramids, the rest closed on the
+    sentinel.  A pyramid's particles and points lie within some 0.3 m of a
+    centre a few metres out, so most pairs of one neighbourhood count.
+    Returns a dict of tensors on ``device``: ``sp_pos``, ``sp_w`` (0 past
+    the prefix), ``sp_pyr``, ``sp_mask``, ``nbr_pts``, ``cell_pts``,
+    ``cells``, ``cell_mask``, ``nbr_cinv``, ``cell_cinv`` (0 on a fifth of
+    the points, as on masked ones)."""
+    import numpy as np
+    import torch
+
+    n_pyr, psp = cfg.n_pyramids, cfg.particle_spill_capacity
+    ck = cfg.neighbor_cells * cfg.obs_dense
+    ks = max(cfg.max_obs_points_per_pyramid - cfg.obs_dense, 1)
+    yc = cfg.obs_spill_capacity
+    per = cfg.pyramid_slots - cfg.dense_slots
+    n_busy = min(n_pyr, max(-(-n_valid // per), n_pyr // 8, 1))
+    busy = rng.choice(n_pyr, n_busy, replace=False)
+    pyr = np.full(psp, n_pyr, np.int32)
+    pyr[:n_valid] = rng.permutation(np.repeat(busy, per))[:n_valid]
+    centre = np.stack([rng.uniform(2, 6, n_pyr), rng.uniform(-2, 2, n_pyr),
+                       rng.uniform(0, 2, n_pyr)], -1)
+    near = lambda at, shape: (at + rng.normal(0, 0.3, shape + (3,)))  # noqa: E731
+    pos = np.zeros((psp, 3))
+    pos[:n_valid] = near(centre[pyr[:n_valid]], (n_valid,))
+    w = np.zeros(psp)
+    w[:n_valid] = rng.random(n_valid) * (rng.random(n_valid) > 0.1)
+    nbr = near(centre[:, None, :], (n_pyr, ck))
+    n_open = min(n_open, yc)
+    cells = np.full(yc, n_pyr, np.int32)
+    cells[:n_open] = rng.choice(busy, n_open, replace=n_open > n_busy)
+    cell_pts = near(centre[np.minimum(cells, n_pyr - 1)][:, None, :],
+                    (yc, ks))
+    cinv = lambda shape: rng.random(shape) * (rng.random(shape) > 0.2)  # noqa: E731
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)  # noqa: E731
+    return dict(
+        sp_pos=f32(pos), sp_w=f32(w), sp_pyr=torch.from_numpy(pyr).to(device),
+        sp_mask=torch.from_numpy(np.arange(psp) < n_valid).to(device),
+        nbr_pts=f32(nbr), cell_pts=f32(cell_pts),
+        cells=torch.from_numpy(cells).to(device),
+        cell_mask=torch.from_numpy(np.arange(yc) < n_open).to(device),
+        nbr_cinv=f32(cinv((n_pyr, ck))), cell_cinv=f32(cinv((yc, ks))))
 
 
 def segscan_case(P, types, max_run, device, seed=0):
@@ -467,6 +563,29 @@ def main(argv) -> int:
             say(kernel=kernel, path=name, rows=rows, S_t=st, CK=ck,
                 ms=median_ms(run), device_ms=device_ms(run, names=names),
                 bits=bits)
+
+    if hasattr(update, "spill_pass1"):
+        for name, (_, _, n_valid) in SPILL_CASES.items():
+            cfg = spill_config(name)
+            o = spill_operands(cfg, n_valid, np.random.default_rng(0), device)
+            sigma = float(np.float32(cfg.sigma_ob))
+            args = (o["sp_pos"], o["sp_w"], o["sp_pyr"], o["sp_mask"],
+                    o["nbr_pts"], o["cell_pts"], o["cells"], o["cell_mask"],
+                    cfg, sigma)
+            carry = update.spill_pass1(*args)[2]
+            for kernel, run, names in (
+                    ("spill_pass1", lambda: update.spill_pass1(*args),
+                     SPILL1_NAMES),
+                    ("spill_pass2", lambda: update.spill_pass2(
+                        carry, o["nbr_cinv"], o["cell_cinv"]), SPILL2_NAMES)):
+                out = run()
+                got = out[0] if isinstance(out, tuple) else out
+                say(kernel=kernel, path=name,
+                    capacity=cfg.particle_spill_capacity, valid=n_valid,
+                    pairs=spill_pairs(o, cfg), ms=median_ms(run),
+                    device_ms=device_ms(run, names=names),
+                    bits=hashlib.sha256(
+                        got.cpu().numpy().tobytes()).hexdigest())
 
     P = dm.large_urban().compact_capacity
     for n_tot, max_run, types in SEGSCAN_CALLS:

@@ -13,7 +13,8 @@ that each ``measurement_update`` of the card step returns, and
 place of its own, so that the comparison holds birth and occupancy alone.
 :func:`agreement` measures the two results, which
 :func:`missed_bars` holds to :data:`PINNED_BARS` (or to
-:func:`free_bars` where the CPU step keeps its own update).
+:func:`free_bars` where the CPU step keeps its own update, which
+:func:`updates_in_float64` makes in float64).
 :func:`placed_alike` reads the compact layout's population by voxel, and
 :func:`rows_parted` where two such populations part, row by row;
 :func:`particles_recorded` keeps the particles that given stages of a step
@@ -66,29 +67,68 @@ def updates_recorded(sink: list):
     return _stage_wrapped("measurement_update", wrap)
 
 
+def _taken(p, norm_coeff, q, nc):
+    """The particles ``q`` and ``nc`` moved to ``p``'s device and dtypes in
+    place of ``p`` and ``norm_coeff``.  A plane of ``p`` that is a working
+    buffer (``ops/common.py::padded_buffer``) takes ``q``'s plane in
+    place, so that the later stages write into it as they would."""
+    planes = {}
+    for f in dataclasses.fields(p):
+        mine = getattr(p, f.name)
+        theirs = getattr(q, f.name).to(mine.device, mine.dtype)
+        if padded_buffer(mine) is not None:
+            mine.copy_(theirs)
+        else:
+            planes[f.name] = theirs
+    return (dataclasses.replace(p, **planes),
+            nc.to(norm_coeff.device, norm_coeff.dtype))
+
+
 def updates_pinned(pending: list):
     """Within the block, each ``measurement_update`` of a step runs, then
     returns the next particles and ``norm_coeff`` of ``pending`` (removed
-    from it), moved to the step's device, in place of its own; its
-    counters stay its own.  Birth takes that ``norm_coeff``.  A plane the
-    update returns as a working buffer (``ops/common.py::padded_buffer``)
-    takes the pinned plane in place, so that the later stages write into
-    it as they would."""
+    from it) in place of its own (:func:`_taken`); its counters stay its
+    own.  Birth takes that ``norm_coeff``."""
     def wrap(update):
         def pinned(*a, **kw):
             p, norm_coeff, stats = update(*a, **kw)
-            q, nc = pending.pop(0)
-            planes = {}
-            for f in dataclasses.fields(p):
-                mine = getattr(p, f.name)
-                theirs = getattr(q, f.name).to(mine.device)
-                if padded_buffer(mine) is not None:
-                    mine.copy_(theirs)
-                else:
-                    planes[f.name] = theirs
-            return (dataclasses.replace(p, **planes),
-                    nc.to(norm_coeff.device), stats)
+            return (*_taken(p, norm_coeff, *pending.pop(0)), stats)
         return pinned
+    return _stage_wrapped("measurement_update", wrap)
+
+
+def _cast(x, dtype):
+    """``x`` with every float tensor cast to ``dtype``, through
+    dataclasses, named tuples and sequences."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype) if x.is_floating_point() else x
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _cast(getattr(x, f.name), dtype)
+            for f in dataclasses.fields(x)})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_cast(v, dtype) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cast(v, dtype) for v in x)
+    return x
+
+
+def updates_in_float64():
+    """Within the block, each ``measurement_update`` of a step runs on its
+    inputs cast to float64 (new planes, so that a working buffer among them
+    is not written), then runs as it would, and returns the first run's
+    particles and ``norm_coeff``, rounded to float32, in place of its own
+    (:func:`_taken`); its counters stay its own.  On the CPU the update's
+    plain blocks then lose nothing to their ``|a|^2 + |b|^2 - 2ab`` form,
+    which in float32 loses ``|a|^2 2^-24`` at world coordinates: a step
+    whose update is exact up to its last rounding."""
+    def wrap(update):
+        def exact(*a, **kw):
+            q, nc, _ = update(*_cast(a, torch.float64),
+                              **_cast(kw, torch.float64))
+            p, norm_coeff, stats = update(*a, **kw)
+            return (*_taken(p, norm_coeff, q, nc), stats)
+        return exact
     return _stage_wrapped("measurement_update", wrap)
 
 

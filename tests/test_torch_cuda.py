@@ -24,7 +24,9 @@ from dspmap_tpu_torch.utils.kernel_times import (CLUSTER_KINDS,
                                                  CLUSTER_TOLERANCE,
                                                  cluster_case, jv_case,
                                                  jv_numpy, jv_worst_chain,
-                                                 pair_operands, segscan_case)
+                                                 SPILL_CASES, pair_operands,
+                                                 segscan_case, spill_config,
+                                                 spill_operands)
 
 pytestmark = pytest.mark.cuda
 
@@ -302,6 +304,177 @@ def test_pass2_takes_unaligned_operands(device):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _spill_case(name):
+    """``(configuration, a street frame's spill particles)`` of
+    ``kernel_times.SPILL_CASES``' case ``name``: a configuration whose
+    update runs the spill kernels, at the capacity its cell runs."""
+    return spill_config(name), SPILL_CASES[name][2]
+
+
+def _spill_call(o, cfg, plain=False, dtype=torch.float32):
+    """``(c_pyr, c_cell, sum_sp)`` of the two spill passes on ``o``
+    (:func:`spill_operands`): the kernels, or the plain versions in
+    ``dtype``."""
+    t = {k: v.to(dtype) if v.is_floating_point() else v for k, v in o.items()}
+    sigma = float(np.float32(cfg.sigma_ob))
+    args = (t["sp_pos"], t["sp_w"], t["sp_pyr"], t["sp_mask"], t["nbr_pts"],
+            t["cell_pts"], t["cells"], t["cell_mask"], cfg, sigma)
+    if plain:
+        c_pyr, c_cell, carry = update.spill_pass1_plain(*args)
+        return c_pyr, c_cell, update.spill_pass2_plain(
+            carry, t["nbr_cinv"], t["cell_cinv"])
+    c_pyr, c_cell, carry = update.spill_pass1(*args)
+    return c_pyr, c_cell, update.spill_pass2(carry, t["nbr_cinv"],
+                                             t["cell_cinv"])
+
+
+@pytest.mark.parametrize("fill", ["empty", "street", "full"])
+@pytest.mark.parametrize("preset", sorted(SPILL_CASES))
+def test_spill_kernels_match_float64(device, preset, fill):
+    """Both spill kernels within K3's bar (rtol 2e-5, atol 1e-6) of the
+    plain spill blocks evaluated in float64, on an empty spill tier, a
+    street frame's and one filled to capacity; pass 2 gives 0 on the rows
+    past the valid ones."""
+    cfg, street = _spill_case(preset)
+    n = {"empty": 0, "street": street,
+         "full": cfg.particle_spill_capacity}[fill]
+    o = spill_operands(cfg, n, np.random.default_rng(3), device)
+    got = _spill_call(o, cfg)
+    want = _spill_call(o, cfg, plain=True, dtype=torch.float64)
+    valid = o["sp_mask"]
+    for name, g, w in zip(("c_pyr", "c_cell", "sum_sp"), got, want):
+        if name == "sum_sp":
+            assert not bool(g[~valid].any())
+            g, w = g[valid], w[valid]
+        torch.testing.assert_close(g.double(), w, rtol=2e-5, atol=1e-6,
+                                   msg=name)
+        if n:
+            assert float(w.max()) > 1e-2, name
+
+
+@pytest.mark.parametrize("preset", sorted(SPILL_CASES))
+def test_spill_kernels_give_the_same_bits_every_call(device, preset):
+    """Both passes sum in a fixed order without atomics: two calls on the
+    same operands agree bit for bit, also with another call between, and
+    each call counts one launch of each kernel."""
+    cfg, street = _spill_case(preset)
+    o = spill_operands(cfg, street, np.random.default_rng(7), device)
+    other = spill_operands(cfg, street // 2, np.random.default_rng(8), device)
+    n0 = dict(kernels.LAUNCHES)
+    first = _spill_call(o, cfg)
+    _spill_call(other, cfg)
+    second = _spill_call(o, cfg)
+    for name in ("spill_pass1", "spill_pass2"):
+        assert kernels.LAUNCHES[name] == n0[name] + 3
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_spill_wrappers_refuse_what_the_kernels_do_not_take(device):
+    """Float64 operands, or a neighbourhood of another pyramid count,
+    raise on CUDA tensors; nothing falls back to the plain version."""
+    cfg, street = _spill_case("flagship")
+    o = spill_operands(cfg, street, np.random.default_rng(1), device)
+    args = lambda **kw: tuple({**o, **kw}[k] for k in (  # noqa: E731
+        "sp_pos", "sp_w", "sp_pyr", "sp_mask", "nbr_pts", "cell_pts",
+        "cells", "cell_mask")) + (cfg, 0.1)
+    n0 = dict(kernels.LAUNCHES)
+    with pytest.raises(TypeError):
+        update.spill_pass1(*args(sp_pos=o["sp_pos"].double()))
+    with pytest.raises(ValueError):
+        update.spill_pass1(*args(nbr_pts=o["nbr_pts"][:-1].contiguous()))
+    assert kernels.LAUNCHES == n0
+
+
+def test_spill_kernels_sync_nothing_and_graph(device):
+    """Both passes read the count of valid rows on the card: no host sync
+    (sync-debug mode raises on one), and a captured graph replayed on new
+    operands of another count gives the eager call's bits."""
+    cfg, street = _spill_case("flagship")
+    o = spill_operands(cfg, street, np.random.default_rng(1), device)
+    _spill_call(o, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _spill_call(o, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    static = {k: v.clone() for k, v in o.items()}
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _spill_call(static, cfg)
+        with torch.cuda.graph(graph):
+            out = _spill_call(static, cfg)
+    torch.cuda.current_stream().wait_stream(stream)
+    new = spill_operands(cfg, street // 3, np.random.default_rng(2), device)
+    for k, v in new.items():
+        static[k].copy_(v)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, _spill_call(new, cfg)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_the_update_allocates_no_padded_spill_block(device):
+    """One ``measurement_update`` at large_urban's shapes (65,536 spill
+    rows, 45,000 of them valid, 64 spill cells of 68 points) allocates
+    well under the 1.14 GB of the padded [Psp, Yc * Ks] block the plain
+    version builds: the card path holds no [Psp, Yc * Ks], [Psp, CK] or
+    [n_pyr, Psp] tensor."""
+    from dspmap_tpu_torch.ops.fov import FovBinning
+    from dspmap_tpu_torch.ops.project import Observation
+    cfg, street = _spill_case("large_urban")
+    rng = np.random.default_rng(5)
+    o = spill_operands(cfg, street, rng, device)
+    n_pyr, S_t, Ko = cfg.n_pyramids, cfg.dense_slots, cfg.obs_dense
+    yc, ks = o["cell_pts"].shape[:2]
+    total = cfg.compact_capacity
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)  # noqa: E731
+    i32 = lambda x: torch.from_numpy(np.asarray(x, np.int32)).to(device)  # noqa: E731
+    b = lambda x: torch.from_numpy(np.asarray(x, bool)).to(device)  # noqa: E731
+    psp = cfg.particle_spill_capacity
+    fovbin = FovBinning(
+        pos=o["nbr_pts"][:, :S_t].contiguous(),
+        weight=f(rng.random((n_pyr, S_t))), rng=f(rng.uniform(1, 8, (n_pyr, S_t))),
+        mask=b(rng.random((n_pyr, S_t)) < 0.7),
+        slot=i32(rng.integers(0, total, (n_pyr, S_t))),
+        sp_pos=o["sp_pos"], sp_weight=o["sp_w"],
+        sp_rng=f(rng.uniform(1, 8, psp)), sp_pyr=o["sp_pyr"],
+        sp_mask=o["sp_mask"], sp_slot=i32(rng.integers(0, total, psp)),
+        sp_overflow=i32(0))
+    obs = Observation(
+        points=o["nbr_pts"][:, :Ko].contiguous(),
+        mask=b(rng.random((n_pyr, Ko)) < 0.8),
+        counts=i32(np.full(n_pyr, Ko)), max_range=f(np.full(n_pyr, 9.0)),
+        n_valid_points=i32(5000), cloud_world=f(np.zeros((5000, 3))),
+        cloud_valid=b(np.ones(5000)), spill_cells=o["cells"],
+        spill_cell_mask=o["cell_mask"], spill_pts=o["cell_pts"],
+        spill_pts_mask=b(rng.random((yc, ks)) < 0.8),
+        spill_overflow=i32(0))
+    zeros = torch.zeros(total, dtype=torch.float32, device=device)
+    particles = T.Particles(
+        flags=torch.ones(total, dtype=torch.int32, device=device),
+        px=zeros, py=zeros, pz=zeros, vx=zeros, vy=zeros, vz=zeros,
+        weight=f(rng.random(total)), t=zeros)
+    rt = T.RuntimeParams.from_config(cfg)
+    args = (particles, fovbin, obs, cfg, f(1e-3), 0.0, rt)
+    update.measurement_update(*args)  # build and warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    n0 = dict(kernels.LAUNCHES)
+    new, norm, stats = update.measurement_update(*args)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - base
+    assert grew < 200 * 2**20, grew
+    assert kernels.LAUNCHES["spill_pass1"] == n0["spill_pass1"] + 1
+    assert kernels.LAUNCHES["spill_pass2"] == n0["spill_pass2"] + 1
+    assert 0 < int(stats["update_spilled"]) <= street
+    assert bool(torch.isfinite(norm)) and float(norm) > 0
+
+
 #: the compact step's seg_scans calls at large_urban (S = 10): (columns,
 #: n_tot, max_run) of occupancy_compact's two calls and of segment_table's
 #: calls in birth and rebin (reach 32, 32, 16, 16: the warp form); then the
@@ -560,7 +733,8 @@ def test_relayout_batched_bit_equal(device, n):
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_preset_frames_on_the_card(device, preset):
     """Three frames of the full-width preset through ``make_step`` on the
-    card: one launch of K1, K2, K3a and K3b a frame, the relayout kernels
+    card: one launch of K1, K2, K3a, K3b and the two spill kernels a
+    frame, the relayout kernels
     only where the planes reach 16 MiB (multi: one launch in, one out a
     frame), the JV solve and the clustering once a frame where the
     estimator runs (not on static), a finite map with live particles, the input state left as it
@@ -581,7 +755,8 @@ def test_preset_frames_on_the_card(device, preset):
     big = preset == "multi"
     assert kernels.LAUNCHES == {
         "occupancy_pool_pass": 3, "sweep": 3, "update_pass1": 3,
-        "update_pass2": 3, "seg_scans": 0,
+        "update_pass2": 3, "spill_pass1": 3, "spill_pass2": 3,
+        "seg_scans": 0,
         "to_flat": 3 if big else 0, "from_flat": 3 if big else 0,
         "jv_solve": 0 if preset == "static" else 3,
         "euclidean_cluster": 0 if preset == "static" else 3}
@@ -1212,6 +1387,38 @@ def test_graphed_step_bit_equal_to_eager(device, case, given_draws):
             _outputs_bit_equal(out_a, out_b)
     assert graphed.captures == 1
     assert int(out_b.metrics["alive"]) > 0
+    graphed.release()
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graphed_step_bit_equal_to_eager_on_spilling_frames(device, case):
+    """With four dense slots a pyramid most of the update's particles go
+    through the spill kernels: the graphed step gives the eager step's bits
+    on frames whose ``update_spilled`` is above 0, and a replay launches
+    nothing from the host."""
+    cfg = _cfg(pyramid_dense_slots=4, **GRAPH_CASES[case])
+    frames = [T.Frame(*f) for f in sim.generate_sequence(7, cfg, seed=2)]
+    eager, graphed = T.make_step(cfg), T.make_graphed_step(cfg)
+    state = T.init_state(cfg)
+    for f in frames[:3]:
+        state, _ = eager(state, f)
+    g = _seeded(6, device)
+    a = dataclasses.replace(state, gen=_seeded(7, device))
+    b = dataclasses.replace(state, gen=_seeded(7, device))
+    spilled = []
+    for k, f in enumerate(frames[3:]):
+        d = T.make_draws(cfg, g, device)
+        n0 = dict(kernels.LAUNCHES)
+        a, out_a = eager(a, f, d)
+        assert kernels.LAUNCHES["spill_pass1"] == n0["spill_pass1"] + 1
+        n0 = dict(kernels.LAUNCHES)
+        b, out_b = graphed(b, f, d)
+        if k > 0:
+            assert kernels.LAUNCHES == n0
+        _bit_equal_states(a, b)
+        _outputs_bit_equal(out_a, out_b)
+        spilled.append(int(out_b.metrics["update_spilled"]))
+    assert min(spilled) > 0, spilled
     graphed.release()
 
 

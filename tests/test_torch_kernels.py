@@ -262,6 +262,7 @@ def test_kernel_build_targets_hopper_only():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert set(kernels.LAUNCHES) == {"occupancy_pool_pass", "sweep",
                                      "update_pass1", "update_pass2",
+                                     "spill_pass1", "spill_pass2",
                                      "seg_scans", "to_flat", "from_flat",
                                      "jv_solve", "euclidean_cluster"}
     text = "".join((kernels.CSRC / name).read_text()

@@ -8,6 +8,7 @@ step, its ``card`` mode runs CPU against CPU in a directory where jax is
 blocked, and ``ops/common.py::add_at`` on the CPU is ``index_add_`` bit for
 bit."""
 
+import dataclasses
 import importlib.util
 import os
 import pathlib
@@ -553,6 +554,60 @@ def test_updates_pinned_to_their_own_results_change_no_bit(case,
         again, _ = step(state, frame, draws)
     assert not pending
     assert not parity.differing_leaves(again, plain)
+
+
+@pytest.mark.parametrize("case", ["pool_working_buffers", "compact",
+                                  "two_cameras"])
+def test_updates_in_float64_round_to_the_steps_dtypes(case, monkeypatch):
+    """``updates_in_float64`` gives each ``measurement_update`` (one a
+    camera) its float64 run rounded to float32: the updated weights lie
+    within float32 rounding of the plain step's, every state leaf keeps
+    its dtype and shape, the step meets the free bars against the plain
+    one, and the working buffers the float64 run was handed stay unwritten
+    (the plain step repeats its bits after it)."""
+    import dspmap_tpu_torch as dm
+    from dspmap_tpu_torch import state as state_mod
+    from dspmap_tpu_torch.utils import parity
+
+    n_sensors = 2 if case == "two_cameras" else None
+    if case == "compact":
+        cfg, state = _compact_state()
+    else:
+        if case == "pool_working_buffers":
+            monkeypatch.setattr(state_mod, "_DMA_RELAYOUT_BYTES", 0)
+        cfg = dm.example_node_settings(dm.dsp_dynamic(**SMALL))
+        state = (dm.init_state(cfg, seed=1, device="cpu",
+                               init_particle_num=2000) if n_sensors is None
+                 else dm.init_multisensor_state(cfg, n_sensors, seed=1,
+                                                device="cpu"))
+    step = (dm.make_step(cfg) if n_sensors is None
+            else dm.make_multisensor_step(cfg, n_sensors))
+    first = 3 if case == "compact" else 0
+    frame, draws = _frame_and_draws(cfg, n_sensors, frame_at=first)
+    state, _ = step(state, frame, draws)
+    frame, draws = _frame_and_draws(cfg, n_sensors, frame_at=first + 1)
+    plain_seen, exact_seen = [], []
+    with parity.updates_recorded(plain_seen):
+        plain, plain_out = step(state, frame, draws)
+    with parity.updates_in_float64(), parity.updates_recorded(exact_seen):
+        exact, exact_out = step(state, frame, draws)
+    with parity.updates_recorded([]):
+        again, _ = step(state, frame, draws)
+    assert not parity.differing_leaves(again, plain)
+    assert len(exact_seen) == len(plain_seen) == (n_sensors or 1)
+    for (p, nc), (q, qc) in zip(plain_seen, exact_seen):
+        assert q.weight.dtype == p.weight.dtype == torch.float32
+        assert qc.dtype == nc.dtype == torch.float32
+        live = p.flags != 0
+        assert torch.allclose(q.weight[live], p.weight[live], rtol=1e-4,
+                              atol=1e-7)
+        assert torch.allclose(qc, nc, rtol=1e-4)
+    for f in dataclasses.fields(plain.particles):
+        a, b = getattr(exact.particles, f.name), getattr(plain.particles,
+                                                         f.name)
+        assert a.dtype == b.dtype and a.shape == b.shape
+    m = parity.agreement((exact, exact_out), (plain, plain_out))
+    assert parity.missed_bars(m, parity.free_bars(cfg)) == []
 
 
 def test_a_pinned_weight_across_the_cull_threshold_moves_the_rows():

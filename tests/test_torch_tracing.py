@@ -5,7 +5,8 @@ bits as with it on; on, each eager frame marks its stages once each in the
 body's order (a rig's per-camera stages once a camera), the host spans nest
 under their frame and show in a ``torch.profiler`` trace as ``dspmap.*``
 ranges (the marks falling due under it left unread), and the buffer's cap
-drops and counts.
+drops and counts; ``utils/stage_times.py`` shows the marks in a profile as
+``mark.*`` ranges and charges each kernel to the stage its launch ends in.
 
 Marked ``cuda``: the graphed flagship step on a card, its stage marks
 recorded into the captured graph.  On a machine with an H100 run
@@ -203,6 +204,58 @@ def test_summarize_leaves_out_the_frames_that_captured():
     assert got["stages"] == {"stage.a": 2.5}
     assert got["stages_total"] == 2.5
     assert got["frames"] == 2 and got["unmeasured"] == 1
+
+
+def test_marks_in_profile_leave_a_range_a_mark(traced):
+    """Under ``stage_times.marks_in_profile`` an eager frame's stage marks
+    show in ``torch.profiler``'s host timeline as ``mark.<stage>``, once
+    each; after the block ``profiling.mark`` is the program's again."""
+    from dspmap_tpu_torch.utils import stage_times
+
+    cfg = _cfg()
+    state = T.init_state(cfg, seed=1, device="cpu")
+    frame = T.Frame(*next(sim.generate_sequence(1, cfg, seed=7)))
+    real = profiling.mark
+    with stage_times.marks_in_profile(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        T.make_step(cfg)(state, frame)
+    assert profiling.mark is real
+    names = [e.name for e in prof.events() if e.name.startswith("mark.")]
+    assert sorted(names) == sorted(
+        ["mark." + profiling.START] + ["mark." + s for s in STAGES])
+
+
+def test_attribute_charges_a_kernel_to_the_stage_its_launch_ends_in():
+    """``stage_times.attribute``: a kernel, copy or set is charged, by its
+    launch's correlation, to the first mark after the launch (past the
+    last mark to ``after_last_mark``), per frame, with its costliest
+    names; host ranges and unmatched device events are not charged."""
+    from dspmap_tpu_torch.utils import stage_times
+
+    def x(name, ts, cat=None, dur=0.0, corr=None):
+        e = {"ph": "X", "name": name, "ts": ts, "dur": dur}
+        if cat:
+            e["cat"] = cat
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    events = [x("mark.stage.start", 0), x("mark.stage.a", 10),
+              x("mark.stage.b", 20),
+              x("cudaLaunchKernel", 5, "cuda_runtime", corr=1),
+              x("cudaLaunchKernel", 7, "cuda_runtime", corr=2),
+              x("cudaMemcpyAsync", 15, "cuda_runtime", corr=3),
+              x("cudaLaunchKernel", 25, "cuda_runtime", corr=4),
+              x("k1", 100, "kernel", 3000.0, 1),
+              x("k2", 104, "kernel", 1000.0, 2),
+              x("Memcpy DtoH", 108, "gpu_memcpy", 2000.0, 3),
+              x("k1", 110, "kernel", 500.0, 4),
+              x("k3", 112, "kernel", 9000.0, 99),
+              x("dspmap.step", 0, "user_annotation", 30.0)]
+    got = stage_times.attribute(events, frames=2, top=1)
+    assert got == {"stage.a": {"ms": 2.0, "top": [["k1", 1.5]]},
+                   "stage.b": {"ms": 1.0, "top": [["Memcpy DtoH", 1.0]]},
+                   "after_last_mark": {"ms": 0.25, "top": [["k1", 0.25]]}}
 
 
 @pytest.fixture
